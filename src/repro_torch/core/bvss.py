@@ -1,0 +1,270 @@
+"""Binarised Virtual Slice Sets (BVSS) — the paper's core data structure (§3).
+
+The single-device half of ``repro/core/bvss.py``: host construction is the
+same vectorised NumPy (byte-equal arrays), and :func:`to_device` hands the
+arrays to PyTorch on an explicit device.  Layout (σ = slice width in bits,
+LANES = 32 words per VSS row-group, slices_per_word = 32 // σ,
+τ = LANES * slices_per_word):
+
+* column *intervals* of σ consecutive columns of A^T form *slice sets*;
+* a (row u, interval i) pair with ≥1 edge is a *slice*, its σ-bit mask holds
+  A^T[u, σi : σ(i+1)];
+* each slice set is split into *virtual* slice sets of ≤ τ slices (the unit
+  of work), the last VSS of a set is padded to τ with zero masks / dummy rows;
+* within a VSS, slices sorted by row id are laid out column-major over
+  (slot, lane): slice k lives in lane ``k % 32``, sub-word slot ``k // 32``
+  — the paper's Fig. 2(c) layout.  On Hopper a VSS row-group is one warp:
+  lane ``l`` owns mask word ``l``.
+
+Device mask words are ``torch.int32`` holding the uint32 bit patterns
+unchanged (PyTorch has no shifts on ``torch.uint32``); every consumer masks
+after a right shift, so the sign extension of ``>>`` never leaks.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.errors import ConfigError, GraphValidationError
+from repro_torch.graphs import Graph
+
+LANES = 32  # 32-bit words per VSS row-group (paper: WARP_SIZE)
+
+
+@dataclasses.dataclass(frozen=True)
+class BVSS:
+    """Host-side BVSS arrays + structural metadata."""
+
+    n: int                      # number of vertices
+    m: int                      # number of edges
+    sigma: int                  # slice width (bits)
+    tau: int                    # slices per VSS = LANES * (32 // sigma)
+    n_sets: int                 # ceil(n / sigma) real slice sets
+    num_vss: int
+    num_slices: int             # unpadded slices
+    # static arrays (paper §3.1)
+    masks: np.ndarray           # (num_vss, LANES) uint32; slot j of word l
+                                #   = mask of slice k = j*LANES + l
+    row_ids: np.ndarray         # (num_vss, 32//sigma, LANES) int32; dummy = n
+    real_ptrs: np.ndarray       # (n_sets + 1,) int32: slice set -> VSS range
+    virtual_to_real: np.ndarray  # (num_vss,) int32
+
+    @staticmethod
+    def from_arrays(masks: np.ndarray, row_ids: np.ndarray,
+                    real_ptrs: np.ndarray, virtual_to_real: np.ndarray, *,
+                    n: int, m: int, sigma: int) -> "BVSS":
+        """Wrap host arrays built elsewhere (e.g. by the JAX reference's
+        ``build_bvss``) as this port's :class:`BVSS`, so both packages can
+        run on the very same state.  Shapes and dtypes are validated; the
+        derived counts (``tau``, ``n_sets``, ``num_vss``, ``num_slices``)
+        are recomputed from the arrays."""
+        if not (1 <= sigma <= 32 and 32 % sigma == 0):
+            raise GraphValidationError(
+                f"sigma must be a divisor of 32 in [1, 32], got {sigma!r}")
+        spw = 32 // sigma
+        n_sets = (n + sigma - 1) // sigma
+        masks = np.asarray(masks)
+        num_vss = masks.shape[0] if masks.ndim == 2 else -1
+        want = {"masks": ((num_vss, LANES), np.uint32, masks),
+                "row_ids": ((num_vss, spw, LANES), np.int32, row_ids),
+                "real_ptrs": ((n_sets + 1,), np.int32, real_ptrs),
+                "virtual_to_real": ((num_vss,), np.int32, virtual_to_real)}
+        arrs = {}
+        for name, (shape, dtype, a) in want.items():
+            a = np.asarray(a)
+            if a.shape != shape or a.dtype != dtype:
+                raise GraphValidationError(
+                    f"{name} has shape {a.shape} and dtype {a.dtype}, "
+                    f"expected {shape} {np.dtype(dtype)}")
+            arrs[name] = a
+        if int(arrs["real_ptrs"][-1]) != num_vss:
+            raise GraphValidationError(
+                f"real_ptrs ends at {int(arrs['real_ptrs'][-1])}, but there "
+                f"are {num_vss} VSSs")
+        shifts = (np.arange(spw, dtype=np.uint32) * sigma)[None, :, None]
+        smask = np.uint32((1 << sigma) - 1)
+        num_slices = int(np.count_nonzero(
+            (arrs["masks"][:, None, :] >> shifts) & smask))
+        return BVSS(n=n, m=m, sigma=sigma, tau=LANES * spw, n_sets=n_sets,
+                    num_vss=num_vss, num_slices=num_slices, **arrs)
+
+    @property
+    def slices_per_word(self) -> int:
+        return 32 // self.sigma
+
+    @property
+    def n_frontier_words(self) -> int:
+        """Frontier bit-array length in uint32 words (σ-bit set granularity)."""
+        return (self.n_sets * self.sigma + 31) // 32
+
+    @property
+    def max_vss_per_set(self) -> int:
+        """Largest VSS count of any slice set — the static expansion factor
+        of the push phase (each pushing vertex enqueues every VSS of its own
+        set, DESIGN §2.8)."""
+        if self.n_sets == 0:
+            return 1
+        return max(int(np.diff(self.real_ptrs).max()), 1)
+
+    # ---------------- analytics (paper Tables 1 & 4) ----------------
+    def compression_ratio(self) -> float:
+        """m / (num_slices * σ): fraction of set bits in unpadded masks."""
+        if self.num_slices == 0:
+            return 1.0
+        return self.m / (self.num_slices * self.sigma)
+
+    def update_divergence(self) -> float:
+        """Paper §3.2.1: mean over VSSs of the mean per-slot std of live row ids."""
+        spw = self.slices_per_word
+        sig = self.sigma
+        sub_mask = np.uint32((1 << sig) - 1)
+        # sub[v, j, l] = mask of slice (slot j, lane l)
+        shifts = (np.arange(spw, dtype=np.uint32) * sig)[None, :, None]
+        sub = (self.masks[:, None, :] >> shifts) & sub_mask
+        live = sub != 0
+        rows = self.row_ids.astype(np.float64)
+        cnt = live.sum(axis=2)                                   # (v, j)
+        s1 = np.where(live, rows, 0.0).sum(axis=2)
+        s2 = np.where(live, rows * rows, 0.0).sum(axis=2)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            mean = s1 / cnt
+            var = np.maximum(s2 / cnt - mean * mean, 0.0)
+            col_div = np.sqrt(var)                               # (v, j)
+        nonempty = cnt > 0
+        set_cnt = nonempty.sum(axis=1)
+        set_div = np.where(set_cnt > 0,
+                           np.where(nonempty, col_div, 0.0).sum(axis=1)
+                           / np.maximum(set_cnt, 1), 0.0)
+        alive = set_cnt > 0
+        return float(set_div[alive].mean()) if alive.any() else 0.0
+
+    # ---------------- validation helpers ----------------
+    def reconstruct_edges(self) -> tuple[np.ndarray, np.ndarray]:
+        """Recover (src, dst) edge lists: bit b of slice (u, i) ⇒ edge (σi+b) → u."""
+        spw, sig = self.slices_per_word, self.sigma
+        shifts = (np.arange(spw, dtype=np.uint32) * sig)[None, :, None]
+        sub = (self.masks[:, None, :] >> shifts) & np.uint32((1 << sig) - 1)
+        vss_idx, slot, lane = np.nonzero(sub)
+        sub_v = sub[vss_idx, slot, lane]
+        rows = self.row_ids[vss_idx, slot, lane].astype(np.int64)
+        sets = self.virtual_to_real[vss_idx].astype(np.int64)
+        src_l, dst_l = [], []
+        for b in range(sig):
+            has = (sub_v >> np.uint32(b)) & 1 != 0
+            src_l.append(sets[has] * sig + b)
+            dst_l.append(rows[has])
+        return np.concatenate(src_l), np.concatenate(dst_l)
+
+
+def build_bvss(g: Graph, sigma: int = 8) -> BVSS:
+    if not (1 <= sigma <= 32 and 32 % sigma == 0):
+        raise GraphValidationError(
+            f"sigma must be a divisor of 32 in [1, 32], got {sigma!r}")
+    spw = 32 // sigma
+    tau = LANES * spw
+    n, m = g.n, g.m
+    n_sets = (n + sigma - 1) // sigma
+
+    t_indptr, t_indices = g.t_csr
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(t_indptr))
+    cols = t_indices.astype(np.int64)
+    interval = cols // sigma
+    bit = (cols % sigma).astype(np.uint32)
+
+    # unique (interval, row) pairs, interval-major / row-ascending
+    keys = interval * n + rows
+    ukeys, inverse = np.unique(keys, return_inverse=True)
+    num_slices = len(ukeys)
+    slice_mask = np.zeros(num_slices, dtype=np.uint32)
+    np.bitwise_or.at(slice_mask, inverse, np.uint32(1) << bit)
+    slice_interval = (ukeys // n).astype(np.int64)
+    slice_row = (ukeys % n).astype(np.int32)
+
+    # slices per set -> VSS counts -> realPtrs
+    set_counts = np.bincount(slice_interval, minlength=n_sets)
+    vss_counts = (set_counts + tau - 1) // tau
+    real_ptrs = np.zeros(n_sets + 1, dtype=np.int32)
+    real_ptrs[1:] = np.cumsum(vss_counts)
+    num_vss = int(real_ptrs[-1])
+    virtual_to_real = np.repeat(np.arange(n_sets, dtype=np.int32), vss_counts)
+
+    # placement of each slice
+    set_starts = np.zeros(n_sets + 1, dtype=np.int64)
+    np.cumsum(set_counts, out=set_starts[1:])
+    local = np.arange(num_slices, dtype=np.int64) - set_starts[slice_interval]
+    vss = real_ptrs[slice_interval].astype(np.int64) + local // tau
+    k = local % tau
+    lane = (k % LANES).astype(np.int64)
+    slot = (k // LANES).astype(np.int64)
+
+    masks = np.zeros((num_vss, LANES), dtype=np.uint32)
+    np.bitwise_or.at(masks.reshape(-1), vss * LANES + lane,
+                     slice_mask << (slot * sigma).astype(np.uint32))
+    row_ids = np.full((num_vss, spw, LANES), n, dtype=np.int32)  # dummy = n
+    row_ids[vss, slot, lane] = slice_row
+
+    return BVSS(n=n, m=m, sigma=sigma, tau=tau, n_sets=n_sets,
+                num_vss=num_vss, num_slices=num_slices, masks=masks,
+                row_ids=row_ids, real_ptrs=real_ptrs,
+                virtual_to_real=virtual_to_real)
+
+
+def resolve_device(device: "str | torch.device | None") -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU.  ``None`` means ``"cuda"``; a CUDA device without a card
+    is a :class:`ConfigError` — the port never quietly runs on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise ConfigError(
+                f"device {str(dev)!r} requested but no CUDA device is "
+                f"available; pass device='cpu' to run on the CPU")
+    elif dev.type != "cpu":
+        raise ConfigError(
+            f"device must be a CUDA device or 'cpu', got {str(dev)!r}")
+    return dev
+
+
+class BVSSDevice(NamedTuple):
+    """Device-resident BVSS. One extra all-zero dummy VSS is appended so
+    padded queue entries are harmless, and the level array gets an extra
+    slot for dummy row id ``n``."""
+
+    masks: torch.Tensor            # (num_vss + 1, LANES) int32 (uint32 bits)
+    row_ids: torch.Tensor          # (num_vss + 1, spw, LANES) int32
+    virtual_to_real: torch.Tensor  # (num_vss + 1,) int32
+    real_ptrs: torch.Tensor        # (n_sets + 1,) int32
+    vss_of_vertex_start: torch.Tensor  # (n + 1,) int32 = real_ptrs[v // σ]
+    vss_of_vertex_end: torch.Tensor
+
+
+def to_device(b: BVSS, device: "str | torch.device | None" = None
+              ) -> BVSSDevice:
+    dev = resolve_device(device)
+    masks = np.concatenate([b.masks, np.zeros((1, LANES), np.uint32)], axis=0)
+    row_ids = np.concatenate(
+        [b.row_ids, np.full((1, b.slices_per_word, LANES), b.n, np.int32)],
+        axis=0)
+    v2r = np.concatenate([b.virtual_to_real, np.zeros(1, np.int32)])
+    verts = np.arange(b.n, dtype=np.int64)
+    sets = verts // b.sigma
+    start = b.real_ptrs[sets].astype(np.int32)
+    end = b.real_ptrs[sets + 1].astype(np.int32)
+    # dummy vertex n: empty VSS range so a spurious mark enqueues nothing
+    start = np.concatenate([start, np.zeros(1, np.int32)])
+    end = np.concatenate([end, np.zeros(1, np.int32)])
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return BVSSDevice(
+        masks=put(masks.view(np.int32)),
+        row_ids=put(row_ids),
+        virtual_to_real=put(v2r),
+        real_ptrs=put(b.real_ptrs),
+        vss_of_vertex_start=put(start),
+        vss_of_vertex_end=put(end),
+    )

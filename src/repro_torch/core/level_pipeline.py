@@ -1,0 +1,44 @@
+"""Shared BFS level-step skeleton (DESIGN.md §2.3), PyTorch port of
+``repro/core/level_pipeline.py``.
+
+One BFS level = ``step`` (gather → pull → update: the fused
+frontier-byte gather, the pull or push kernel, the scatter into levels or
+marks) then ``finalize`` (finalise levels, pack the frontier words, flag
+the active slice sets, compact the next queue).
+
+The reference runs the whole loop inside one on-device
+``lax.while_loop``.  Here :func:`run_levels` is a host loop: ``finalize``
+ends with ONE device-to-host copy of the level's scalars (live queue
+count, frontier popcount), and ``active`` reads the host copy.  That read
+is the price of this port: one synchronisation per level.  Keeping the
+loop on the device (a CUDA graph or a persistent kernel, paper §4.3) is
+later work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+State = Any  # engine-specific state carried through the level loop
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelPipeline:
+    """One BFS level = ``step`` (gather → pull → update) then ``finalize``
+    (finalise / pack / compact); ``active`` is the continuation predicate,
+    evaluated on host values the last ``finalize`` copied back."""
+
+    step: Callable[[State, int], State]
+    finalize: Callable[[State, int], State]
+    active: Callable[[State], bool]
+
+
+def run_levels(pipe: LevelPipeline, state: State, *, max_levels: int
+               ) -> tuple[State, int]:
+    """Run the level loop; returns (final state, levels run)."""
+    lvl = 0
+    while pipe.active(state) and lvl < max_levels:
+        lvl += 1
+        state = pipe.step(state, lvl)
+        state = pipe.finalize(state, lvl)
+    return state, lvl

@@ -102,3 +102,9 @@ def _install_hypothesis_shim() -> None:
 
 
 _install_hypothesis_shim()
+
+
+def pytest_configure(config) -> None:
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+        "kernels have no CPU mode); skips without one")

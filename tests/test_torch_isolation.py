@@ -1,0 +1,115 @@
+"""The PyTorch port stands alone and never falls back.
+
+* ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the JAX
+  package ``repro``: a fresh interpreter that imports the port and runs a
+  CPU BFS has neither in ``sys.modules``, and no source file names them.
+* Entry points run on the card unless the caller asks for the CPU: without
+  a card, ``prepare`` raises instead of quietly running on the CPU.
+* A CUDA operand goes through its kernel or the call raises: a kernel that
+  cannot be built is never answered by its twin.
+"""
+import importlib
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.errors import ConfigError, KernelBuildError
+from repro_torch.kernels import _build, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
+                       r"from\s+(jax|repro)\b(?!_))", re.MULTILINE)
+
+
+def test_port_process_never_loads_jax_or_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "g = repro_torch.generators.grid2d(9, 7)\n"
+        "p = repro_torch.prepare(g, device='cpu')\n"
+        "lv = p.levels(0)\n"
+        "assert (lv == repro_torch.reference_bfs(g, 0)).all()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT))
+    for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+              ROOT / "chip_smoke.py"]))
+def test_no_source_imports_jax_or_reference(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.findall(text), FORBIDDEN.findall(text)
+
+
+def test_import_pattern_catches_what_it_must():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                "import repro", "from repro.core import bfs",
+                "  from repro import prepare"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("import repro_torch", "from repro_torch.core import bfs",
+               "# the port never imports jax"):
+        assert not FORBIDDEN.search(ok), ok
+
+
+def test_prepare_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = repro_torch.generators.path(10)
+    with pytest.raises(ConfigError, match="no CUDA device"):
+        repro_torch.prepare(g)
+    with pytest.raises(ConfigError, match="no CUDA device"):
+        repro_torch.prepare(g, device="cuda:0")
+    assert repro_torch.prepare(g, device="cpu").device.type == "cpu"
+
+
+def test_unbuildable_kernel_raises_instead_of_twin(monkeypatch, tmp_path):
+    """Operands the dispatch sends to the kernel (CUDA tensors; simulated
+    here) meet a compiler that fails: the call raises KernelBuildError and
+    no twin answers."""
+    # the Python interpreter as the compiler: it rejects nvcc's flags
+    monkeypatch.setattr(_build, "nvcc", lambda: sys.executable)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(ops, "use_kernel", lambda *tensors: True)
+    twin_calls = []
+    for mod, twin in (("bvss_pull", "bvss_pull_ref"),
+                      ("frontier_finalize", "finalize_pack_ref")):
+        monkeypatch.setattr(
+            importlib.import_module(f"repro_torch.kernels.{mod}"), twin,
+            lambda *a, **k: twin_calls.append(a))
+    masks = torch.zeros((4, 32), dtype=torch.int32)
+    fb = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(KernelBuildError, match="nvcc failed"):
+        repro_torch.kernels.bvss_pull(masks, fb, sigma=8)
+    with pytest.raises(KernelBuildError):
+        repro_torch.kernels.finalize_pack_sweep(
+            torch.zeros(64, dtype=torch.int32), 1, sigma=8, n_fwords=2,
+            n_sets=8)
+    assert twin_calls == []
+
+
+def test_compiler_that_cannot_start_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "nvcc", lambda: str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(KernelBuildError, match="cannot run"):
+        _build.build_all()
+
+
+def test_missing_compiler_raises(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(KernelBuildError, match="nvcc not found"):
+        _build.nvcc()
