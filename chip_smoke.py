@@ -12,20 +12,32 @@ Phases (any failure exits non-zero before the result line):
    kernel under ``src/repro_torch/kernels/csrc``;
 2. kernels against their PyTorch twins on the card: random inputs from a
    seed, at the main-path shapes and at ragged sizes, for sigma in
-   {1, 4, 8, 32}, words with bit 31 set included; outputs must be equal;
-   each kernel and twin is timed with CUDA events (median);
-3. main path, road regime: ``repro_torch.prepare(grid2d(2048, 2048))``
-   with default options (RCM, eager ``blest``, direction "auto" with push
-   engaged) and ``.levels(src)`` for 4 sources, each equal to the host
-   oracle ``reference_bfs``; every kernel's launch count must grow;
-4. the lazy engine (``blest_lazy``) on the same prepared graph, against the
-   oracle (the lazy mode of ``finalize_pack_sweep``);
-5. main path, social regime: ``prepare(rmat(18))`` (Jaccard ordering),
-   checked the same way.
+   {1, 4, 8, 32}, words with bit 31 set and frontier bytes with bits above
+   sigma included; outputs must be equal; each kernel and twin is timed
+   with CUDA events (median) over inputs rotated past L2;
+3. main path, road regime: ``repro_torch.GraphSession(grid2d(2048, 2048),
+   max_batch=8)`` with default options (RCM, eager ``blest``, direction
+   "auto" with push engaged) and ``.levels(src)`` for 4 sources, each equal
+   to the host oracle ``reference_bfs``; then the lazy engine
+   (``blest_lazy``) on the same prepared graph, and one ``levels_batch``
+   cohort of 8 sources (the wave path, batched push engaged since R = 1);
+4. main path, social regime: ``GraphSession(rmat(18), max_batch=8)``,
+   ``.levels(src)`` for 4 sources, ``levels_batch`` of 24 sources (more
+   than the 8 slots, so slots are refilled mid-flight) and
+   ``closeness_batch`` of 8 (the fixed-cohort engine, against the SciPy
+   oracle ``closeness_ref``);
+5. the wave verbs on the symmetrised problem of
+   ``GraphSession(rmat(16), max_batch=8)``: ``components()``,
+   ``eccentricity_batch`` of 8 sources and ``extremes(max_evals=64)``,
+   against the SciPy oracles.  (On rmat(18), 88,297 isolated vertices
+   make ``components()`` take minutes; PERF.md has the times.)
 
-Then one ``{"kernels": [...]}`` line, and as the last line
-``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM's published
-HBM3 rate, 3.35 TB/s (NVIDIA data sheet).
+Every phase sets the kernels' launch counts to 0 before it and reads them
+after, and fails if a kernel of its path never launched.  The profile
+phases run ``torch.profiler`` over one BFS or wave of each regime.  Then
+one ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as the
+last line ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM's
+published HBM3 rate, 3.35 TB/s (NVIDIA data sheet).
 """
 from __future__ import annotations
 
@@ -45,6 +57,9 @@ L2_BYTES = 50 * 2 ** 20          # H100 L2: timed inputs rotate past it
 INF = (1 << 31) - 1
 SIGMAS = (1, 4, 8, 32)
 PROFILE_LEVELS = 1024            # levels of the grid BFS under the profiler
+WAVE_PROFILE_LEVELS = 256        # levels of the grid wave under the profiler
+SLOTS = 8                        # GraphSession.max_batch of both regimes
+SPMM_S = 8                       # = SLOTS: the wave's stacked columns
 
 
 def fail(msg: str) -> None:
@@ -133,10 +148,10 @@ def check_equal(torch, name: str, got, want) -> int:
 
 
 def phase_kernels(torch, rt) -> dict:
-    from repro_torch.kernels import (bvss_pull, bvss_push,
+    from repro_torch.kernels import (bvss_pull, bvss_push, bvss_spmm,
                                      finalize_pack_sweep)
     from repro_torch.kernels.ref import (bvss_pull_ref, bvss_push_ref,
-                                         finalize_pack_ref)
+                                         bvss_spmm_ref, finalize_pack_ref)
     rng = np.random.default_rng(SEED)
     cuda = torch.device("cuda")
 
@@ -159,6 +174,17 @@ def phase_kernels(torch, rt) -> dict:
                         bvss_push(m, bits, sigma=sigma),
                         bvss_push_ref(m, bits, sigma))
             checked += 2
+        # bvss_spmm: ragged B x S (the 16-byte store path at S % 4 == 0),
+        # and the wave's main-path shape on the grid's narrow ladder width
+        shapes = [(B, S) for B in (1, 127, 1003) for S in (1, 3, 8, 9, 128)]
+        shapes.append((65_536, SPMM_S) if sigma == 8 else (4099, SPMM_S))
+        for B, S in shapes:
+            m = t(u32_words(rng, (B, 32)))
+            fb = t(u32_words(rng, (B, S)))
+            check_equal(torch, f"bvss_spmm sigma={sigma} B={B} S={S}",
+                        bvss_spmm(m, fb, sigma=sigma),
+                        bvss_spmm_ref(m, fb, sigma))
+            checked += 1
         for N in (1, 33, 1000, 4_194_304 - 5, 4_194_304):
             n_sets = -(-N // sigma)
             n_fwords = (n_sets * sigma + 31) // 32
@@ -248,13 +274,29 @@ def phase_kernels(torch, rt) -> dict:
             torch, lambda lv, mk: finalize_pack_ref(lv, lvl, marks=mk, **kw),
             fin_in),
         lazy_bound_ms=lazy_bytes / HBM_BYTES_PER_S * 1e3)
+    # the wave pull on the grid's narrow ladder width: 65,536 VSSs, S = 8
+    B, S = 65_536, SPMM_S
+    spmm_in = rotating(lambda i: (t(u32_words(rng, (B, 32))),
+                                  t(u32_words(rng, (B, S)))),
+                       B * (32 + S) * 4)
+    spmm_bytes = B * 32 * 4 + B * S * 4 + B * spw * 32 * S * 4
+    err = check_equal(torch, "bvss_spmm timed",
+                      bvss_spmm(*spmm_in[0], sigma=sigma),
+                      bvss_spmm_ref(*spmm_in[0], sigma))
+    out["bvss_spmm"] = dict(
+        shape={"B": B, "S": S, "sigma": sigma}, max_abs_err=err,
+        ms=device_ms(torch, lambda m, f: bvss_spmm(m, f, sigma=sigma),
+                     spmm_in),
+        plain_ms=device_ms(torch, lambda m, f: bvss_spmm_ref(m, f, sigma),
+                           spmm_in),
+        bound_ms=spmm_bytes / HBM_BYTES_PER_S * 1e3)
     emit({"phase": "kernels_vs_twins", "cases_equal": checked,
           "tolerance": "exact (max abs err 0)"})
     return out
 
 
 # ---------------------------------------------------------------------------
-# phases 3-5: BFS through the public entry points
+# phases 3-5: BFS, waves and verbs through the public entry points
 # ---------------------------------------------------------------------------
 def run_sources(torch, g, levels_fn, sources, oracle) -> list[dict]:
     """Run ``levels_fn(src)`` per source, hold it against the oracle, and
@@ -283,7 +325,8 @@ def run_sources(torch, g, levels_fn, sources, oracle) -> list[dict]:
 
 
 def memo_oracle(rt):
-    """``reference_bfs`` remembered per source (phases 3 and 4 share a graph)."""
+    """``reference_bfs`` remembered per source (the phases of one regime
+    share a graph and sources)."""
     memo = {}
 
     def oracle(g, s):
@@ -294,20 +337,19 @@ def memo_oracle(rt):
     return oracle
 
 
-def profile_levels(torch, bfs, src: int, name: str, card: str,
-                   levels: int | None) -> None:
-    """Where one BFS's time goes on the card: ``torch.profiler`` over
-    ``bfs(src)`` (cut to ``levels`` levels when given).  Prints the wall
-    time, the device's busy time (the union of its kernel and copy
-    intervals) and idle share, and the device time by kernel name."""
+def profile(torch, run, name: str, card: str, **extra) -> None:
+    """Where one run's time goes on the card: ``torch.profiler`` over
+    ``run()`` after one warm run.  Prints the wall time, the device's busy
+    time (the union of its kernel and copy intervals) and idle share, and
+    the device time by kernel name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    bfs(src)                                    # warm: allocator, libraries
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    run()                                       # warm: allocator, libraries
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        bfs(src)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -321,31 +363,162 @@ def profile_levels(torch, bfs, src: int, name: str, card: str,
         row[0] += b - a
         row[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": f"profile_{name}", "levels_cap": levels,
+    # device time by launching op and input shapes: tells apart the
+    # gathers that share one kernel name
+    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:12]
+    emit({"phase": f"profile_{name}", **extra,
           "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3 if spans else None,
           "device_idle_share": 1 - busy_us / wall_us if spans else None,
           "device_events": len(spans),
           "by_kernel": [{"name": k[:90], "device_ms": v[0] / 1e3,
                          "calls": v[1]} for k, v in top],
+          "by_op": [{"op": e.key, "shapes": str(e.input_shapes)[:160],
+                     "device_ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in ops],
           "card": card})
 
 
-def bfs_phase(torch, rt, name: str, g, sources, card: str, oracle) -> tuple:
+def require_launches(counts: dict, phase: str, kernels: tuple) -> None:
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        fail(f"{phase} never launched {missing}: {counts}")
+
+
+def session_phase(torch, rt, name: str, g, sources, card: str, oracle,
+                  kernels: tuple):
+    """Build ``GraphSession(g, max_batch=SLOTS)`` and serve single-source
+    ``levels`` queries against the oracle."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    t0 = time.perf_counter()
-    p = rt.prepare(g)
-    prep_s = time.perf_counter() - t0
+    sess = rt.GraphSession(g, max_batch=SLOTS)
+    p = sess.prepared
     reset_launch_counts()
-    rows = run_sources(torch, g, p.levels, sources, oracle)
+    rows = run_sources(torch, g, sess.levels, sources, oracle)
     counts = launch_counts()
+    require_launches(counts, name, kernels)
     emit({"phase": name, "n": g.n, "m": g.m, "ordering": p.ordering,
           "engine": p.engine_name, "sigma": p.bvss.sigma,
           "num_vss": p.bvss.num_vss,
           "max_vss_per_set": p.bvss.max_vss_per_set,
-          "prepare_s": prep_s, "sources": rows, "launches": counts,
+          "prepare_s": sess.preprocess_s, "sources": rows,
+          "launches": counts, "card": card})
+    return sess, counts
+
+
+def wave_phase(torch, sess, name: str, g, sources, card: str, oracle
+               ) -> dict:
+    """One ``levels_batch`` call: every answer equal to the oracle; wall
+    time, levels run, host copies and push/pull levels from the engine."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    stats = sess._ms.stats
+    before = dict(stats)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lvs = sess.levels_batch(sources)            # ends in host copies
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launches(counts, name, ("bvss_spmm",))
+    for s, lv in zip(sources, lvs):
+        want = oracle(g, s)
+        if lv.dtype != want.dtype or not np.array_equal(lv, want):
+            fail(f"{name}: levels of source {s} differ from the oracle")
+    delta = {k: stats[k] - before[k] for k in stats}
+    levels_run = delta["pull_levels"] + delta["push_levels"]
+    if counts["bvss_spmm"] != levels_run:
+        fail(f"{name}: {levels_run} levels but {counts['bvss_spmm']} "
+             f"bvss_spmm launches")
+    emit({"phase": name, "queries": len(sources), "slots": sess.max_batch,
+          "wall_ms": wall_s * 1e3, "levels_run": levels_run,
+          "ms_per_level": wall_s * 1e3 / max(levels_run, 1),
+          "push_levels": delta["push_levels"],
+          "pull_levels": delta["pull_levels"],
+          "host_syncs": delta["host_syncs"], "launches": counts,
           "card": card})
-    return p, counts
+    return {"counts": counts, **delta}
+
+
+def closeness_phase(torch, rt, sess, g, sources, card: str) -> dict:
+    """``closeness_batch`` (the fixed-cohort engine) against SciPy."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import closeness_ref
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cc = sess.closeness_batch(sources)
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launches(counts, "closeness_batch", ("bvss_spmm",))
+    want = closeness_ref(g, sources)
+    err = float(np.max(np.abs(cc - want) / np.maximum(np.abs(want), 1e-300)))
+    if cc.shape != want.shape or not np.all(np.isfinite(cc)) or err > 1e-12:
+        fail(f"closeness_batch differs from closeness_ref (rel err {err})")
+    stats = sess._dir_wave(len(sources)).engine.stats
+    emit({"phase": "closeness_batch_rmat_18", "sources": len(sources),
+          "wall_ms": wall_s * 1e3, "max_rel_err": err,
+          "tolerance": "rtol 1e-12",
+          "levels_run": stats["pull_levels"] + stats["push_levels"],
+          "host_syncs": stats["host_syncs"], "launches": counts,
+          "card": card})
+    return counts
+
+
+def verbs_phase(torch, rt, sess, g, rng, card: str) -> dict:
+    """components, eccentricity_batch and extremes on the session's
+    symmetrised problem, against the SciPy oracles; components() is
+    profiled once more after the checks."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import (connected_components_ref,
+                                         eccentricity_ref)
+    t0 = time.perf_counter()
+    sess._sym_problem()
+    sym_build_s = time.perf_counter() - t0
+    gs = g.symmetrized
+    reset_launch_counts()
+    times = {}
+    t0 = time.perf_counter()
+    labels = sess.components()
+    times["components_s"] = time.perf_counter() - t0
+    srcs = [int(s) for s in rng.choice(g.n, SLOTS, replace=False)]
+    t0 = time.perf_counter()
+    ecc = sess.eccentricity_batch(srcs)
+    times["eccentricity_batch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = sess.extremes(max_evals=64)
+    times["extremes_s"] = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launches(counts, "verbs", ("bvss_spmm", "bvss_pull",
+                                       "finalize_pack_sweep"))
+    t0 = time.perf_counter()
+    want = connected_components_ref(g)
+    if not np.array_equal(labels, want):
+        fail("components() differs from connected_components_ref")
+    if not np.array_equal(ecc, eccentricity_ref(gs, srcs)):
+        fail("eccentricity_batch differs from eccentricity_ref")
+    # the report's witnesses: periphery has eccentricity diameter_lb,
+    # center has radius_ub, both in the largest component
+    big = np.bincount(want).argmax()
+    wit = eccentricity_ref(gs, [rep.periphery, rep.center])
+    if not (want[rep.periphery] == big and want[rep.center] == big
+            and wit[0] == rep.diameter_lb and wit[1] == rep.radius_ub
+            and rep.diameter_lb <= rep.diameter_ub):
+        fail(f"extremes() disagrees with eccentricity_ref: {rep}, "
+             f"witnesses {wit.tolist()}")
+    emit({"phase": "verbs_rmat_16_symmetrised", "n": gs.n, "m": gs.m,
+          "sym_build_s": sym_build_s, **times,
+          "oracle_s": time.perf_counter() - t0,
+          "components": int(labels.max()) + 1,
+          "eccentricities": ecc.tolist(),
+          "extremes": {"diameter_lb": rep.diameter_lb,
+                       "diameter_ub": rep.diameter_ub,
+                       "radius_ub": rep.radius_ub,
+                       "n_ecc_evals": rep.n_ecc_evals},
+          "wave_stats": dict(sess._sym_ms().stats),
+          "launches": counts, "card": card})
+    profile(torch, sess.components, "components_rmat_16", card)
+    return counts
 
 
 def main() -> None:
@@ -358,6 +531,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch as rt
     from repro_torch.core.bfs import make_blest_bfs, make_engine
+    from repro_torch.core.multi_source import make_multi_source_bfs
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
     # phase 1: build and identify
@@ -365,7 +539,6 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
     card = smi
     emit({"nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
@@ -376,72 +549,118 @@ def main() -> None:
 
     # phase 2: kernels against twins
     timed = phase_kernels(torch, rt)
+    by_phase: dict = {}
 
     # phase 3: main path, road regime (counts read from this run)
     rng = np.random.default_rng(SEED)
     g = rt.generators.grid2d(2048, 2048)
     sources = [0] + [int(s) for s in rng.choice(g.n, 3, replace=False)]
     oracle = memo_oracle(rt)
-    p, main_counts = bfs_phase(torch, rt, "main_path_grid2d_2048", g,
-                               sources, card, oracle)
-    missing = [k for k, c in main_counts.items() if c == 0]
-    if missing:
-        fail(f"main path never launched {missing}: {main_counts}")
-    profile_levels(torch, make_blest_bfs(p.problem, lazy=False,
-                                         max_levels=PROFILE_LEVELS),
-                   int(p.perm[0]), "grid2d_2048", card, PROFILE_LEVELS)
+    sess, main_counts = session_phase(
+        torch, rt, "main_path_grid2d_2048", g, sources, card, oracle,
+        ("bvss_pull", "bvss_push", "finalize_pack_sweep"))
+    by_phase["grid2d_2048"] = main_counts
+    p = sess.prepared
+    bfs = make_blest_bfs(p.problem, lazy=False, max_levels=PROFILE_LEVELS)
+    profile(torch, lambda: bfs(int(p.perm[0])), "grid2d_2048", card,
+            levels_cap=PROFILE_LEVELS)
 
-    # phase 4: the lazy engine on the same prepared graph
+    # the lazy engine on the same prepared graph
     lazy = make_engine(p.graph, "blest_lazy", problem=p.problem)
     reset_launch_counts()
     rows = run_sources(
         torch, g, lambda s: lazy(int(p.perm[s])).cpu().numpy()[p.perm],
         sources[:2], oracle)
-    lazy_counts = launch_counts()
-    if lazy_counts["finalize_pack_sweep"] == 0:
-        fail("the lazy engine never launched finalize_pack_sweep")
+    by_phase["lazy_grid2d_2048"] = launch_counts()
+    require_launches(by_phase["lazy_grid2d_2048"], "the lazy engine",
+                     ("finalize_pack_sweep",))
     emit({"phase": "lazy_grid2d_2048", "sources": rows,
-          "launches": lazy_counts, "card": card})
-    del lazy, p
+          "launches": by_phase["lazy_grid2d_2048"], "card": card})
+    del lazy
+
+    # the wave path, road regime: one cohort of 8 (the 4 above + 4 new)
+    cohort = sources + [int(s) for s in rng.choice(g.n, SLOTS - 4,
+                                                   replace=False)]
+    wave = wave_phase(torch, sess, "wave_grid2d_2048", g, cohort, card,
+                      oracle)
+    by_phase["wave_grid2d_2048"] = wave["counts"]
+    if wave["push_levels"] == 0:
+        fail("the grid wave never took the batched push branch")
+    internal = p.perm[np.asarray(cohort)]
+    bfs = make_multi_source_bfs(None, SLOTS, problem=p.problem,
+                                max_levels=WAVE_PROFILE_LEVELS)
+    profile(torch, lambda: bfs(internal), "wave_grid2d_2048", card,
+            levels_cap=WAVE_PROFILE_LEVELS)
+    del sess, p, bfs
     torch.cuda.empty_cache()
 
-    # phase 5: main path, social regime
+    # phase 4: main path, social regime
     g = rt.generators.rmat(18)
     sources = [0] + [int(s) for s in rng.choice(g.n, 3, replace=False)]
-    p, rmat_counts = bfs_phase(torch, rt, "main_path_rmat_18", g, sources,
-                               card, memo_oracle(rt))
-    profile_levels(torch, make_blest_bfs(p.problem, lazy=False),
-                   int(p.perm[0]), "rmat_18", card, None)
+    oracle = memo_oracle(rt)
+    sess, by_phase["rmat_18"] = session_phase(
+        torch, rt, "main_path_rmat_18", g, sources, card, oracle,
+        ("bvss_pull", "finalize_pack_sweep"))
+    p = sess.prepared
+    bfs = make_blest_bfs(p.problem, lazy=False)
+    profile(torch, lambda: bfs(int(p.perm[0])), "rmat_18", card)
+    queries = [int(s) for s in rng.choice(g.n, 3 * SLOTS, replace=False)]
+    wave = wave_phase(torch, sess, "wave_rmat_18", g, queries, card, oracle)
+    by_phase["wave_rmat_18"] = wave["counts"]
+    profile(torch, lambda: sess.levels_batch(queries), "wave_rmat_18", card,
+            queries=len(queries), levels_run=wave["pull_levels"]
+            + wave["push_levels"], host_syncs=wave["host_syncs"])
+    by_phase["closeness_rmat_18"] = closeness_phase(
+        torch, rt, sess, g, [int(s) for s in rng.choice(g.n, SLOTS,
+                                                        replace=False)],
+        card)
 
-    kernels = []
+    del sess, p, bfs
+    torch.cuda.empty_cache()
+
+    # phase 5: the wave verbs on the symmetrised problem, cut to rmat(16)
+    g = rt.generators.rmat(16)
+    t0 = time.perf_counter()
+    sess = rt.GraphSession(g, max_batch=SLOTS)
+    emit({"phase": "prepare_rmat_16", "n": g.n, "m": g.m,
+          "prepare_s": time.perf_counter() - t0, "card": card})
+    by_phase["verbs_rmat_16"] = verbs_phase(torch, rt, sess, g, rng, card)
+
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",
         "bvss_push": "src/repro/kernels/bvss_push.py:52",
         "finalize_pack_sweep": "src/repro/kernels/frontier_finalize.py:124",
+        "bvss_spmm": "src/repro/kernels/mxu_pull.py:156",
     }
     sources_cu = {
         "bvss_pull": "src/repro_torch/kernels/csrc/bvss_pull.cu",
         "bvss_push": "src/repro_torch/kernels/csrc/bvss_push.cu",
         "finalize_pack_sweep":
             "src/repro_torch/kernels/csrc/frontier_finalize.cu",
+        "bvss_spmm": "src/repro_torch/kernels/csrc/bvss_spmm.cu",
     }
+    # each kernel's launches on its own main path: the single-source BFSs of
+    # the road regime for the first three, the two waves for bvss_spmm
+    main_path = {"bvss_spmm": ("wave_grid2d_2048", "wave_rmat_18")}
+    kernels = []
     for name, row in timed.items():
         kernels.append({
             "name": name, "route": "cuda", "source": sources_cu[name],
-            "replaces": replaces[name], "launches": main_counts[name],
+            "replaces": replaces[name],
+            "launches": sum(by_phase[ph][name]
+                            for ph in main_path.get(name, ("grid2d_2048",))),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             # the same numbers under the names the port's docs use
             "max_abs_diff": row["max_abs_err"], "kernel_ms": row["ms"],
             "twin_ms": row["plain_ms"],
-            "launches_by_phase": {"grid2d_2048": main_counts[name],
-                                  "lazy_grid2d_2048": lazy_counts[name],
-                                  "rmat_18": rmat_counts[name]},
+            "launches_by_phase": {ph: c[name] for ph, c in by_phase.items()},
             **{k: v for k, v in row.items()
                if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
         })
     emit({"kernels": kernels})
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

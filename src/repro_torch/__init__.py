@@ -13,9 +13,14 @@ Entry points run on the card unless the caller asks for the CPU::
 
     p_cpu = repro_torch.prepare(g, device="cpu")   # the PyTorch twins
 
-This slice ports single-source BLEST (``prepare(g).levels(src)``) with
+    sess = repro_torch.GraphSession(g, max_batch=8)  # wave serving
+    lvs = sess.levels_batch([0, 5, 9])             # one array per query
+
+Ported so far: single-source BLEST (``prepare(g).levels(src)``) with
 hand-written CUDA kernels for ``bvss_pull``, ``bvss_push`` and
-``finalize_pack_sweep``.
+``finalize_pack_sweep``, and wave serving (``GraphSession.levels_batch``,
+the components, eccentricity and closeness verbs) with a hand-written
+CUDA ``bvss_spmm``.
 """
 from repro_torch.core.bfs import reference_bfs
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
@@ -25,10 +30,12 @@ from repro_torch.errors import (AdmissionError, BlestError, ConfigError,
                                 KernelBuildError, KernelFaultError,
                                 QueueFullError, StaleEpochError)
 from repro_torch.graphs import Graph, from_edges, generators
+from repro_torch.serve import GraphSession
 
 __all__ = [
-    "prepare", "PrepareOptions", "PreparedBFS", "parents_from_levels",
-    "reference_bfs", "Graph", "from_edges", "generators",
+    "GraphSession", "prepare", "PrepareOptions", "PreparedBFS",
+    "parents_from_levels", "reference_bfs", "Graph", "from_edges",
+    "generators",
     "BlestError", "GraphValidationError", "ConfigError", "AdmissionError",
     "QueueFullError", "DeadlineExceeded", "StaleEpochError",
     "KernelFaultError", "KernelBuildError",

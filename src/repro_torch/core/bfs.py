@@ -79,7 +79,7 @@ def reference_bfs(g: Graph, src: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 def _pack_bits(bits: torch.Tensor, n_words: int) -> torch.Tensor:
     """bool (n_words*32,) -> int32 (n_words,), bit i of word w = bits[32w+i]."""
-    return pack_words(bits.reshape(n_words, 32))
+    return pack_words(bits.reshape(n_words * 32))
 
 
 #: the plain PyTorch pull (the twin path, ``use_kernels=False``)
@@ -88,11 +88,14 @@ pull_vss_twin = bvss_pull_ref
 
 def _frontier_bytes(F: torch.Tensor, sets: torch.Tensor, sigma: int
                     ) -> torch.Tensor:
-    """Gather the σ-bit frontier word of slice set ids ``sets`` from the
-    packed single frontier F (n_fwords,) int32 -> (B,) int32."""
+    """Gather the σ-bit frontier word of slice set ids ``sets`` from packed
+    F: (n_fwords,) int32 single frontier -> (B,), or (n_fwords, S) stacked
+    per-source columns -> (B, S)."""
     bitpos = sets.to(torch.int32) * sigma
     idx = bitpos >> 5
     shift = bitpos & 31
+    if F.dim() == 2:
+        shift = shift[:, None]
     return (F[idx] >> shift) & _i32((1 << sigma) - 1)
 
 
@@ -466,6 +469,8 @@ def make_blest_bfs(problem: BlestProblem, *, lazy: bool,
 # ---------------------------------------------------------------------------
 #: engines this port runs; the reference's others come in later slices
 ENGINES = ("blest", "blest_lazy")
+#: engines with a (sources (S,)) -> (n, S) signature, built via n_sources=
+MULTI_ENGINES = ("multi_source",)
 
 
 def make_engine(g: Graph, engine: str, *, sigma: int = 8,
@@ -477,22 +482,32 @@ def make_engine(g: Graph, engine: str, *, sigma: int = 8,
                 use_kernels: bool = True, buckets: int = 2,
                 widths: list[int] | None = None,
                 direction: str = "auto", push_cap: int | None = None,
-                alpha: float = 4.0) -> Callable[[int], torch.Tensor]:
+                alpha: float = 4.0,
+                n_sources: int | None = None) -> Callable:
     """Build a BFS callable ``f(src) -> levels`` for the named engine.
 
     ``problem`` lets callers that already hold a :class:`BlestProblem`
     (``prepare``) skip rebuilding the device BVSS; otherwise one is built
     from ``bvss`` (or from ``g``) on ``device`` (default: the card).
+    ``engine="multi_source"`` builds the batched BVSS bit-SpMM engine
+    ``f(sources (S,)) -> levels (n, S)`` and requires ``n_sources``.
     """
-    if engine not in ENGINES:
+    if engine not in ENGINES + MULTI_ENGINES:
         raise ConfigError(
             f"engine {engine!r} is not ported to PyTorch yet: this port "
-            f"runs {ENGINES}; the multi-source engine comes with the wave "
-            f"serving slice and the Table-2 baselines (brs, dense_pull, "
-            f"csr_*, dirop) with the baselines slice")
+            f"runs {ENGINES + MULTI_ENGINES}; the Table-2 baselines (brs, "
+            f"dense_pull, csr_*, dirop) come with the baselines slice")
     if problem is None:
         b = bvss if bvss is not None else build_bvss(g, sigma=sigma)
         problem = BlestProblem.build(b, device)
+    if engine == "multi_source":
+        from repro_torch.core.multi_source import make_multi_source_bfs
+        if n_sources is None:
+            raise ValueError("multi_source engine needs n_sources")
+        return make_multi_source_bfs(g, n_sources, problem=problem,
+                                     use_kernel=use_kernels,
+                                     buckets=buckets, widths=widths,
+                                     direction=direction, push_cap=push_cap)
     return make_blest_bfs(problem, lazy=(engine == "blest_lazy"),
                           pull_impl=pull_impl, push_impl=push_impl,
                           use_kernels=use_kernels, buckets=buckets,

@@ -21,7 +21,7 @@ import torch
 from repro_torch.core.bfs import BlestProblem, make_engine
 from repro_torch.core.bvss import BVSS, build_bvss, resolve_device
 from repro_torch.core.ordering import auto_order
-from repro_torch.errors import BlestError, check_source
+from repro_torch.errors import BlestError, ConfigError, check_source
 from repro_torch.graphs import Graph
 
 # paper §5: fixed threshold for switching to lazy vertex updates
@@ -90,6 +90,24 @@ def choose_update_scheme(bvss: BVSS, *, threshold: float | None = None
     return "blest_lazy" if udiv > threshold else "blest"
 
 
+def build_problem(g_ord: Graph, *, sigma: int = 8, mesh=None,
+                  bvss: BVSS | None = None,
+                  device: "str | torch.device | None" = None
+                  ) -> BlestProblem:
+    """Build the device problem for an (already ordered) graph — the one
+    dispatch every problem-building caller (``prepare``, the serving
+    tier's symmetrised problem) routes through.  Single-device only: a
+    ``mesh`` is a :class:`~repro_torch.errors.ConfigError` (the mesh
+    paths are ROADMAP.md queue 1 item 11)."""
+    if mesh is not None:
+        raise ConfigError(
+            "mesh-sharded problems are not ported to PyTorch yet: they come "
+            "with the mesh slice (ROADMAP.md queue 1 item 11)")
+    if bvss is None:
+        bvss = build_bvss(g_ord, sigma=sigma)
+    return BlestProblem.build(bvss, device)
+
+
 def prepare(g: Graph, options: PrepareOptions | None = None,
             **fields) -> PreparedBFS:
     """The full static pipeline: (optionally) order, build the BVSS, pick
@@ -115,7 +133,7 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
     bvss = build_bvss(g_ord, sigma=o.sigma)
     engine_name = o.engine if o.engine is not None else \
         choose_update_scheme(bvss, threshold=o.lazy_threshold)
-    problem = BlestProblem.build(bvss, device)
+    problem = build_problem(g_ord, bvss=bvss, device=device)
     fn = make_engine(g_ord, engine_name, problem=problem,
                      use_kernels=o.use_kernels, buckets=o.buckets,
                      direction=o.direction, push_impl=o.push_impl)

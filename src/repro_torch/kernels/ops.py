@@ -54,11 +54,12 @@ def check_sigma(sigma: int) -> None:
 from .bvss_pull import bvss_pull                                  # noqa: E402
 from .bvss_push import bvss_push                                  # noqa: E402
 from .frontier_finalize import finalize_pack_sweep                # noqa: E402
+from .mxu_pull import bvss_spmm                                   # noqa: E402
 from . import ref                                                 # noqa: E402
 
 #: every hand-written kernel's entry point; each carries a ``launches``
 #: count that grows by one per kernel launch (twin calls do not count)
-KERNELS = (bvss_pull, bvss_push, finalize_pack_sweep)
+KERNELS = (bvss_pull, bvss_push, finalize_pack_sweep, bvss_spmm)
 
 
 def launch_counts() -> dict[str, int]:
@@ -83,5 +84,6 @@ def push_vss_kernel(masks: torch.Tensor, bits: torch.Tensor,
 
 
 __all__ = ["use_kernel", "check_operand", "check_sigma", "bvss_pull",
-           "bvss_push", "finalize_pack_sweep", "KERNELS", "launch_counts",
-           "reset_launch_counts", "pull_vss_kernel", "push_vss_kernel", "ref"]
+           "bvss_push", "finalize_pack_sweep", "bvss_spmm", "KERNELS",
+           "launch_counts", "reset_launch_counts", "pull_vss_kernel",
+           "push_vss_kernel", "ref"]

@@ -1,0 +1,400 @@
+"""GraphSession: batched BFS query serving over one prepared graph
+(DESIGN §2.5), the single-device port of ``repro/serve/graph_session.py``.
+
+A session owns ALL prepared state for one graph — ordering decision,
+permutation + inverse, BVSS, the single-source engine, and the batched
+multi-source wave machinery — via the single static pipeline in
+:func:`repro_torch.core.policy.prepare`.
+
+Concurrent single-source level queries are served in *waves*: a fixed
+pool of ``max_batch`` source columns advances in lock-step levels through
+one batched BVSS bit-SpMM per level (CUDA ``bvss_spmm``); a column whose
+frontier empties is harvested and its slot refilled from the request
+queue mid-flight, so queries that arrive together share every adjacency
+read regardless of how their depths differ.  Singleton traffic takes the
+single-source engine.
+
+Id-space contract: callers speak ORIGINAL vertex ids everywhere — sources
+in, level arrays / centrality scores / component labels out.  The internal
+reordering is invisible.
+
+Beyond level queries, a session serves the analytics verbs that are pure
+wave clients (DESIGN §2.6) on the same slot-pool width: ``components()``,
+``eccentricity_batch()`` / ``extremes()`` and ``closeness_batch()``.  The
+classical undirected analytics run on a lazily built symmetrised twin of
+the prepared problem (same internal id space).
+
+Not ported yet, each raising :class:`~repro_torch.errors.ConfigError`
+that names its ROADMAP.md slice: the betweenness, SSSP and PageRank verbs
+(queue 1 item 6, with the weighted tile kernels), ``update_edges`` (item
+9), and the ``mesh`` (item 11), ``weights`` (item 6), ``fault_plan``
+(item 7) and ``autotune`` (item 9) constructor options.  The verbs stay in
+:attr:`GraphSession.VERBS`, so the tuple equals the reference's.
+"""
+from __future__ import annotations
+
+import time
+import warnings
+from collections import deque
+from typing import Sequence
+
+import numpy as np
+
+from repro_torch.analytics import (ExtremesReport, closeness_centrality,
+                                   connected_components, eccentricities,
+                                   ifub_extremes)
+from repro_torch.core.bfs import BlestProblem, make_blest_bfs
+from repro_torch.core.multi_source import (drive_wave, make_ms_engine,
+                                           make_multi_source_bfs)
+from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
+                                     build_problem, prepare)
+from repro_torch.errors import ConfigError, check_sources
+from repro_torch.graphs import Graph
+from repro_torch.kernels.ref import normalize_labels
+
+
+def _alias_warning(old: str, new: str) -> None:
+    warnings.warn(
+        f"GraphSession.{old}() is a deprecated alias; call "
+        f"GraphSession.{new}() (same semantics, the 0.5 verb convention: "
+        f"singular verbs take src, batched verbs take sources, sampling "
+        f"verbs take k with keyword-only seed)",
+        DeprecationWarning, stacklevel=3)
+
+
+def _not_ported(what: str, where: str) -> ConfigError:
+    return ConfigError(f"{what} is not ported to PyTorch yet: it comes with "
+                       f"{where}")
+
+
+_BETWEENNESS = "the betweenness slice (ROADMAP.md queue 1 item 6)"
+_WEIGHTED = "the SSSP/PageRank slice (ROADMAP.md queue 1 item 6)"
+
+
+class GraphSession:
+    """Prepared, query-serving state for one graph.
+
+    Parameters mirror :func:`repro_torch.core.policy.prepare`;
+    ``max_batch`` is the wave slot-pool width (the S of the stacked
+    bit-SpMM frontier).  Like ``prepare``, the session runs on the card
+    unless ``options=PrepareOptions(device="cpu")`` asks for the CPU.
+    """
+
+    #: every query verb a session serves (the reference's tuple; the
+    #: betweenness, sssp and pagerank verbs raise until their slice lands)
+    VERBS = ("levels", "components", "eccentricity", "betweenness",
+             "closeness", "sssp", "pagerank")
+
+    def __init__(self, g: Graph, *, max_batch: int = 8,
+                 options: PrepareOptions | None = None, sigma: int = 8,
+                 w: int = 512, seed: int = 0,
+                 lazy_threshold: float | None = None, order: bool = True,
+                 engine: str | None = None, use_kernel: bool = True,
+                 direction: str = "auto", autotune: bool = False,
+                 max_steps: int | None = None, mesh=None,
+                 mesh_axis: str = "data", weights=None,
+                 fault_plan=None):
+        t0 = time.time()
+        if mesh is not None:
+            raise _not_ported("a mesh-sharded session",
+                              "the mesh slice (ROADMAP.md queue 1 item 11)")
+        if weights is not None:
+            raise _not_ported("a weighted session", _WEIGHTED)
+        if fault_plan is not None:
+            raise _not_ported("fault injection (fault_plan)",
+                              "the robust serving slice (ROADMAP.md queue 1 "
+                              "item 7)")
+        if autotune:
+            raise _not_ported("autotune", "the autotuning slice (ROADMAP.md "
+                              "queue 1 item 9)")
+        if options is None:
+            options = PrepareOptions(
+                sigma=sigma, w=w, seed=seed, lazy_threshold=lazy_threshold,
+                order=order, engine=engine, use_kernels=use_kernel,
+                direction=direction)
+        elif (sigma, w, seed, lazy_threshold, order, engine, use_kernel,
+              direction, mesh_axis) != \
+                (8, 512, 0, None, True, None, True, "auto", "data"):
+            raise ConfigError(
+                "GraphSession takes EITHER options=PrepareOptions(...) or "
+                "the per-knob keywords, not both")
+        self.options = options
+        self.prepared: PreparedBFS = prepare(g, options=options)
+        self.max_batch = int(max_batch)
+        self._use_kernel = options.use_kernels
+        self._direction = options.direction
+        self.max_steps = max_steps
+        self._problem: BlestProblem = self.prepared.problem
+        self._ms = make_ms_engine(self._problem, self.max_batch,
+                                  use_kernel=self._use_kernel,
+                                  direction=self._direction)
+        # analytics problems/engines, built on first use and cached
+        self._analytics_cache: dict = {}
+        self.preprocess_s = time.time() - t0
+
+    # ------------------------------------------------------------------
+    # prepared-state passthrough
+    # ------------------------------------------------------------------
+    @property
+    def n(self) -> int:
+        return self.prepared.graph.n
+
+    @property
+    def perm(self) -> np.ndarray:
+        return self.prepared.perm
+
+    @property
+    def inv(self) -> np.ndarray:
+        return self.prepared.inv
+
+    @property
+    def bvss(self):
+        return self.prepared.bvss
+
+    @property
+    def ordering(self) -> str:
+        return self.prepared.ordering
+
+    @property
+    def engine_name(self) -> str:
+        return self.prepared.engine_name
+
+    # ------------------------------------------------------------------
+    # queries
+    # ------------------------------------------------------------------
+    def levels(self, src: int) -> np.ndarray:
+        """Single-source BFS levels in caller ids."""
+        return self.prepared.levels(src)
+
+    def levels_batch(self, sources: Sequence[int], *,
+                     should_harvest=None, on_harvested=None
+                     ) -> list[np.ndarray | None]:
+        """Serve concurrent level queries as batched multi-source waves.
+
+        Returns one level array per query, aligned with ``sources``, in
+        the caller's vertex ids.  More queries than ``max_batch`` are
+        queued and refilled into freed slots mid-flight.
+
+        ``should_harvest(i)`` / ``on_harvested(i, partial_levels)`` are
+        the per-request cancellation hooks (DESIGN §2.7), in REQUEST
+        INDEX space (``i`` indexes ``sources``): after every lock-step
+        level each still-running request is offered to ``should_harvest``;
+        answering True cancels it mid-flight — ``on_harvested`` receives
+        the partial caller-id levels (unreached vertices ``INF``), the
+        returned list carries ``None`` at that index, and the freed slot
+        is refilled from the queue.  Singleton traffic normally takes the
+        single-source engine, which cannot be preempted, so a singleton
+        WITH hooks rides the wave pool instead.
+        """
+        srcs = check_sources(sources, self.n)
+        if not srcs:
+            return []
+        if len(srcs) == 1 and should_harvest is None:
+            # singleton traffic: no batching win available
+            return [self.levels(srcs[0])]
+        perm = self.perm
+        queue = deque(enumerate(srcs))
+        owner: list[int | None] = [None] * self.max_batch
+        results: dict[int, np.ndarray | None] = {}
+
+        def next_source(slot: int) -> int | None:
+            if not queue:
+                return None
+            rid, src = queue.popleft()
+            owner[slot] = rid
+            return int(perm[src])
+
+        def on_converged(slot: int, lv: np.ndarray) -> None:
+            results[owner[slot]] = lv[perm]
+            owner[slot] = None
+
+        _should = _harvested = None
+        if should_harvest is not None:
+            def _should(slot: int) -> bool:
+                rid = owner[slot]
+                return rid is not None and bool(should_harvest(rid))
+
+            def _harvested(slot: int, lv: np.ndarray) -> None:
+                rid = owner[slot]
+                if on_harvested is not None:
+                    on_harvested(rid, lv[perm])
+                results[rid] = None
+                owner[slot] = None
+
+        limit = self.max_steps if self.max_steps is not None else \
+            (len(srcs) + self.max_batch) * (self.n + 1)
+        drive_wave(self._ms, next_source, on_converged, max_steps=limit,
+                   should_harvest=_should, on_harvested=_harvested)
+        return [results[i] for i in range(len(srcs))]
+
+    # ------------------------------------------------------------------
+    # centrality
+    # ------------------------------------------------------------------
+    def closeness_batch(self, sources: Sequence[int] | None = None, *,
+                        wf_improved: bool = False) -> np.ndarray:
+        """Closeness centrality (caller ids throughout): one score per
+        given source, or — with ``sources=None`` — the EXACT variant, one
+        score per vertex in caller-id order.  Fixed cohorts, so this
+        skips the wave refill loop and runs the cached fixed-cohort
+        multi-source engine (DESIGN §2.5/§2.6); scores are invariant under
+        the internal reordering."""
+        if sources is None:
+            internal = self.perm.astype(np.int64)   # caller v -> perm[v]
+        else:
+            srcs = check_sources(sources, self.n)
+            if not srcs:
+                return np.zeros(0, dtype=np.float64)
+            internal = self.perm[np.asarray(srcs)].astype(np.int64)
+        width = min(self.max_batch, len(internal))
+        return closeness_centrality(None, internal, batch=width,
+                                    wf_improved=wf_improved,
+                                    levels_fn=self._dir_wave(width))
+
+    def closeness(self, sources: Sequence[int] | None = None, *,
+                  wf_improved: bool = False) -> np.ndarray:
+        """Deprecated alias of :meth:`closeness_batch`."""
+        _alias_warning("closeness", "closeness_batch")
+        return self.closeness_batch(sources, wf_improved=wf_improved)
+
+    def closeness_sample(self, k: int, *, seed: int = 0
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """Sample ``k`` vertices (caller ids) and return
+        ``(sources, closeness scores)`` aligned index-by-index."""
+        rng = np.random.default_rng(seed)
+        srcs = rng.integers(0, self.n, int(k))
+        return srcs, self.closeness_batch(srcs)
+
+    def centrality_sample(self, n_sources: int, seed: int = 0
+                          ) -> tuple[np.ndarray, np.ndarray]:
+        """Deprecated alias of :meth:`closeness_sample`."""
+        _alias_warning("centrality_sample", "closeness_sample")
+        return self.closeness_sample(n_sources, seed=seed)
+
+    # ------------------------------------------------------------------
+    # analytics query kinds (DESIGN §2.6)
+    # ------------------------------------------------------------------
+    def _cached(self, key, build):
+        if key not in self._analytics_cache:
+            self._analytics_cache[key] = build()
+        return self._analytics_cache[key]
+
+    def _sym_problem(self) -> BlestProblem:
+        """The symmetrised twin of the prepared problem (same internal id
+        space — symmetrisation commutes with the reordering), on the
+        session's device, backing the classical undirected analytics."""
+        return self._cached("sym_problem", lambda: build_problem(
+            self.prepared.graph.symmetrized, sigma=self.prepared.bvss.sigma,
+            device=self._problem.device))
+
+    def _sym_ms(self):
+        """Wave slot pool over the symmetrised problem (flood-fill)."""
+        return self._cached("sym_ms", lambda: make_ms_engine(
+            self._sym_problem(), self.max_batch,
+            use_kernel=self._use_kernel))
+
+    def _sym_sss(self):
+        """Single-source engine on the symmetrised problem (the
+        flood-fill's phase-0 giant-component pass)."""
+        return self._cached("sym_sss", lambda: make_blest_bfs(
+            self._sym_problem(), lazy=False, use_kernels=self._use_kernel))
+
+    def _sym_wave(self, width: int):
+        """Cached fixed-cohort multi-source fn on the symmetrised problem
+        (eccentricity batches; one per distinct width)."""
+        return self._cached(("sym_wave", width), lambda: make_multi_source_bfs(
+            None, width, problem=self._sym_problem(),
+            use_kernel=self._use_kernel))
+
+    def _dir_wave(self, width: int):
+        """Cached fixed-cohort multi-source fn on the session's own
+        (directed) problem — closeness cohorts; one per distinct width."""
+        return self._cached(("dir_wave", width), lambda: make_multi_source_bfs(
+            None, width, problem=self._problem,
+            use_kernel=self._use_kernel))
+
+    def components(self) -> np.ndarray:
+        """Connected-component labels, one per vertex in caller ids,
+        normalised to 0..k-1 in order of each component's smallest caller
+        vertex.  Phase 0 floods one component through the single-source
+        engine; the wave slot pool then flood-fills the rest, converged
+        slots re-seeded from still-untouched vertices."""
+        labels = connected_components(engine=self._sym_ms(),
+                                      first_flood=self._sym_sss())
+        return normalize_labels(labels[self.perm])
+
+    def eccentricity_batch(self, sources: Sequence[int]) -> np.ndarray:
+        """Eccentricity of each queried vertex (caller ids in, one value
+        per source out), batched through the fixed-cohort multi-source
+        engine on the symmetrised problem."""
+        srcs = np.asarray(check_sources(sources, self.n), dtype=np.int64)
+        if len(srcs) == 0:
+            return np.zeros(0, dtype=np.int64)
+        internal = self.perm[srcs]
+        width = min(self.max_batch, len(srcs))
+        return eccentricities(internal, problem=self._sym_problem(),
+                              batch=width, use_kernel=self._use_kernel,
+                              levels_fn=self._sym_wave(width))
+
+    def eccentricity(self, sources: Sequence[int]) -> np.ndarray:
+        """Deprecated alias of :meth:`eccentricity_batch`."""
+        _alias_warning("eccentricity", "eccentricity_batch")
+        return self.eccentricity_batch(sources)
+
+    def extremes(self, *, max_evals: int | None = None) -> ExtremesReport:
+        """iFUB diameter / radius bounds of the largest component
+        (center/periphery reported in caller ids)."""
+        labels = self.components()
+        comp = int(np.bincount(labels).argmax())
+        members = np.flatnonzero(labels == comp)
+        deg = (self.prepared.graph.out_degree
+               + self.prepared.graph.in_degree)[self.perm[members]]
+        start = int(members[int(np.argmax(deg))])
+        rep = ifub_extremes(problem=self._sym_problem(),
+                            start=int(self.perm[start]),
+                            batch=self.max_batch,
+                            use_kernel=self._use_kernel,
+                            max_evals=max_evals,
+                            levels_fn=self._sym_wave(self.max_batch))
+        inv = self.inv
+        return ExtremesReport(
+            diameter_lb=rep.diameter_lb, diameter_ub=rep.diameter_ub,
+            radius_ub=rep.radius_ub, center=int(inv[rep.center]),
+            periphery=int(inv[rep.periphery]),
+            n_ecc_evals=rep.n_ecc_evals)
+
+    # ------------------------------------------------------------------
+    # verbs of later slices
+    # ------------------------------------------------------------------
+    def betweenness_batch(self, sources: Sequence[int]) -> np.ndarray:
+        """Partial Brandes betweenness (not ported yet: raises)."""
+        raise _not_ported("betweenness", _BETWEENNESS)
+
+    def betweenness(self, sources: Sequence[int]) -> np.ndarray:
+        """Deprecated alias of :meth:`betweenness_batch` (raises)."""
+        raise _not_ported("betweenness", _BETWEENNESS)
+
+    def betweenness_sample(self, k: int, *, seed: int = 0
+                           ) -> tuple[np.ndarray, np.ndarray]:
+        """Sampled-source Brandes betweenness (not ported yet: raises)."""
+        raise _not_ported("betweenness", _BETWEENNESS)
+
+    def sssp(self, src: int, *, delta: float | None = None) -> np.ndarray:
+        """Single-source shortest paths (not ported yet: raises)."""
+        raise _not_ported("sssp", _WEIGHTED)
+
+    def sssp_batch(self, sources: Sequence[int], *,
+                   delta: float | None = None) -> np.ndarray:
+        """Batched shortest paths (not ported yet: raises)."""
+        raise _not_ported("sssp", _WEIGHTED)
+
+    def pagerank(self, *, damping: float = 0.85, tol: float = 1e-8,
+                 max_iter: int = 200) -> np.ndarray:
+        """PageRank scores (not ported yet: raises)."""
+        raise _not_ported("pagerank", _WEIGHTED)
+
+    def update_edges(self, inserts=(), deletes=(), *, insert_weights=None,
+                     expected_epoch: int | None = None,
+                     staleness_budget: int | None = None):
+        """Streaming edge updates (not ported yet: raises)."""
+        raise _not_ported("update_edges", "the incremental maintenance "
+                          "slice (ROADMAP.md queue 1 item 9)")

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their PyTorch twins, on the card.
+"""The port's CUDA kernels against their PyTorch twins, and the BFS, wave
+and verb entry points against the host oracles, on the card.
 
 These cases need a CUDA card and skip without one: the hand-written
 kernels are CUDA C++ with no CPU mode.  The file imports only the port, so
@@ -6,7 +7,8 @@ it runs on a machine without JAX::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every output is integer or bool, so kernel and twin must be equal."""
+Every output is integer or bool, so kernel and twin must be equal
+(closeness, a float64 reduction of equal levels, to rtol 1e-12)."""
 import numpy as np
 import pytest
 import torch
@@ -62,6 +64,24 @@ def test_cuda_pull_push_equal_twins(cuda_device, sigma):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cuda_spmm_equals_twin(cuda_device, sigma):
+    """Ragged B and S (the 16-byte store path at S % 4 == 0, the scalar path
+    otherwise), bit-31 words, frontier bytes with bits above σ set."""
+    rng = np.random.default_rng(sigma + 200)
+    for B in (1, 127, 1003):
+        for S in (1, 3, 8, 9, 128):
+            masks = t32(u32(rng, (B, 32))).to(cuda_device)
+            fb = t32(u32(rng, (B, S))).to(cuda_device)
+            before = tk.launch_counts()["bvss_spmm"]
+            got = tk.bvss_spmm(masks, fb, sigma=sigma)
+            torch.cuda.synchronize()
+            assert tk.launch_counts()["bvss_spmm"] == before + 1
+            assert torch.equal(got, tref.bvss_spmm_ref(masks, fb, sigma)), \
+                (B, S)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lazy", [False, True])
 @pytest.mark.parametrize("sigma", [1, 4, 8, 32])
 def test_cuda_finalize_equals_twin(cuda_device, sigma, lazy):
@@ -103,3 +123,39 @@ def test_cuda_bfs_equals_oracle(cuda_device, engine, direction):
     assert counts["finalize_pack_sweep"] > 0, counts
     assert (counts["bvss_pull"] > 0) == (direction != "push"), counts
     assert (counts["bvss_push"] > 0) == (direction != "pull"), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["auto", "pull", "push"])
+def test_cuda_levels_batch_equals_oracle(cuda_device, direction):
+    """Wave serving on the card: more queries than slots, a duplicate,
+    every direction; each answer equal to the host oracle, every level
+    through the bvss_spmm kernel.  On this graph auto takes both branches."""
+    g = repro_torch.generators.clustered(40, 60, p_in=0.4, seed=1)
+    sess = repro_torch.GraphSession(g, max_batch=4, direction=direction,
+                                    order=False)
+    queries = [0, 1111, g.n - 1, 7, 1200, 0]
+    tk.reset_launch_counts()
+    for q, lv in zip(queries, sess.levels_batch(queries)):
+        np.testing.assert_array_equal(lv, repro_torch.reference_bfs(g, q))
+    stats = sess._ms.stats
+    levels_run = stats["pull_levels"] + stats["push_levels"]
+    assert tk.launch_counts()["bvss_spmm"] == levels_run > 0
+    if direction == "auto":
+        assert stats["pull_levels"] > 0 and stats["push_levels"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_wave_verbs_equal_oracles(cuda_device):
+    """components, eccentricity_batch and closeness_batch on the card
+    against the SciPy oracles, in caller ids."""
+    g = repro_torch.generators.rmat(9, 8, seed=1)
+    sess = repro_torch.GraphSession(g, max_batch=8)
+    srcs = np.random.default_rng(3).integers(0, g.n, 11)
+    np.testing.assert_array_equal(sess.components(),
+                                  tref.connected_components_ref(g))
+    np.testing.assert_array_equal(
+        sess.eccentricity_batch(srcs),
+        tref.eccentricity_ref(g.symmetrized, srcs))
+    np.testing.assert_allclose(sess.closeness_batch(srcs),
+                               tref.closeness_ref(g, srcs), rtol=1e-12)

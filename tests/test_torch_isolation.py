@@ -35,6 +35,12 @@ def test_port_process_never_loads_jax_or_reference():
         "p = repro_torch.prepare(g, device='cpu')\n"
         "lv = p.levels(0)\n"
         "assert (lv == repro_torch.reference_bfs(g, 0)).all()\n"
+        "sess = repro_torch.GraphSession(\n"
+        "    g, max_batch=2,\n"
+        "    options=repro_torch.PrepareOptions(device='cpu'))\n"
+        "for s, lv in zip((0, 5, 9), sess.levels_batch([0, 5, 9])):\n"
+        "    assert (lv == repro_torch.reference_bfs(g, s)).all()\n"
+        "assert len(sess.components()) == g.n\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")
@@ -45,10 +51,21 @@ def test_port_process_never_loads_jax_or_reference():
     assert "LOADED []" in out.stdout, out.stdout
 
 
-@pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT))
-    for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
-              ROOT / "chip_smoke.py"]))
+SCANNED = sorted(str(p.relative_to(ROOT))
+                 for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+                           ROOT / "chip_smoke.py"])
+
+
+def test_scan_covers_the_wave_slice():
+    """The scan below walks the whole package, the wave slice included."""
+    for module in ("core/multi_source.py", "kernels/mxu_pull.py",
+                   "serve/graph_session.py", "analytics/components.py",
+                   "analytics/eccentricity.py", "analytics/closeness.py",
+                   "analytics/common.py"):
+        assert f"src/repro_torch/{module}" in SCANNED, module
+
+
+@pytest.mark.parametrize("path", SCANNED)
 def test_no_source_imports_jax_or_reference(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.findall(text), FORBIDDEN.findall(text)
