@@ -13,8 +13,13 @@ Phases (any failure exits non-zero before the result line):
 2. kernels against their PyTorch twins on the card: random inputs from a
    seed, at the main-path shapes and at ragged sizes, for sigma in
    {1, 4, 8, 32}, words with bit 31 set and frontier bytes with bits above
-   sigma included; outputs must be equal; each kernel and twin is timed
-   with CUDA events (median) over inputs rotated past L2;
+   sigma included, +inf weights and distances for the min-plus tile;
+   integer outputs and ``bvss_spmm_minplus`` must be equal, ``bvss_spmm_w``
+   and ``bvss_spmm_t`` within rtol 1e-6 (the reference's tolerance; they
+   add in their twins' order, so they are expected equal); each kernel and
+   twin is timed with CUDA events (median) over inputs rotated past L2,
+   and the two weighted tiles beside ``torch.bmm`` over the unpacked f32
+   tile (TF32 off), the library call that computes the same product;
 3. main path, road regime: ``repro_torch.GraphSession(grid2d(2048, 2048),
    max_batch=8)`` with default options (RCM, eager ``blest``, direction
    "auto" with push engaged) and ``.levels(src)`` for 4 sources, each equal
@@ -26,18 +31,28 @@ Phases (any failure exits non-zero before the result line):
    than the 8 slots, so slots are refilled mid-flight) and
    ``closeness_batch`` of 8 (the fixed-cohort engine, against the SciPy
    oracle ``closeness_ref``);
+   The rmat(18) session is weighted (``weights=`` dyadic weights k/32
+   drawn from SEED), so the same preparation then serves the
+   float-channel verbs: ``betweenness_batch`` of 8 sources against the
+   level-synchronous Brandes oracle ``betweenness_ref``, ``sssp_batch``
+   of 8 and ``sssp(src)`` against SciPy's Dijkstra (exactly: dyadic sums
+   are exact in float32) and ``pagerank()`` against the float64 power
+   iteration ``pagerank_ref``;
 5. the wave verbs on the symmetrised problem of
    ``GraphSession(rmat(16), max_batch=8)``: ``components()``,
    ``eccentricity_batch`` of 8 sources and ``extremes(max_evals=64)``,
-   against the SciPy oracles.  (On rmat(18), 88,297 isolated vertices
-   make ``components()`` take minutes; PERF.md has the times.)
+   against the SciPy oracles, and ``sssp_batch`` of 4 sources on the
+   unweighted session (its lazy unit-weight plane) against the BFS
+   levels.  (On rmat(18), 88,297 isolated vertices make ``components()``
+   take minutes; PERF.md has the times.)
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
-after, and fails if a kernel of its path never launched.  The profile
-phases run ``torch.profiler`` over one BFS or wave of each regime.  Then
-one ``{"kernels": [...]}`` line, the card's nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``.  Bounds use the H100 SXM's
-published HBM3 rate, 3.35 TB/s (NVIDIA data sheet).
+after, and fails if a kernel of its path never launched.  Every phase line
+carries its wall seconds (``phase_s``, since the previous phase line).
+The profile phases run ``torch.profiler`` over one BFS, wave or cohort of
+each path.  Then one ``{"kernels": [...]}`` line, the card's nvidia-smi
+line, and as the last line ``{"ok": true, "device": {...}}``.  Bounds use
+the H100 SXM's published HBM3 rate, 3.35 TB/s (NVIDIA data sheet).
 """
 from __future__ import annotations
 
@@ -67,7 +82,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_PHASE_CLOCK = [time.perf_counter()]
+
+
 def emit(obj: dict) -> None:
+    """Print one JSON line; a phase line gets ``phase_s``, the wall seconds
+    since the previous phase line (the phases run one after another)."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "phase_s": now - _PHASE_CLOCK[0]}
+        _PHASE_CLOCK[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -295,6 +319,146 @@ def phase_kernels(torch, rt) -> dict:
     return out
 
 
+RMAT18_VSS = 38_852              # rmat(18)'s num_vss: the float tiles' width
+
+
+def check_close(torch, name: str, got, want, rtol: float) -> float:
+    """Fail unless the float kernel output is within ``rtol`` of its twin,
+    +inf where the twin is +inf; return the largest absolute difference
+    over the finite entries."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: kernel gave {got.dtype} {tuple(got.shape)}, twin "
+             f"{want.dtype} {tuple(want.shape)}")
+    if torch.isnan(got).any() or not torch.equal(torch.isinf(got),
+                                                 torch.isinf(want)):
+        fail(f"{name}: kernel NaN or +inf pattern differs from its twin")
+    fin = torch.isfinite(want)
+    diff = (got[fin] - want[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if diff.numel() and bool((diff > rtol * want[fin].abs()).any()):
+        fail(f"{name}: kernel differs from its twin beyond rtol {rtol} "
+             f"(max abs err {err})")
+    return err
+
+
+def phase_float_kernels(torch) -> dict:
+    """bvss_spmm_w, bvss_spmm_t and bvss_spmm_minplus against their twins
+    on ragged cases, then timed at the rmat(18) shapes (B = 38,852 VSSs,
+    S = 8 slots; bvss_spmm_w also at S = 1, PageRank's shape)."""
+    from repro_torch.kernels import (bvss_spmm_minplus, bvss_spmm_t,
+                                     bvss_spmm_w)
+    from repro_torch.kernels.ref import (bvss_spmm_minplus_ref,
+                                         bvss_spmm_t_ref, bvss_spmm_w_ref)
+    rng = np.random.default_rng(SEED + 1)
+    cuda = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    def inputs(B, S, sigma):
+        spw = 32 // sigma
+        w = rng.uniform(0.5, 4.0, (B, spw, 32, sigma)).astype(np.float32)
+        w[rng.random(w.shape) < 0.2] = np.inf
+        d = rng.uniform(0.0, 9.0, (B, sigma, S)).astype(np.float32)
+        d[rng.random(d.shape) < 0.3] = np.inf
+        return (t(u32_words(rng, (B, 32))),
+                t(rng.random((B, sigma, S), dtype=np.float32)),
+                t(rng.random((B, spw, 32, S), dtype=np.float32)), t(w), t(d))
+
+    checked, errs = 0, {"bvss_spmm_w": 0.0, "bvss_spmm_t": 0.0,
+                        "bvss_spmm_minplus": 0.0}
+    for sigma in SIGMAS:
+        for B in (1, 127, 1003):
+            for S in (1, 3, 8, 9):
+                m, x, h, w, d = inputs(B, S, sigma)
+                tag = f"sigma={sigma} B={B} S={S}"
+                errs["bvss_spmm_w"] = max(errs["bvss_spmm_w"], check_close(
+                    torch, f"bvss_spmm_w {tag}", bvss_spmm_w(m, x, sigma=sigma),
+                    bvss_spmm_w_ref(m, x, sigma), 1e-6))
+                errs["bvss_spmm_t"] = max(errs["bvss_spmm_t"], check_close(
+                    torch, f"bvss_spmm_t {tag}", bvss_spmm_t(m, h, sigma=sigma),
+                    bvss_spmm_t_ref(m, h, sigma), 1e-6))
+                errs["bvss_spmm_minplus"] = max(
+                    errs["bvss_spmm_minplus"], check_close(
+                        torch, f"bvss_spmm_minplus {tag}",
+                        bvss_spmm_minplus(m, w, d, sigma=sigma),
+                        bvss_spmm_minplus_ref(m, w, d, sigma), 0.0))
+                checked += 3
+    torch.cuda.synchronize()
+
+    # --- timing at the rmat(18) shapes, sigma = 8 ---
+    sigma, B, spw = 8, RMAT18_VSS, 4
+    tau = 32 * spw
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # bmm in full f32
+
+    def unpacked(m):
+        """(B, τ, σ) f32 {0,1} tile of the mask words: bmm's operand."""
+        shifts = (torch.arange(spw, device=cuda) * sigma)[:, None, None]
+        bits = torch.arange(sigma, device=cuda)
+        words = m.to(torch.int64) & 0xFFFFFFFF
+        a = (words[:, None, :, None] >> (shifts + bits)) & 1
+        return a.reshape(B, tau, sigma).to(torch.float32)
+
+    out = {}
+    for name, S in (("bvss_spmm_w", SPMM_S), ("bvss_spmm_w_s1", 1),
+                    ("bvss_spmm_t", SPMM_S), ("bvss_spmm_minplus", SPMM_S)):
+        kind = name.replace("_s1", "")
+        if kind == "bvss_spmm_w":
+            nbytes = B * 128 + B * sigma * S * 4 + B * tau * S * 4
+            ins = rotating(lambda i: (t(u32_words(rng, (B, 32))), t(
+                rng.random((B, sigma, S), dtype=np.float32))), nbytes)
+            kern = lambda m, x: bvss_spmm_w(m, x, sigma=sigma)   # noqa: E731
+            twin = lambda m, x: bvss_spmm_w_ref(m, x, sigma)      # noqa: E731
+            lib = lambda m, x, a: torch.bmm(a, x)                 # noqa: E731
+        elif kind == "bvss_spmm_t":
+            nbytes = B * 128 + B * tau * S * 4 + B * sigma * S * 4
+            ins = rotating(lambda i: (t(u32_words(rng, (B, 32))), t(
+                rng.random((B, spw, 32, S), dtype=np.float32))), nbytes)
+            kern = lambda m, h: bvss_spmm_t(m, h, sigma=sigma)   # noqa: E731
+            twin = lambda m, h: bvss_spmm_t_ref(m, h, sigma)      # noqa: E731
+            lib = lambda m, h, a: torch.bmm(                      # noqa: E731
+                a.transpose(1, 2), h.view(B, tau, S))
+        else:
+            # the weight-plane rows are read as well as masks and distances
+            nbytes = (B * 128 + B * tau * sigma * 4 + B * sigma * S * 4
+                      + B * tau * S * 4)
+            ins = rotating(lambda i: (
+                t(u32_words(rng, (B, 32))),
+                t(rng.uniform(0.5, 4.0, (B, spw, 32, sigma)
+                              ).astype(np.float32)),
+                t(rng.uniform(0.0, 9.0, (B, sigma, S)).astype(np.float32))),
+                nbytes)
+            kern = lambda m, w, d: bvss_spmm_minplus(      # noqa: E731
+                m, w, d, sigma=sigma)
+            twin = lambda m, w, d: bvss_spmm_minplus_ref(  # noqa: E731
+                m, w, d, sigma)
+            lib = None
+        err = check_close(torch, f"{name} timed", kern(*ins[0]),
+                          twin(*ins[0]), 0.0 if lib is None else 1e-6)
+        row = dict(shape={"B": B, "S": S, "sigma": sigma}, max_abs_err=err,
+                   ms=device_ms(torch, kern, ins),
+                   plain_ms=device_ms(torch, twin, ins),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   library_ms=None)
+        if lib is not None:
+            lib_in = [(*inp, unpacked(inp[0])) for inp in ins[:1]]
+            lib_out = lib(*lib_in[0]).reshape(kern(*ins[0]).shape)
+            row["library_err"] = check_close(
+                torch, f"{name} bmm", lib_out, twin(*ins[0]), 1e-4)
+            row["library_ms"] = device_ms(torch, lib, lib_in)
+            del lib_in, lib_out
+        out[name] = row
+        del ins
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    emit({"phase": "float_kernels_vs_twins", "cases_checked": checked,
+          "max_abs_err": errs,
+          "tolerance": "bvss_spmm_minplus exact; bvss_spmm_w, bvss_spmm_t "
+                       "rtol 1e-6", **out})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: BFS, waves and verbs through the public entry points
 # ---------------------------------------------------------------------------
@@ -388,11 +552,11 @@ def require_launches(counts: dict, phase: str, kernels: tuple) -> None:
 
 
 def session_phase(torch, rt, name: str, g, sources, card: str, oracle,
-                  kernels: tuple):
-    """Build ``GraphSession(g, max_batch=SLOTS)`` and serve single-source
-    ``levels`` queries against the oracle."""
+                  kernels: tuple, weights=None):
+    """Build ``GraphSession(g, max_batch=SLOTS, weights=weights)`` and
+    serve single-source ``levels`` queries against the oracle."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    sess = rt.GraphSession(g, max_batch=SLOTS)
+    sess = rt.GraphSession(g, max_batch=SLOTS, weights=weights)
     p = sess.prepared
     reset_launch_counts()
     rows = run_sources(torch, g, sess.levels, sources, oracle)
@@ -521,6 +685,131 @@ def verbs_phase(torch, rt, sess, g, rng, card: str) -> dict:
     return counts
 
 
+def betweenness_phase(torch, sess, g, sources, card: str) -> dict:
+    """``betweenness_batch`` of one cohort against the float64 Brandes
+    oracle, at the reference tests' rtol 1e-4, atol 1e-4."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import betweenness_ref
+    f = sess._bc_fn(len(sources))
+    eng, before = f.engine, dict(f.engine.stats)
+    bwd_before = dict(f.stats)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bc = sess.betweenness_batch(sources)
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launches(counts, "betweenness_batch",
+                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))
+    t0 = time.perf_counter()
+    want = betweenness_ref(g, sources)
+    oracle_s = time.perf_counter() - t0
+    err = np.abs(bc - want)
+    if bc.shape != want.shape or not np.all(np.isfinite(bc)) or \
+            bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
+        fail(f"betweenness_batch differs from betweenness_ref (max abs "
+             f"err {float(err.max())})")
+    fwd = {k: eng.stats[k] - before[k] for k in eng.stats}
+    emit({"phase": "betweenness_rmat_18", "sources": len(sources),
+          "wall_ms": wall_s * 1e3, "oracle_s": oracle_s,
+          "forward_levels": fwd["pull_levels"] + fwd["push_levels"],
+          "backward_levels": f.stats["backward_levels"]
+          - bwd_before["backward_levels"],
+          "host_syncs": fwd["host_syncs"] + f.stats["host_syncs"]
+          - bwd_before["host_syncs"],
+          "max_abs_err": float(err.max()),
+          "max_rel_err": float(np.max(err / np.maximum(np.abs(want),
+                                                        1e-300))),
+          "max_score": float(want.max()),
+          "tolerance": "rtol 1e-4, atol 1e-4", "launches": counts,
+          "card": card})
+    return counts
+
+
+def sssp_phase(torch, rt, sess, g, sources, card: str, name: str,
+               weights) -> dict:
+    """``sssp_batch`` of one cohort and ``sssp(src)`` against SciPy's
+    Dijkstra, exactly (``weights`` None: unit weights, the BFS levels)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import sssp_ref
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = sess.sssp_batch(sources)
+    batch_s = time.perf_counter() - t0
+    f = sess._sssp_fn(len(sources))
+    batch_stats = dict(f.stats)
+    single_s = None
+    if weights is not None:
+        t0 = time.perf_counter()
+        one = sess.sssp(sources[1])
+        single_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launches(counts, name, ("bvss_spmm_minplus",))
+    t0 = time.perf_counter()
+    if weights is None:
+        want = np.stack([np.where(lv == INF, np.inf, lv).astype(np.float64)
+                         for lv in (rt.reference_bfs(g, s)
+                                    for s in sources)])
+    else:
+        want = sssp_ref(g, sources, weights)
+    oracle_s = time.perf_counter() - t0
+    if dist.shape != want.shape or not np.array_equal(dist, want):
+        bad = int(np.count_nonzero(dist != want))
+        fail(f"{name}: sssp_batch differs from the oracle at {bad} entries")
+    if weights is not None and not np.array_equal(one, want[1]):
+        fail(f"{name}: sssp(src) differs from Dijkstra")
+    emit({"phase": name, "sources": len(sources),
+          "batch_wall_ms": batch_s * 1e3,
+          "single_wall_ms": None if single_s is None else single_s * 1e3,
+          "oracle_s": oracle_s, "batch_stats": batch_stats,
+          "single_stats": None if single_s is None
+          else dict(sess._sssp_fn(1).stats),
+          "reached": int(np.isfinite(want).sum()),
+          "max_dist": float(want[np.isfinite(want)].max()),
+          "tolerance": "exact", "launches": counts, "card": card})
+    return counts
+
+
+def pagerank_phase(torch, sess, g, card: str) -> dict:
+    """``pagerank()`` against the float64 power iteration ``pagerank_ref``.
+    Tolerance: relative error 1e-4 per vertex at this size (float32 sums
+    over in-degrees up to the thousands, each iteration, amplified by
+    1/(1-d)), and the scores' sum within 1e-5 of 1."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import pagerank_ref
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr = sess.pagerank()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launches(counts, "pagerank", ("bvss_spmm_w",))
+    t0 = time.perf_counter()
+    want = pagerank_ref(g)
+    oracle_s = time.perf_counter() - t0
+    rel = float(np.max(np.abs(pr - want) / want))
+    total = float(pr.sum())
+    if pr.shape != want.shape or not rel <= 1e-4 or \
+            not abs(total - 1.0) <= 1e-5:
+        fail(f"pagerank differs from pagerank_ref (max rel err {rel}, sum "
+             f"{total})")
+    fn = next(v for k, v in sess._analytics_cache.items()
+              if isinstance(k, tuple) and k[0] == "pagerank_fn")
+    first = dict(fn.stats)
+    again = sess.pagerank()          # the card's atomics: same answer?
+    emit({"phase": "pagerank_rmat_18", "wall_ms": wall_s * 1e3,
+          "oracle_s": oracle_s, "iterations": first["iterations"],
+          "host_syncs": first["host_syncs"],
+          "iterations_again": fn.stats["iterations"] - first["iterations"],
+          "bitwise_equal_runs": bool(np.array_equal(pr, again)),
+          "max_rel_err": rel, "l1_err": float(np.abs(pr - want).sum()),
+          "sum": total, "tolerance": "rel err 1e-4, |sum - 1| 1e-5",
+          "launches": counts, "card": card})
+    profile(torch, fn, "pagerank_rmat_18", card)
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -549,6 +838,7 @@ def main() -> None:
 
     # phase 2: kernels against twins
     timed = phase_kernels(torch, rt)
+    timed.update(phase_float_kernels(torch))
     by_phase: dict = {}
 
     # phase 3: main path, road regime (counts read from this run)
@@ -598,9 +888,11 @@ def main() -> None:
     g = rt.generators.rmat(18)
     sources = [0] + [int(s) for s in rng.choice(g.n, 3, replace=False)]
     oracle = memo_oracle(rt)
+    wrng = np.random.default_rng(SEED)
+    weights = (wrng.integers(1, 128, g.m) / 32.0).astype(np.float32)
     sess, by_phase["rmat_18"] = session_phase(
         torch, rt, "main_path_rmat_18", g, sources, card, oracle,
-        ("bvss_pull", "finalize_pack_sweep"))
+        ("bvss_pull", "finalize_pack_sweep"), weights=weights)
     p = sess.prepared
     bfs = make_blest_bfs(p.problem, lazy=False)
     profile(torch, lambda: bfs(int(p.perm[0])), "rmat_18", card)
@@ -615,6 +907,21 @@ def main() -> None:
                                                         replace=False)],
         card)
 
+    # the float-channel verbs on the same weighted preparation
+    fsrcs = [0] + [int(s) for s in wrng.choice(g.n, SLOTS - 1,
+                                               replace=False)]
+    by_phase["betweenness_rmat_18"] = betweenness_phase(torch, sess, g,
+                                                        fsrcs, card)
+    internal = p.perm[np.asarray(fsrcs)]
+    profile(torch, lambda: sess._bc_fn(SLOTS)(internal),
+            "betweenness_rmat_18", card, sources=SLOTS)
+    by_phase["sssp_rmat_18"] = sssp_phase(torch, rt, sess, g, fsrcs, card,
+                                          "sssp_rmat_18", weights)
+    delta = float(weights.mean())
+    profile(torch, lambda: sess._sssp_fn(SLOTS)(internal, delta),
+            "sssp_rmat_18", card, sources=SLOTS, delta=delta)
+    by_phase["pagerank_rmat_18"] = pagerank_phase(torch, sess, g, card)
+
     del sess, p, bfs
     torch.cuda.empty_cache()
 
@@ -625,12 +932,19 @@ def main() -> None:
     emit({"phase": "prepare_rmat_16", "n": g.n, "m": g.m,
           "prepare_s": time.perf_counter() - t0, "card": card})
     by_phase["verbs_rmat_16"] = verbs_phase(torch, rt, sess, g, rng, card)
+    by_phase["sssp_rmat_16"] = sssp_phase(
+        torch, rt, sess, g, [int(x) for x in rng.choice(g.n, 4,
+                                                        replace=False)],
+        card, "sssp_unit_rmat_16", None)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",
         "bvss_push": "src/repro/kernels/bvss_push.py:52",
         "finalize_pack_sweep": "src/repro/kernels/frontier_finalize.py:124",
         "bvss_spmm": "src/repro/kernels/mxu_pull.py:156",
+        "bvss_spmm_w": "src/repro/kernels/mxu_pull.py:276",
+        "bvss_spmm_t": "src/repro/kernels/mxu_pull.py:299",
+        "bvss_spmm_minplus": "src/repro/kernels/mxu_pull.py:415",
     }
     sources_cu = {
         "bvss_pull": "src/repro_torch/kernels/csrc/bvss_pull.cu",
@@ -638,10 +952,22 @@ def main() -> None:
         "finalize_pack_sweep":
             "src/repro_torch/kernels/csrc/frontier_finalize.cu",
         "bvss_spmm": "src/repro_torch/kernels/csrc/bvss_spmm.cu",
+        "bvss_spmm_w": "src/repro_torch/kernels/csrc/bvss_spmm_w.cu",
+        "bvss_spmm_t": "src/repro_torch/kernels/csrc/bvss_spmm_t.cu",
+        "bvss_spmm_minplus":
+            "src/repro_torch/kernels/csrc/bvss_spmm_minplus.cu",
     }
     # each kernel's launches on its own main path: the single-source BFSs of
-    # the road regime for the first three, the two waves for bvss_spmm
-    main_path = {"bvss_spmm": ("wave_grid2d_2048", "wave_rmat_18")}
+    # the road regime for the first three, the two waves for bvss_spmm,
+    # the float-channel verbs for the three float tiles
+    main_path = {"bvss_spmm": ("wave_grid2d_2048", "wave_rmat_18"),
+                 "bvss_spmm_w": ("betweenness_rmat_18", "pagerank_rmat_18"),
+                 "bvss_spmm_t": ("betweenness_rmat_18",),
+                 "bvss_spmm_minplus": ("sssp_rmat_18", "sssp_rmat_16")}
+    library_by = {"bvss_spmm_w": "torch.bmm over the unpacked f32 tile",
+                  "bvss_spmm_t": "torch.bmm over the unpacked f32 tile"}
+    timed_w1 = timed.pop("bvss_spmm_w_s1")
+    timed["bvss_spmm_w"]["s1"] = timed_w1
     kernels = []
     for name, row in timed.items():
         kernels.append({
@@ -651,13 +977,15 @@ def main() -> None:
                             for ph in main_path.get(name, ("grid2d_2048",))),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": "bytes", "library_ms": row.get("library_ms"),
+            "library": library_by.get(name),
             # the same numbers under the names the port's docs use
             "max_abs_diff": row["max_abs_err"], "kernel_ms": row["ms"],
             "twin_ms": row["plain_ms"],
             "launches_by_phase": {ph: c[name] for ph, c in by_phase.items()},
             **{k: v for k, v in row.items()
-               if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+               if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "library_ms")},
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -15,12 +15,16 @@ Entry points run on the card unless the caller asks for the CPU::
 
     sess = repro_torch.GraphSession(g, max_batch=8)  # wave serving
     lvs = sess.levels_batch([0, 5, 9])             # one array per query
+    bc = sess.betweenness_batch([0, 5])            # float64 (n,)
+    pr = sess.pagerank()                           # float64 (n,), sums to 1
 
 Ported so far: single-source BLEST (``prepare(g).levels(src)``) with
 hand-written CUDA kernels for ``bvss_pull``, ``bvss_push`` and
 ``finalize_pack_sweep``, and wave serving (``GraphSession.levels_batch``,
 the components, eccentricity and closeness verbs) with a hand-written
-CUDA ``bvss_spmm``.
+CUDA ``bvss_spmm``, and the float-channel verbs (betweenness, SSSP,
+PageRank and ``weights=``) with hand-written CUDA ``bvss_spmm_w``,
+``bvss_spmm_t`` and ``bvss_spmm_minplus``.
 """
 from repro_torch.core.bfs import reference_bfs
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,

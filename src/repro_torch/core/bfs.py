@@ -260,6 +260,40 @@ def make_compactor(dev: BVSSDevice, num_vss: int, qcap: int) -> Callable:
     return compact
 
 
+class QueueHistory(NamedTuple):
+    """Per-level frontier history of one traversal: ``Q[lvl - 1]`` is the
+    compacted VSS queue the level-``lvl`` pull consumed (the tiles whose
+    slice sets intersect the level-``lvl - 1`` frontier) and ``count[lvl -
+    1]`` its live count.  Recorded via
+    :func:`repro_torch.core.level_pipeline.run_levels_recorded` and replayed
+    in reverse by the Brandes backward sweep
+    (``repro_torch.analytics.betweenness``).
+
+    The reference preallocates a ``(max_levels + 1, qcap)`` buffer, which
+    at its default bound of n + 1 levels is about 40 GB on ``rmat(18)``.
+    Here the level loop runs on the host, which knows each level's width,
+    so the history keeps only the prefix ``Q[:width]`` the level's pull
+    ran at (dummy entries past ``count`` included, as in the reference)."""
+
+    Q: list[torch.Tensor]   # one (width,) int64 queue prefix per level
+    count: list[int]        # live VSS count per level
+
+
+def make_queue_history(widths: list[int]) -> tuple[QueueHistory, Callable]:
+    """A fresh, empty :class:`QueueHistory` and the ``record`` hook that
+    appends a wave state's queue prefix at the width its count selects
+    from the ladder ``widths``."""
+    hist0 = QueueHistory(Q=[], count=[])
+
+    def record(hist: QueueHistory, state, lvl: int) -> QueueHistory:
+        del lvl  # levels are recorded in order, from 1
+        hist.Q.append(state.Q[:selected_width(widths, state.count)])
+        hist.count.append(int(state.count))
+        return hist
+
+    return hist0, record
+
+
 def _make_hybrid_step(dev: BVSSDevice, pull: PullFn, push: PushFn,
                       sigma: int, n_rows: int, widths: list[int], *,
                       lazy: bool, direction: str, num_vss: int,

@@ -268,3 +268,74 @@ def to_device(b: BVSS, device: "str | torch.device | None" = None
         vss_of_vertex_start=put(start),
         vss_of_vertex_end=put(end),
     )
+
+
+# ---------------------------------------------------------------------------
+# Weight plane: per-edge float weights aligned with the bit slices
+# (the min-plus / weighted-verb operand, DESIGN §2.9)
+# ---------------------------------------------------------------------------
+def build_weight_plane(g: Graph, weights: np.ndarray,
+                       sigma: int = 8) -> np.ndarray:
+    """Lay per-edge weights out exactly like the BVSS mask bits.
+
+    ``weights`` is one float per CSR edge of ``g`` (``g.indices`` order).
+    Returns a (num_vss, 32//σ, LANES, σ) float32 plane where entry
+    ``[v, slot, lane, i]`` is the weight of the edge encoded by bit σ·slot+i
+    of ``masks[v, lane]`` — i.e. the same (slot, lane) slice placement
+    :func:`build_bvss` computes — and +inf wherever that bit is unset (the
+    tropical-semiring annihilator, so masked and missing edges agree).
+    Parallel edges (if any survive ingress) keep the minimum weight.
+    """
+    if not (1 <= sigma <= 32 and 32 % sigma == 0):
+        raise GraphValidationError(
+            f"sigma must be a divisor of 32 in [1, 32], got {sigma!r}")
+    spw = 32 // sigma
+    tau = LANES * spw
+    n = g.n
+    n_sets = (n + sigma - 1) // sigma
+
+    t_indptr, t_indices = g.t_csr
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(t_indptr))
+    cols = t_indices.astype(np.int64)
+    # t_csr edge j is original CSR edge argsort(indices)[j] (stable sort by
+    # destination) — permute the weights into the same transposed order
+    w_t = np.asarray(weights, dtype=np.float32)[
+        np.argsort(g.indices, kind="stable")]
+    interval = cols // sigma
+    bit = (cols % sigma).astype(np.int64)
+
+    # identical slice placement to build_bvss
+    keys = interval * n + rows
+    ukeys, inverse = np.unique(keys, return_inverse=True)
+    num_slices = len(ukeys)
+    slice_interval = (ukeys // n).astype(np.int64)
+    set_counts = np.bincount(slice_interval, minlength=n_sets)
+    vss_counts = (set_counts + tau - 1) // tau
+    real_ptrs = np.zeros(n_sets + 1, dtype=np.int64)
+    real_ptrs[1:] = np.cumsum(vss_counts)
+    num_vss = int(real_ptrs[-1])
+    set_starts = np.zeros(n_sets + 1, dtype=np.int64)
+    np.cumsum(set_counts, out=set_starts[1:])
+    local = np.arange(num_slices, dtype=np.int64) - set_starts[slice_interval]
+    vss = real_ptrs[slice_interval] + local // tau
+    k = local % tau
+    lane = k % LANES
+    slot = k // LANES
+
+    plane = np.full((num_vss, spw, LANES, sigma), np.inf, dtype=np.float32)
+    np.minimum.at(plane, (vss[inverse], slot[inverse], lane[inverse], bit),
+                  w_t)
+    return plane
+
+
+def weight_plane_to_device(plane: np.ndarray,
+                           device: "str | torch.device | None" = None
+                           ) -> torch.Tensor:
+    """Commit a weight plane to ``device`` (default: the card) as a
+    ``(num_vss + 1, 32/σ, LANES, σ)`` float32 tensor.  The appended last
+    row is all +inf: it mirrors the all-zero dummy mask row of
+    :func:`to_device`, so padded queue entries relax nothing."""
+    full = np.concatenate(
+        [plane, np.full((1,) + plane.shape[1:], np.inf, np.float32)], axis=0)
+    return torch.from_numpy(np.ascontiguousarray(full)).to(
+        resolve_device(device))

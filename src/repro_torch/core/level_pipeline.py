@@ -42,3 +42,23 @@ def run_levels(pipe: LevelPipeline, state: State, *, max_levels: int
         state = pipe.step(state, lvl)
         state = pipe.finalize(state, lvl)
     return state, lvl
+
+
+def run_levels_recorded(pipe: LevelPipeline, state: State, *,
+                        max_levels: int, history: State,
+                        record: Callable[[State, State, int], State]
+                        ) -> tuple[State, int, State]:
+    """:func:`run_levels` with a per-level *history* channel: before each
+    level's ``step``, ``record(hist, state, lvl)`` folds the pre-step state
+    into ``history`` (:func:`repro_torch.core.bfs.make_queue_history`).
+    The Brandes backward sweep (``repro_torch.analytics.betweenness``)
+    replays the recorded per-level VSS queues in reverse, so it touches
+    exactly the tiles the forward phase pulled.  Returns (final state,
+    levels run, history)."""
+    lvl = 0
+    while pipe.active(state) and lvl < max_levels:
+        lvl += 1
+        history = record(history, state, lvl)
+        state = pipe.step(state, lvl)
+        state = pipe.finalize(state, lvl)
+    return state, lvl, history

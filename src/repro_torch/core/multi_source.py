@@ -38,8 +38,19 @@ column's depth, so this equals the min.  The eager form's check of each
 hit row's level needs a gather of ``w·τ`` rows of ``levels``, which cost
 more than the rest of a grid level together on the H100 (PERF.md).
 
-Not in this slice: the σ path-count channel (``track_sigma``, which needs
-the ``bvss_spmm_w`` kernel of the betweenness slice) and the mesh paths.
+``make_ms_engine(..., track_sigma=True)`` widens the wave state with the
+σ path-count channel (DESIGN §2.6): alongside the Boolean pull, each level
+runs the weighted tile product (CUDA ``bvss_spmm_w``) over the same queued
+VSSs, propagating ``paths[u] = Σ paths[pred]`` for the Brandes forward
+phase (``repro_torch.analytics.betweenness``).  The reference writes the
+sums where its eager scatter-min just made a row's level ``col_lvl + 1``;
+here the step writes them where the marks of this level hit a row whose
+level is still INF, which is the same set of rows (``finalize`` then
+gives those rows their level).  The sums are an ``index_add_`` over the
+queued rows, so on the card their order varies from run to run; path
+counts are integers, exact in f32 up to 2^24.
+
+Not in this slice: the mesh paths.
 """
 from __future__ import annotations
 
@@ -58,8 +69,8 @@ from repro_torch.core.bfs import (DIRECTIONS, BlestProblem, INF,
 from repro_torch.core.level_pipeline import LevelPipeline, run_levels
 from repro_torch.errors import ConfigError
 from repro_torch.graphs import Graph
-from repro_torch.kernels import bvss_spmm
-from repro_torch.kernels.ref import bvss_spmm_ref, pack_words
+from repro_torch.kernels import bvss_spmm, bvss_spmm_w, bvss_spmm_w_local
+from repro_torch.kernels.ref import bvss_spmm_ref, bvss_spmm_w_ref, pack_words
 
 
 def _union_words(F: torch.Tensor) -> torch.Tensor:
@@ -131,6 +142,10 @@ class MSState(NamedTuple):
     ucount: int = 0
     tbits: int = 0
     unvisited: int = 0
+    paths: torch.Tensor | None = None
+                          # (n, S) float32 σ shortest-path counts (Brandes
+                          # forward channel), present iff the engine was
+                          # built with ``track_sigma=True``
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +176,9 @@ class MSEngine:
                           # non-empty (read from the device)
     levels_of: Callable   # (state, slot or slots) -> levels on the device
     stats: dict           # host copies, pull levels and push levels run
+    paths_of: Callable | None = None
+                          # (state, slot) -> (n,) σ path counts on the
+                          # device; None unless built with track_sigma
 
 
 def make_ms_engine(problem: BlestProblem, n_slots: int, *,
@@ -183,24 +201,29 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
     pull uses, so both directions share one kernel and one seam
     (``spmm_impl``).  ``widths`` overrides the bucketed pull ladder.
 
-    ``track_sigma=True`` is a :class:`~repro_torch.errors.ConfigError`:
-    the σ channel needs the ``bvss_spmm_w`` kernel of the betweenness
-    slice.  As in the reference, ``spmm_w_impl`` (used only by the σ
-    channel), ``gather_impl`` (consulted only on a sharded problem) and
+    ``track_sigma`` widens the state with the Brandes σ path-count
+    channel and pins ``direction="pull"`` (the weighted twin has no push
+    formulation; forced push with σ tracking is a
+    :class:`~repro_torch.errors.ConfigError`).  ``spmm_w_impl`` overrides
+    its weighted tile product (the σ-channel seam).  As in the reference,
+    ``gather_impl`` (consulted only on a sharded problem) and
     ``push_impl`` (the wave push rides the spmm seam) are accepted and
     ignored here."""
-    del spmm_w_impl, gather_impl, push_impl
+    del gather_impl, push_impl
     p = problem
     if direction not in DIRECTIONS:
         raise ConfigError(
             f"direction must be one of {DIRECTIONS}, got {direction!r}")
     if track_sigma:
-        raise ConfigError(
-            "track_sigma (the Brandes σ path-count channel) is not ported to "
-            "PyTorch yet: it needs the bvss_spmm_w kernel, which comes with "
-            "the betweenness slice (ROADMAP.md queue 1 item 6)")
+        if direction == "push":
+            raise ConfigError(
+                "track_sigma is pull-only (the Brandes σ channel has no "
+                "weighted push twin); direction='push' is contradictory")
+        direction = "pull"
     spmm = spmm_impl if spmm_impl is not None else \
         (bvss_spmm if use_kernel else bvss_spmm_ref)
+    spmm_w = spmm_w_impl if spmm_w_impl is not None else \
+        (bvss_spmm_w if use_kernel else bvss_spmm_w_ref)
     dev = p.dev
     device = p.device
     sigma = p.sigma
@@ -227,12 +250,33 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         state.marks.index_put_((tgt, cols), one)
         return state
 
+    n_cols = p.n_sets * sigma  # padded column space (≥ n) for value gathers
+
+    def sigma_update(state: MSState, ids: torch.Tensor) -> MSState:
+        """The σ channel (DESIGN §2.6): the weighted twin of the pull over
+        the same queued tiles, contracted against the frontier's path
+        counts; rows this level's marks discover take the sum.  The
+        Boolean marks gate discovery, so a converged column (whose last
+        level still equals its ``col_lvl``) changes nothing."""
+        lv = state.levels[:n]
+        xv = torch.zeros((n_cols, S), dtype=torch.float32, device=device)
+        xv[:n] = torch.where(lv == state.col_lvl[None, :], state.paths, 0.0)
+        wv = bvss_spmm_w_local(dev.masks[ids], dev.virtual_to_real[ids], xv,
+                               sigma=sigma, impl=spmm_w)
+        rows = dev.row_ids[ids].reshape(-1).to(torch.int64)
+        acc = torch.zeros((n + 1, S), dtype=torch.float32, device=device)
+        acc.index_add_(0, rows, wv.view(rows.shape[0], S))
+        new = (state.marks[:n] != 0) & (lv == INF)
+        state.paths.copy_(torch.where(new, acc[:n], state.paths))
+        return state
+
     def pull_update(state: MSState, width: int) -> MSState:
         ids = state.Q[:width]
         fb = _frontier_bytes(state.F, dev.virtual_to_real[ids], sigma)
         counts = spmm(dev.masks[ids], fb, sigma=sigma)  # (w, spw, 32, S)
         stats["pull_levels"] += 1
-        return mark(state, ids, counts)
+        state = mark(state, ids, counts)
+        return sigma_update(state, ids) if track_sigma else state
 
     def pull_step(state: MSState) -> MSState:
         return select_width(widths, state.count,
@@ -318,7 +362,9 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
                          device=device),
             count=0, col_lvl=torch.zeros((S,), dtype=torch.int32,
                                          device=device),
-            cont=False, live=np.zeros(S, dtype=bool), unvisited=n * S)
+            cont=False, live=np.zeros(S, dtype=bool), unvisited=n * S,
+            paths=torch.zeros((n, S), dtype=torch.float32, device=device)
+            if track_sigma else None)
 
     def seed(state: MSState, srcs: np.ndarray, slots: np.ndarray) -> None:
         """Level 0 of fresh queries ``srcs`` in columns ``slots`` (whose
@@ -327,6 +373,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         state.levels[sv, sl] = 0
         state.F[sv >> 5, sl] = (torch.ones_like(sv) << (sv & 31)).to(
             torch.int32)
+        if track_sigma:
+            state.paths[sv, sl] = 1.0
 
     def init(sources) -> MSState:
         srcs = _host_array(sources, np.int64)
@@ -345,6 +393,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         state.levels[:, slot] = INF
         state.F[:, slot] = 0
         state.col_lvl[slot] = 0
+        if track_sigma:
+            state.paths[:, slot] = 0.0
         seed(state, np.array([int(src)]), np.array([slot]))
         return state
 
@@ -358,6 +408,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
             state.levels.index_fill_(1, sl, INF)
             state.F.index_fill_(1, sl, 0)
             state.col_lvl.index_fill_(0, sl, 0)
+            if track_sigma:
+                state.paths.index_fill_(1, sl, 0.0)
             seed(state, _host_array(srcs, np.int64)[slots], slots)
         return requeue(state)
 
@@ -378,7 +430,9 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         problem=p, n_slots=S, init=init, idle=fresh_state, insert=insert,
         insert_batch=insert_batch, requeue=requeue, step=step,
         finalize=finalize, level_step=level_step, col_live=col_live,
-        levels_of=levels_of, stats=stats)
+        levels_of=levels_of, stats=stats,
+        paths_of=(lambda st, slot: st.paths[:, slot]) if track_sigma
+        else None)
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.bfs import BlestProblem, make_engine
-from repro_torch.core.bvss import BVSS, build_bvss, resolve_device
+from repro_torch.core.bvss import (BVSS, build_bvss, build_weight_plane,
+                                   resolve_device, weight_plane_to_device)
 from repro_torch.core.ordering import auto_order
-from repro_torch.errors import BlestError, ConfigError, check_source
-from repro_torch.graphs import Graph
+from repro_torch.errors import (BlestError, ConfigError, check_source,
+                                check_weights)
+from repro_torch.graphs import Graph, src_of_edges
 
 # paper §5: fixed threshold for switching to lazy vertex updates
 LAZY_UDIV_THRESHOLD = 25_000.0
@@ -36,6 +38,8 @@ class PrepareOptions:
     """Every static knob of :func:`prepare`, as one typed value::
 
         prepare(g, options=PrepareOptions(sigma=4, device="cpu"))
+
+    ``weights`` may be an array; options compare by identity.
     """
 
     sigma: int = 8                        # slice width (bits)
@@ -49,6 +53,7 @@ class PrepareOptions:
     direction: str = "auto"               # push/pull hybrid mode
     push_impl: Callable | None = None     # push-kernel seam
     device: str | None = None             # None = "cuda"; "cpu" on request
+    weights: np.ndarray | None = None     # per-edge weights of the INPUT g
 
     def replace(self, **changes) -> "PrepareOptions":
         return dataclasses.replace(self, **changes)
@@ -66,6 +71,10 @@ class PreparedBFS:
     update_divergence: float
     options: PrepareOptions
     _fn: Callable[[int], torch.Tensor] | None = dataclasses.field(default=None)
+    # per-edge weights in the REORDERED graph's CSR edge order (float32)
+    # and their device weight plane, when prepared with weights
+    weights: np.ndarray | None = None
+    wplane: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -122,6 +131,7 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
     o = (options if options is not None else PrepareOptions()).replace(
         **fields)
     device = resolve_device(o.device)
+    w_arr = None if o.weights is None else check_weights(o.weights, g.m)
     if o.order:
         perm, kind = auto_order(g, sigma=o.sigma, w=o.w, seed=o.seed)
         g_ord = g.permute_fast(perm)
@@ -130,17 +140,30 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
         g_ord = g
     inv = np.empty(g.n, dtype=np.int64)
     inv[perm] = np.arange(g.n)
+    w_ord = None
+    if w_arr is not None:
+        if o.order:
+            # permute_fast re-sorts the relabelled edges by (src·n + dst)
+            # key; simple-graph keys are unique, so a stable argsort maps
+            # each ordered edge back to its original weight
+            keys = (perm[src_of_edges(g)] * np.int64(g.n)
+                    + perm[g.indices.astype(np.int64)])
+            w_ord = w_arr[np.argsort(keys, kind="stable")]
+        else:
+            w_ord = w_arr
     bvss = build_bvss(g_ord, sigma=o.sigma)
     engine_name = o.engine if o.engine is not None else \
         choose_update_scheme(bvss, threshold=o.lazy_threshold)
     problem = build_problem(g_ord, bvss=bvss, device=device)
+    wplane = None if w_ord is None else weight_plane_to_device(
+        build_weight_plane(g_ord, w_ord, sigma=o.sigma), device)
     fn = make_engine(g_ord, engine_name, problem=problem,
                      use_kernels=o.use_kernels, buckets=o.buckets,
                      direction=o.direction, push_impl=o.push_impl)
     return PreparedBFS(graph=g_ord, perm=perm, inv=inv, ordering=kind,
                        engine_name=engine_name, bvss=bvss, problem=problem,
                        update_divergence=bvss.update_divergence(),
-                       options=o, _fn=fn)
+                       options=o, _fn=fn, weights=w_ord, wplane=wplane)
 
 
 def parents_from_levels(g: Graph, levels: np.ndarray) -> np.ndarray:

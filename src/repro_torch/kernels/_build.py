@@ -28,7 +28,8 @@ from repro_torch.errors import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("bvss_pull", "bvss_push", "frontier_finalize", "bvss_spmm")
+SOURCES = ("bvss_pull", "bvss_push", "frontier_finalize", "bvss_spmm",
+           "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,5 +1,6 @@
-"""Batched BVSS bit-SpMM: CUDA kernel ``csrc/bvss_spmm.cu`` and its entry
-point.
+"""Batched BVSS tile products: CUDA kernels ``csrc/bvss_spmm.cu``,
+``csrc/bvss_spmm_w.cu``, ``csrc/bvss_spmm_t.cu`` and
+``csrc/bvss_spmm_minplus.cu`` and their entry points.
 
 Port of ``repro/kernels/mxu_pull.py::bvss_spmm``, the multi-source pull of
 the wave engine (DESIGN §2.5): per queued VSS, the ``(τ, σ)`` slice bits
@@ -8,6 +9,15 @@ The TPU kernel unpacks both to int8 tiles for its matrix unit; on Hopper
 each count is one AND and one ``__popc`` on the packed words, and the
 ``(B, 32/σ, 32, S)`` int32 output is the cost.  The reference's
 ``tile_b``/``tile_s`` knobs exist for the TPU's VMEM and are not ported.
+
+The three float tiles of the analytics semiring (DESIGN §2.6, §2.9) port
+``bvss_spmm_w`` (σ path counts, PageRank), ``bvss_spmm_t`` (the Brandes
+backward sweep) and ``bvss_spmm_minplus`` (the SSSP relaxation).  The
+TPU kernels unpack the mask bits into a float tile for its matrix or
+vector unit; here a thread walks the set bits of its slice, adding (or
+taking the min) in ascending order, so each kernel equals its twin bit
+for bit.  The ``*_local`` forms are indexing around a kernel, as in the
+reference, not kernels.
 """
 from __future__ import annotations
 
@@ -17,12 +27,18 @@ import torch
 
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import bvss_spmm_ref
+from repro_torch.kernels.ref import (bvss_spmm_minplus_ref, bvss_spmm_ref,
+                                     bvss_spmm_t_ref, bvss_spmm_w_ref)
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, _P]
+_T_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+               _P]
+_MP_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, _P]
 _MAX_BLOCKS = 2 ** 31 - 1      # gridDim.x; one 256-thread block per 256 rows
+_SMEM_BYTES = 48 * 1024        # static shared memory of one block, no opt-in
 
 
 def bvss_spmm(masks: torch.Tensor, fbytes: torch.Tensor, *, sigma: int = 8
@@ -59,3 +75,165 @@ def bvss_spmm(masks: torch.Tensor, fbytes: torch.Tensor, *, sigma: int = 8
 
 
 bvss_spmm.launches = 0
+
+
+def _check_block_columns(name: str, B: int, S: int, sigma: int) -> None:
+    """The one-block-per-VSS kernels stage a (σ, S) f32 block in shared
+    memory and launch B blocks."""
+    if 4 * sigma * S > _SMEM_BYTES:
+        raise ConfigError(
+            f"{name}: S = {S} columns at sigma = {sigma} need "
+            f"{4 * sigma * S} B of shared memory per block, above "
+            f"{_SMEM_BYTES}")
+    if B > _MAX_BLOCKS:
+        raise ConfigError(f"{name}: B = {B} VSSs exceed one launch")
+
+
+def _vec(S: int, *tensors: torch.Tensor) -> int:
+    """1 when the kernel may use 16-byte row stores and loads."""
+    return int(S % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def bvss_spmm_w(masks: torch.Tensor, xvals: torch.Tensor, *,
+                sigma: int = 8) -> torch.Tensor:
+    """Weighted BVSS pull: masks (B, 32) int32 (uint32 bit patterns), xvals
+    (B, σ, S) float32 values of each VSS's σ slice-set columns -> (B, 32/σ,
+    32, S) float32; ``[b, j, l, s]`` sums the values of the set bits of
+    slice ``k = j*32 + l`` (scatter-add it into rows via ``row_ids``).
+    CUDA tensors launch the kernel; CPU tensors run
+    :func:`~repro_torch.kernels.ref.bvss_spmm_w_ref`."""
+    from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
+    if not use_kernel(masks, xvals):
+        return bvss_spmm_w_ref(masks, xvals, sigma)
+    check_sigma(sigma)
+    B = masks.shape[0]
+    S = xvals.shape[2] if xvals.dim() == 3 else -1
+    check_operand(masks, "masks", torch.int32, (B, 32))
+    check_operand(xvals, "xvals", torch.float32, (B, sigma, S))
+    _check_block_columns("bvss_spmm_w", B, S, sigma)
+    spw = 32 // sigma
+    out = torch.empty((B, spw, 32, S), dtype=torch.float32,
+                      device=masks.device)
+    if B and S:
+        fn = _build.bind("bvss_spmm_w", "bvss_spmm_w_launch", _ARGTYPES)
+        stream = torch.cuda.current_stream(masks.device).cuda_stream
+        err = fn(masks.data_ptr(), xvals.data_ptr(), out.data_ptr(), B, S,
+                 sigma, _vec(S, out), stream)
+        _build.check("bvss_spmm_w", err, "bvss_spmm_w")
+        bvss_spmm_w.launches += 1
+    return out
+
+
+bvss_spmm_w.launches = 0
+
+
+def bvss_spmm_t(masks: torch.Tensor, hvals: torch.Tensor, *,
+                sigma: int = 8) -> torch.Tensor:
+    """Transposed weighted BVSS product: masks (B, 32) int32, hvals
+    (B, 32/σ, 32, S) float32 per-row values -> (B, σ, S) float32;
+    ``[b, i, s]`` sums the values of the rows whose slice has bit i set
+    (scatter-add it into columns).  CUDA tensors launch the kernel; CPU
+    tensors run :func:`~repro_torch.kernels.ref.bvss_spmm_t_ref`."""
+    from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
+    if not use_kernel(masks, hvals):
+        return bvss_spmm_t_ref(masks, hvals, sigma)
+    check_sigma(sigma)
+    B = masks.shape[0]
+    spw = 32 // sigma
+    S = hvals.shape[3] if hvals.dim() == 4 else -1
+    check_operand(masks, "masks", torch.int32, (B, 32))
+    check_operand(hvals, "hvals", torch.float32, (B, spw, 32, S))
+    if B * sigma * S > _MAX_BLOCKS * 256:
+        raise ConfigError(f"bvss_spmm_t: B = {B} VSSs exceed one launch")
+    out = torch.empty((B, sigma, S), dtype=torch.float32,
+                      device=masks.device)
+    if B and S:
+        fn = _build.bind("bvss_spmm_t", "bvss_spmm_t_launch", _T_ARGTYPES)
+        stream = torch.cuda.current_stream(masks.device).cuda_stream
+        err = fn(masks.data_ptr(), hvals.data_ptr(), out.data_ptr(), B, S,
+                 sigma, stream)
+        _build.check("bvss_spmm_t", err, "bvss_spmm_t")
+        bvss_spmm_t.launches += 1
+    return out
+
+
+bvss_spmm_t.launches = 0
+
+
+def bvss_spmm_minplus(masks: torch.Tensor, wvals: torch.Tensor,
+                      xvals: torch.Tensor, *, sigma: int = 8
+                      ) -> torch.Tensor:
+    """Tropical (min, +) BVSS pull: masks (B, 32) int32, wvals (B, 32/σ, 32,
+    σ) float32 weight-plane rows (``build_weight_plane`` layout), xvals
+    (B, σ, S) float32 column distances (+inf unreached) -> (B, 32/σ, 32, S)
+    float32; ``[b, j, l, s]`` is the min over the set bits i of slice
+    ``k = j*32 + l`` of ``wvals[b, j, l, i] + xvals[b, i, s]``, +inf for a
+    slice with no bit (scatter-min it into rows via ``row_ids``).  CUDA
+    tensors launch the kernel; CPU tensors run
+    :func:`~repro_torch.kernels.ref.bvss_spmm_minplus_ref`."""
+    from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
+    if not use_kernel(masks, wvals, xvals):
+        return bvss_spmm_minplus_ref(masks, wvals, xvals, sigma)
+    check_sigma(sigma)
+    B = masks.shape[0]
+    spw = 32 // sigma
+    S = xvals.shape[2] if xvals.dim() == 3 else -1
+    check_operand(masks, "masks", torch.int32, (B, 32))
+    check_operand(wvals, "wvals", torch.float32, (B, spw, 32, sigma))
+    check_operand(xvals, "xvals", torch.float32, (B, sigma, S))
+    _check_block_columns("bvss_spmm_minplus", B, S, sigma)
+    out = torch.empty((B, spw, 32, S), dtype=torch.float32,
+                      device=masks.device)
+    if B and S:
+        fn = _build.bind("bvss_spmm_minplus", "bvss_spmm_minplus_launch",
+                         _MP_ARGTYPES)
+        stream = torch.cuda.current_stream(masks.device).cuda_stream
+        err = fn(masks.data_ptr(), wvals.data_ptr(), xvals.data_ptr(),
+                 out.data_ptr(), B, S, sigma, _vec(S, out), stream)
+        _build.check("bvss_spmm_minplus", err, "bvss_spmm_minplus")
+        bvss_spmm_minplus.launches += 1
+    return out
+
+
+bvss_spmm_minplus.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# local-rows × global-columns forms: indexing around the kernels
+# ---------------------------------------------------------------------------
+def _column_ids(sets: torch.Tensor, sigma: int) -> torch.Tensor:
+    """(B,) slice-set ids -> (B, σ) column ids; set j owns [σj, σ(j+1))."""
+    return (sets.to(torch.int64)[:, None] * sigma
+            + torch.arange(sigma, device=sets.device)[None, :])
+
+
+def bvss_spmm_w_local(masks: torch.Tensor, sets: torch.Tensor,
+                      xglobal: torch.Tensor, *, sigma: int = 8,
+                      impl=None) -> torch.Tensor:
+    """Weighted pull of a queued VSS batch against a column-value array:
+    gathers each VSS's (σ, S) slice-set block out of ``xglobal`` (C, S)
+    float32, C >= n_sets·σ, and contracts it with the (τ, σ) bit tile.
+    ``sets`` (B,) are the slice-set ids (``virtual_to_real[ids]``).
+    ``impl`` overrides the tile product (the σ-channel seam)."""
+    f = bvss_spmm_w if impl is None else impl
+    return f(masks, xglobal[_column_ids(sets, sigma)], sigma=sigma)
+
+
+def bvss_spmm_minplus_local(masks: torch.Tensor, wvals: torch.Tensor,
+                            sets: torch.Tensor, xglobal: torch.Tensor, *,
+                            sigma: int = 8, impl=None) -> torch.Tensor:
+    """Min-plus pull of a queued VSS batch against a column-distance array
+    (C, S) float32: the tropical twin of :func:`bvss_spmm_w_local`, with
+    ``wvals`` the queued weight-plane rows (``wplane[Q]``)."""
+    f = bvss_spmm_minplus if impl is None else impl
+    return f(masks, wvals, xglobal[_column_ids(sets, sigma)], sigma=sigma)
+
+
+def bvss_spmm_t_local(masks: torch.Tensor, row_ids: torch.Tensor,
+                      hrows: torch.Tensor, *, sigma: int = 8,
+                      impl=None) -> torch.Tensor:
+    """Transposed weighted product against per-row values (R + 1, S)
+    float32 gathered through ``row_ids`` (B, 32/σ, 32) (the dummy row R
+    indexes ``hrows``'s zero tail) -> (B, σ, S) per-column partial sums."""
+    f = bvss_spmm_t if impl is None else impl
+    return f(masks, hrows[row_ids.to(torch.int64)], sigma=sigma)

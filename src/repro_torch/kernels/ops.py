@@ -54,12 +54,15 @@ def check_sigma(sigma: int) -> None:
 from .bvss_pull import bvss_pull                                  # noqa: E402
 from .bvss_push import bvss_push                                  # noqa: E402
 from .frontier_finalize import finalize_pack_sweep                # noqa: E402
-from .mxu_pull import bvss_spmm                                   # noqa: E402
+from .mxu_pull import (bvss_spmm, bvss_spmm_minplus,              # noqa: E402
+                       bvss_spmm_minplus_local, bvss_spmm_t,
+                       bvss_spmm_t_local, bvss_spmm_w, bvss_spmm_w_local)
 from . import ref                                                 # noqa: E402
 
 #: every hand-written kernel's entry point; each carries a ``launches``
 #: count that grows by one per kernel launch (twin calls do not count)
-KERNELS = (bvss_pull, bvss_push, finalize_pack_sweep, bvss_spmm)
+KERNELS = (bvss_pull, bvss_push, finalize_pack_sweep, bvss_spmm,
+           bvss_spmm_w, bvss_spmm_t, bvss_spmm_minplus)
 
 
 def launch_counts() -> dict[str, int]:
@@ -84,6 +87,8 @@ def push_vss_kernel(masks: torch.Tensor, bits: torch.Tensor,
 
 
 __all__ = ["use_kernel", "check_operand", "check_sigma", "bvss_pull",
-           "bvss_push", "finalize_pack_sweep", "bvss_spmm", "KERNELS",
+           "bvss_push", "finalize_pack_sweep", "bvss_spmm", "bvss_spmm_w",
+           "bvss_spmm_t", "bvss_spmm_minplus", "bvss_spmm_w_local",
+           "bvss_spmm_t_local", "bvss_spmm_minplus_local", "KERNELS",
            "launch_counts", "reset_launch_counts", "pull_vss_kernel",
            "push_vss_kernel", "ref"]

@@ -18,18 +18,22 @@ Id-space contract: callers speak ORIGINAL vertex ids everywhere — sources
 in, level arrays / centrality scores / component labels out.  The internal
 reordering is invisible.
 
-Beyond level queries, a session serves the analytics verbs that are pure
-wave clients (DESIGN §2.6) on the same slot-pool width: ``components()``,
-``eccentricity_batch()`` / ``extremes()`` and ``closeness_batch()``.  The
-classical undirected analytics run on a lazily built symmetrised twin of
-the prepared problem (same internal id space).
+Beyond level queries, a session serves every verb of
+:attr:`GraphSession.VERBS` on the same slot-pool width: the pure wave
+clients ``components()``, ``eccentricity_batch()`` / ``extremes()`` and
+``closeness_batch()`` (DESIGN §2.6; the undirected ones on a lazily built
+symmetrised twin of the prepared problem), and the float-channel verbs
+``betweenness_batch()`` (CUDA ``bvss_spmm``, ``bvss_spmm_w`` and
+``bvss_spmm_t``), ``sssp()`` / ``sssp_batch()`` (``bvss_spmm_minplus``
+against the edge-weight plane) and ``pagerank()`` (``bvss_spmm_w``).
+``weights=`` (one strictly positive float per CSR edge) arms SSSP; an
+unweighted session lazily defaults to unit weights, so ``sssp`` gives hop
+counts.
 
 Not ported yet, each raising :class:`~repro_torch.errors.ConfigError`
-that names its ROADMAP.md slice: the betweenness, SSSP and PageRank verbs
-(queue 1 item 6, with the weighted tile kernels), ``update_edges`` (item
-9), and the ``mesh`` (item 11), ``weights`` (item 6), ``fault_plan``
-(item 7) and ``autotune`` (item 9) constructor options.  The verbs stay in
-:attr:`GraphSession.VERBS`, so the tuple equals the reference's.
+that names its ROADMAP.md slice: ``update_edges`` (queue 1 item 9), and
+the ``mesh`` (item 11), ``fault_plan`` (item 7) and ``autotune`` (item 9)
+constructor options.
 """
 from __future__ import annotations
 
@@ -40,15 +44,19 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.analytics import (ExtremesReport, closeness_centrality,
+from repro_torch.analytics import (ExtremesReport, betweenness_centrality,
+                                   closeness_centrality,
                                    connected_components, eccentricities,
-                                   ifub_extremes)
+                                   ifub_extremes, make_betweenness,
+                                   make_pagerank, make_sssp, out_degrees,
+                                   pagerank_scores, sssp_distances)
 from repro_torch.core.bfs import BlestProblem, make_blest_bfs
+from repro_torch.core.bvss import build_weight_plane, weight_plane_to_device
 from repro_torch.core.multi_source import (drive_wave, make_ms_engine,
                                            make_multi_source_bfs)
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
                                      build_problem, prepare)
-from repro_torch.errors import ConfigError, check_sources
+from repro_torch.errors import ConfigError, check_source, check_sources
 from repro_torch.graphs import Graph
 from repro_torch.kernels.ref import normalize_labels
 
@@ -67,21 +75,18 @@ def _not_ported(what: str, where: str) -> ConfigError:
                        f"{where}")
 
 
-_BETWEENNESS = "the betweenness slice (ROADMAP.md queue 1 item 6)"
-_WEIGHTED = "the SSSP/PageRank slice (ROADMAP.md queue 1 item 6)"
-
-
 class GraphSession:
     """Prepared, query-serving state for one graph.
 
     Parameters mirror :func:`repro_torch.core.policy.prepare`;
     ``max_batch`` is the wave slot-pool width (the S of the stacked
-    bit-SpMM frontier).  Like ``prepare``, the session runs on the card
-    unless ``options=PrepareOptions(device="cpu")`` asks for the CPU.
+    bit-SpMM frontier); ``weights`` (one strictly positive float per CSR
+    edge of ``g``) arms the weighted verbs.  Like ``prepare``, the session
+    runs on the card unless ``options=PrepareOptions(device="cpu")`` asks
+    for the CPU.
     """
 
-    #: every query verb a session serves (the reference's tuple; the
-    #: betweenness, sssp and pagerank verbs raise until their slice lands)
+    #: every query verb a session serves (the reference's tuple)
     VERBS = ("levels", "components", "eccentricity", "betweenness",
              "closeness", "sssp", "pagerank")
 
@@ -98,8 +103,6 @@ class GraphSession:
         if mesh is not None:
             raise _not_ported("a mesh-sharded session",
                               "the mesh slice (ROADMAP.md queue 1 item 11)")
-        if weights is not None:
-            raise _not_ported("a weighted session", _WEIGHTED)
         if fault_plan is not None:
             raise _not_ported("fault injection (fault_plan)",
                               "the robust serving slice (ROADMAP.md queue 1 "
@@ -111,9 +114,10 @@ class GraphSession:
             options = PrepareOptions(
                 sigma=sigma, w=w, seed=seed, lazy_threshold=lazy_threshold,
                 order=order, engine=engine, use_kernels=use_kernel,
-                direction=direction)
-        elif (sigma, w, seed, lazy_threshold, order, engine, use_kernel,
-              direction, mesh_axis) != \
+                direction=direction, weights=weights)
+        elif weights is not None or \
+                (sigma, w, seed, lazy_threshold, order, engine, use_kernel,
+                 direction, mesh_axis) != \
                 (8, 512, 0, None, True, None, True, "auto", "data"):
             raise ConfigError(
                 "GraphSession takes EITHER options=PrepareOptions(...) or "
@@ -363,35 +367,122 @@ class GraphSession:
             n_ecc_evals=rep.n_ecc_evals)
 
     # ------------------------------------------------------------------
-    # verbs of later slices
+    # betweenness (DESIGN §2.6)
     # ------------------------------------------------------------------
+    def _bc_fn(self, width: int):
+        """Cached Brandes forward + backward fn on the session's own
+        problem (one per distinct width)."""
+        return self._cached(("bc_fn", width), lambda: make_betweenness(
+            self._problem, width, use_kernel=self._use_kernel))
+
     def betweenness_batch(self, sources: Sequence[int]) -> np.ndarray:
-        """Partial Brandes betweenness (not ported yet: raises)."""
-        raise _not_ported("betweenness", _BETWEENNESS)
+        """Partial Brandes betweenness Σ_{s∈sources} δ_s(v) on the
+        directed graph (unnormalised, endpoints excluded): one score per
+        vertex, caller ids throughout.  Forward phase = the wave BFS with
+        the σ path-count channel; backward = the reverse sweep over the
+        recorded per-level tile queues."""
+        srcs = np.asarray(check_sources(sources, self.n), dtype=np.int64)
+        if len(srcs) == 0:
+            return np.zeros(self.n, dtype=np.float64)
+        internal = self.perm[srcs]
+        width = min(self.max_batch, len(srcs))
+        bc = betweenness_centrality(None, internal, problem=self._problem,
+                                    use_kernel=self._use_kernel,
+                                    batch=width, bc_fn=self._bc_fn(width))
+        return bc[self.perm]
 
     def betweenness(self, sources: Sequence[int]) -> np.ndarray:
-        """Deprecated alias of :meth:`betweenness_batch` (raises)."""
-        raise _not_ported("betweenness", _BETWEENNESS)
+        """Deprecated alias of :meth:`betweenness_batch`."""
+        _alias_warning("betweenness", "betweenness_batch")
+        return self.betweenness_batch(sources)
 
     def betweenness_sample(self, k: int, *, seed: int = 0
                            ) -> tuple[np.ndarray, np.ndarray]:
-        """Sampled-source Brandes betweenness (not ported yet: raises)."""
-        raise _not_ported("betweenness", _BETWEENNESS)
+        """Sample ``k`` distinct pivots (caller ids) and return
+        ``(sources, partial betweenness per vertex)`` — the standard
+        sampled-source Brandes estimator."""
+        rng = np.random.default_rng(seed)
+        k = min(int(k), self.n)
+        srcs = rng.choice(self.n, size=k, replace=False)
+        return srcs, self.betweenness_batch(srcs)
+
+    # ------------------------------------------------------------------
+    # weighted verbs (DESIGN §2.9)
+    # ------------------------------------------------------------------
+    def _weights_ord(self) -> np.ndarray:
+        """Per-edge weights in the REORDERED graph's CSR edge order — the
+        session's own if it was built with ``weights=...``, else the lazy
+        unit-weight default."""
+        if self.prepared.weights is not None:
+            return self.prepared.weights
+        return self._cached("unit_weights", lambda: np.ones(
+            self.prepared.graph.m, dtype=np.float32))
+
+    def _wplane(self):
+        """The device weight plane the weighted verbs pull against:
+        ``prepare``'s committed plane on a weighted session, a lazily built
+        (and cached) unit plane otherwise — the same slice layout either
+        way, so it aligns with the session's problem bit for bit."""
+        if self.prepared.wplane is not None:
+            return self.prepared.wplane
+        return self._cached("unit_wplane", lambda: weight_plane_to_device(
+            build_weight_plane(self.prepared.graph, self._weights_ord(),
+                               sigma=self.prepared.bvss.sigma),
+            self._problem.device))
+
+    def _sssp_fn(self, width: int):
+        """Cached delta-stepping engine of cohort width ``width``."""
+        return self._cached(("sssp_fn", width), lambda: make_sssp(
+            self._problem, self._wplane(), width,
+            use_kernel=self._use_kernel))
 
     def sssp(self, src: int, *, delta: float | None = None) -> np.ndarray:
-        """Single-source shortest paths (not ported yet: raises)."""
-        raise _not_ported("sssp", _WEIGHTED)
+        """Single-source shortest-path distances from ``src`` (caller ids
+        in and out): one float64 distance per vertex, ``+inf`` where
+        unreachable.  Delta-stepping over the min-plus tile product
+        against the session's weight plane (unit weights on an unweighted
+        session, where this equals BFS hop counts).  ``delta`` overrides
+        the bucket width (performance only, never correctness)."""
+        src = check_source(src, self.n)
+        dist = sssp_distances(
+            [int(self.perm[src])], problem=self._problem,
+            wplane=self._wplane(), weights=self._weights_ord(), batch=1,
+            delta=delta, sssp_fn=self._sssp_fn(1))
+        return dist[0][self.perm]
 
     def sssp_batch(self, sources: Sequence[int], *,
                    delta: float | None = None) -> np.ndarray:
-        """Batched shortest paths (not ported yet: raises)."""
-        raise _not_ported("sssp", _WEIGHTED)
+        """Distances from each source (rows, aligned with ``sources``) to
+        every vertex (cols): (S, n) float64, caller ids throughout.
+        Cohorts of ``max_batch`` stacked distance columns share one
+        min-plus tile stream."""
+        srcs = np.asarray(check_sources(sources, self.n), dtype=np.int64)
+        if len(srcs) == 0:
+            return np.zeros((0, self.n), dtype=np.float64)
+        width = min(self.max_batch, len(srcs))
+        dist = sssp_distances(
+            self.perm[srcs], problem=self._problem, wplane=self._wplane(),
+            weights=self._weights_ord(), batch=width, delta=delta,
+            sssp_fn=self._sssp_fn(width))
+        return dist[:, self.perm]
 
     def pagerank(self, *, damping: float = 0.85, tol: float = 1e-8,
                  max_iter: int = 200) -> np.ndarray:
-        """PageRank scores (not ported yet: raises)."""
-        raise _not_ported("pagerank", _WEIGHTED)
+        """PageRank scores, one per vertex in caller-id order (sums to 1):
+        damped power iteration with dangling-mass correction over the
+        float tile product (DESIGN §2.9).  STRUCTURAL PageRank — session
+        edge weights do not influence the scores."""
+        fn = self._cached(
+            ("pagerank_fn", float(damping), float(tol), int(max_iter)),
+            lambda: make_pagerank(
+                self._problem, out_degrees(self.prepared.graph),
+                use_kernel=self._use_kernel, damping=damping, tol=tol,
+                max_iter=max_iter))
+        return pagerank_scores(pagerank_fn=fn)[self.perm]
 
+    # ------------------------------------------------------------------
+    # verbs of later slices
+    # ------------------------------------------------------------------
     def update_edges(self, inserts=(), deletes=(), *, insert_weights=None,
                      expected_epoch: int | None = None,
                      staleness_budget: int | None = None):

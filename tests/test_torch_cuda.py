@@ -7,8 +7,11 @@ it runs on a machine without JAX::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every output is integer or bool, so kernel and twin must be equal
-(closeness, a float64 reduction of equal levels, to rtol 1e-12)."""
+Kernel and twin must be equal: the integer and bool outputs trivially,
+the float tiles because each kernel adds (or takes the min) in its twin's
+order.  The float-channel verbs hold against the host oracles at the
+reference tests' tolerances (betweenness rtol 1e-4, atol 1e-4; PageRank
+relative error 1e-6; SSSP with dyadic weights exactly)."""
 import numpy as np
 import pytest
 import torch
@@ -159,3 +162,69 @@ def test_cuda_wave_verbs_equal_oracles(cuda_device):
         tref.eccentricity_ref(g.symmetrized, srcs))
     np.testing.assert_allclose(sess.closeness_batch(srcs),
                                tref.closeness_ref(g, srcs), rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cuda_float_tiles_equal_twins(cuda_device, sigma):
+    """bvss_spmm_w, bvss_spmm_t and bvss_spmm_minplus: ragged B and S (the
+    16-byte store path at S % 4 == 0), bit-31 words, +inf weights and
+    distances; every output equal to the twin, every call one launch."""
+    rng = np.random.default_rng(sigma + 300)
+    spw = 32 // sigma
+    for B in (1, 127, 1003):
+        for S in (1, 3, 8, 9):
+            masks = t32(u32(rng, (B, 32))).to(cuda_device)
+            xv = torch.from_numpy(
+                rng.random((B, sigma, S), dtype=np.float32)).to(cuda_device)
+            hv = torch.from_numpy(
+                rng.random((B, spw, 32, S), dtype=np.float32)).to(cuda_device)
+            wv = rng.uniform(0.5, 4.0, (B, spw, 32, sigma)).astype(np.float32)
+            wv[rng.random(wv.shape) < 0.2] = np.inf
+            dv = rng.uniform(0.0, 9.0, (B, sigma, S)).astype(np.float32)
+            dv[rng.random(dv.shape) < 0.3] = np.inf
+            wv = torch.from_numpy(wv).to(cuda_device)
+            dv = torch.from_numpy(dv).to(cuda_device)
+            before = tk.launch_counts()
+            got = (tk.bvss_spmm_w(masks, xv, sigma=sigma),
+                   tk.bvss_spmm_t(masks, hv, sigma=sigma),
+                   tk.bvss_spmm_minplus(masks, wv, dv, sigma=sigma))
+            torch.cuda.synchronize()
+            after = tk.launch_counts()
+            for name in ("bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus"):
+                assert after[name] == before[name] + 1
+            want = (tref.bvss_spmm_w_ref(masks, xv, sigma),
+                    tref.bvss_spmm_t_ref(masks, hv, sigma),
+                    tref.bvss_spmm_minplus_ref(masks, wv, dv, sigma))
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype == torch.float32
+                assert torch.equal(g, w), (B, S)
+
+
+@pytest.mark.cuda
+def test_cuda_float_verbs_equal_oracles(cuda_device):
+    """betweenness_batch, sssp_batch / sssp and pagerank on the card, in
+    caller ids, against the host oracles; each through its kernels."""
+    g = repro_torch.generators.rmat(9, 8, seed=1)
+    rng = np.random.default_rng(5)
+    w = (rng.integers(1, 128, g.m) / 32.0).astype(np.float32)
+    sess = repro_torch.GraphSession(g, max_batch=4, weights=w)
+    srcs = rng.integers(0, g.n, 6)
+    tk.reset_launch_counts()
+    np.testing.assert_allclose(sess.betweenness_batch(srcs),
+                               tref.betweenness_ref(g, srcs), rtol=1e-4,
+                               atol=1e-4)
+    counts = tk.launch_counts()
+    for name in ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"):
+        assert counts[name] > 0, counts
+    tk.reset_launch_counts()
+    want = tref.sssp_ref(g, srcs, w)
+    np.testing.assert_array_equal(sess.sssp_batch(srcs), want)
+    np.testing.assert_array_equal(sess.sssp(int(srcs[2])), want[2])
+    assert tk.launch_counts()["bvss_spmm_minplus"] > 0
+    tk.reset_launch_counts()
+    pr = sess.pagerank()
+    ref = tref.pagerank_ref(g)
+    assert np.max(np.abs(pr - ref) / ref) <= 1e-6
+    assert abs(pr.sum() - 1.0) <= 1e-5
+    assert tk.launch_counts()["bvss_spmm_w"] > 0

@@ -2,8 +2,9 @@
 on the CPU: ``levels_batch`` bit for bit through the slot pool with
 mid-flight refills, duplicate and isolated sources, every direction and
 the harvest hooks; the singleton path; the caller-id contract of the
-closeness verbs; and the verbs and options of later slices, which raise
-:class:`ConfigError`."""
+closeness verbs; the float-channel verbs (betweenness, SSSP, PageRank)
+and the ``weights=`` option, in caller ids; and the verbs and options of
+later slices, which raise :class:`ConfigError`."""
 import warnings
 
 import numpy as np
@@ -205,12 +206,6 @@ def test_verbs_tuple_matches_reference():
 
 
 @pytest.mark.parametrize("call,slice_name", [
-    (lambda s: s.betweenness_batch([0, 1]), "betweenness slice"),
-    (lambda s: s.betweenness([0, 1]), "betweenness slice"),
-    (lambda s: s.betweenness_sample(2), "betweenness slice"),
-    (lambda s: s.sssp(0), "SSSP/PageRank slice"),
-    (lambda s: s.sssp_batch([0, 1]), "SSSP/PageRank slice"),
-    (lambda s: s.pagerank(), "SSSP/PageRank slice"),
     (lambda s: s.update_edges([(0, 1)]), "incremental maintenance slice"),
 ])
 def test_unported_verbs_raise(social_pair, call, slice_name):
@@ -221,7 +216,6 @@ def test_unported_verbs_raise(social_pair, call, slice_name):
 
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(mesh=object()), "mesh slice"),
-    (dict(weights=np.ones(4)), "SSSP/PageRank slice"),
     (dict(fault_plan=object()), "robust serving slice"),
     (dict(autotune=True), "autotuning slice"),
 ])
@@ -251,3 +245,109 @@ def test_options_and_keywords_are_exclusive():
         sess = repro_torch.GraphSession(
             g, max_batch=2, options=repro_torch.PrepareOptions(device="cpu"))
     assert sess.max_batch == 2 and sess.preprocess_s >= 0
+
+
+# ---------------------------------------------------------------------------
+# the float-channel verbs and weights= (caller ids throughout)
+# ---------------------------------------------------------------------------
+def dyadic(rng, m):
+    return (rng.integers(1, 128, m) / 32.0).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def weighted_pair():
+    """Weighted rmat sessions with a non-trivial ordering, so the weights
+    must ride the permutation."""
+    w = dyadic(np.random.default_rng(11), J_FAM["rmat"].m)
+    js = repro.GraphSession(J_FAM["rmat"], max_batch=3,
+                            options=repro.PrepareOptions(w=256, weights=w))
+    ts = repro_torch.GraphSession(
+        T_FAM["rmat"], max_batch=3,
+        options=repro_torch.PrepareOptions(device="cpu", w=256, weights=w))
+    assert (ts.perm != np.arange(ts.n)).any()
+    return js, ts, w
+
+
+def test_weights_option_matches_reference(weighted_pair):
+    js, ts, w = weighted_pair
+    np.testing.assert_array_equal(ts.prepared.weights, js.prepared.weights)
+    np.testing.assert_array_equal(ts.prepared.wplane.numpy(),
+                                  np.asarray(js.prepared.wplane))
+    with pytest.raises(ConfigError, match="EITHER"):
+        repro_torch.GraphSession(
+            T_FAM["path"], weights=np.ones(T_FAM["path"].m),
+            options=repro_torch.PrepareOptions(device="cpu"))
+
+
+def test_betweenness_batch_matches_reference(weighted_pair):
+    """5 queries through 3 slots (a padded tail cohort) and a duplicate;
+    equal to the reference and its Brandes oracle, in caller ids."""
+    from repro.kernels.ref import betweenness_ref
+    js, ts, _ = weighted_pair
+    srcs = [3, 17, 3, 100, 255]
+    got = ts.betweenness_batch(srcs)
+    np.testing.assert_allclose(got, js.betweenness_batch(srcs), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got, betweenness_ref(J_FAM["rmat"], srcs),
+                               rtol=1e-4, atol=1e-4)
+    assert (ts.betweenness_batch([]) == 0).all()
+
+
+def test_betweenness_alias_and_sample_match_reference(weighted_pair):
+    js, ts, _ = weighted_pair
+    with pytest.warns(DeprecationWarning, match="betweenness_batch"):
+        got = ts.betweenness([1, 2])
+    np.testing.assert_allclose(got, ts.betweenness_batch([1, 2]))
+    srcs, bc = ts.betweenness_sample(4, seed=2)
+    jsrcs, jbc = js.betweenness_sample(4, seed=2)
+    np.testing.assert_array_equal(srcs, jsrcs)
+    np.testing.assert_allclose(bc, jbc, rtol=1e-4, atol=1e-4)
+
+
+def test_sssp_and_sssp_batch_match_reference(weighted_pair):
+    """Dyadic weights: equal to the reference and to Dijkstra exactly."""
+    from repro.kernels.ref import sssp_ref
+    js, ts, w = weighted_pair
+    srcs = [3, 17, 100, 255]
+    got = ts.sssp_batch(srcs)
+    np.testing.assert_array_equal(got, js.sssp_batch(srcs))
+    np.testing.assert_array_equal(got, sssp_ref(J_FAM["rmat"], srcs, w))
+    np.testing.assert_array_equal(ts.sssp(17), got[1])
+    np.testing.assert_array_equal(ts.sssp(17, delta=0.1), got[1])
+    assert ts.sssp_batch([]).shape == (0, ts.n)
+
+
+@pytest.mark.parametrize("name", ["rmat", "disconnected"])
+def test_unweighted_sssp_equals_levels(name):
+    """The lazy unit-weight plane: hop counts, +inf where unreached."""
+    js, ts = session_pair(name)
+    srcs = [0, 7, 41]
+    got = ts.sssp_batch(srcs)
+    np.testing.assert_array_equal(got, js.sssp_batch(srcs))
+    for s, d in zip(srcs, got):
+        lv = ts.levels(s)
+        np.testing.assert_array_equal(d, np.where(lv == INF, np.inf, lv))
+
+
+def test_pagerank_matches_reference(weighted_pair):
+    """Structural PageRank in caller ids: session weights change nothing."""
+    js, ts, _ = weighted_pair
+    got = ts.pagerank()
+    want = js.pagerank()
+    assert np.max(np.abs(got - want) / want) <= 1e-6
+    assert abs(got.sum() - 1.0) <= 1e-5
+    _, plain = session_pair("rmat", w=256)
+    assert np.max(np.abs(plain.pagerank() - got) / got) <= 1e-6
+    short = ts.pagerank(max_iter=2, tol=0.0)
+    assert np.max(np.abs(short - js.pagerank(max_iter=2, tol=0.0))
+                  / short) <= 1e-6
+
+
+def test_weighted_verbs_validate_sources(weighted_pair):
+    _, ts, _ = weighted_pair
+    with pytest.raises(GraphValidationError):
+        ts.sssp(ts.n)
+    with pytest.raises(GraphValidationError):
+        ts.sssp_batch([0, -1])
+    with pytest.raises(GraphValidationError):
+        ts.betweenness_batch([ts.n + 3])

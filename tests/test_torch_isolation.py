@@ -41,6 +41,13 @@ def test_port_process_never_loads_jax_or_reference():
         "for s, lv in zip((0, 5, 9), sess.levels_batch([0, 5, 9])):\n"
         "    assert (lv == repro_torch.reference_bfs(g, s)).all()\n"
         "assert len(sess.components()) == g.n\n"
+        "import numpy as np\n"
+        "wsess = repro_torch.GraphSession(\n"
+        "    g, max_batch=2, options=repro_torch.PrepareOptions(\n"
+        "        device='cpu', weights=np.full(g.m, 0.5, np.float32)))\n"
+        "assert wsess.betweenness_batch([0, 5, 9]).shape == (g.n,)\n"
+        "assert wsess.sssp_batch([0, 5])[0, 0] == 0.0\n"
+        "assert abs(wsess.pagerank().sum() - 1.0) < 1e-5\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n")
@@ -57,11 +64,13 @@ SCANNED = sorted(str(p.relative_to(ROOT))
 
 
 def test_scan_covers_the_wave_slice():
-    """The scan below walks the whole package, the wave slice included."""
+    """The scan below walks the whole package, the wave and float-channel
+    slices included."""
     for module in ("core/multi_source.py", "kernels/mxu_pull.py",
                    "serve/graph_session.py", "analytics/components.py",
                    "analytics/eccentricity.py", "analytics/closeness.py",
-                   "analytics/common.py"):
+                   "analytics/common.py", "analytics/betweenness.py",
+                   "analytics/sssp.py", "analytics/pagerank.py"):
         assert f"src/repro_torch/{module}" in SCANNED, module
 
 

@@ -299,13 +299,14 @@ def test_drive_wave_non_convergence_guard():
 
 def test_unported_and_invalid_options_raise():
     _, tp = problems("rmat")
-    with pytest.raises(ConfigError, match="betweenness slice"):
-        tms.make_ms_engine(tp, 2, track_sigma=True)
+    with pytest.raises(ConfigError, match="pull-only"):
+        tms.make_ms_engine(tp, 2, track_sigma=True, direction="push")
     with pytest.raises(ConfigError, match="direction"):
         tms.make_ms_engine(tp, 2, direction="sideways")
     with pytest.raises(ConfigError, match="3 sources"):
         tms.make_ms_engine(tp, 3).init(np.array([0, 1]))
     # the reference ignores these on a single device, and so does the port
+    # (spmm_w_impl is used only by the σ channel)
     eng = tms.make_ms_engine(tp, 2, spmm_w_impl=lambda *a: None,
                              gather_impl=lambda *a: None,
                              push_impl=lambda *a: None)
