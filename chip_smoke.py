@@ -14,6 +14,8 @@ Phases (any failure exits non-zero before the result line):
    seed, at the main-path shapes and at ragged sizes, for sigma in
    {1, 4, 8, 32}, words with bit 31 set and frontier bytes with bits above
    sigma included, +inf weights and distances for the min-plus tile;
+   ``bit_spmm`` at ragged R x C x S with int8 X over [0, 2) and
+   [-128, 128) and bits set beyond C, ``finalize_sweep`` at ragged N;
    integer outputs and ``bvss_spmm_minplus`` must be equal, ``bvss_spmm_w``
    and ``bvss_spmm_t`` within rtol 1e-6 (the reference's tolerance; they
    add in their twins' order, so they are expected equal); each kernel and
@@ -44,13 +46,31 @@ Phases (any failure exits non-zero before the result line):
    against the SciPy oracles, and ``sssp_batch`` of 4 sources on the
    unweighted session (its lazy unit-weight plane) against the BFS
    levels.  (On rmat(18), 88,297 isolated vertices make ``components()``
-   take minutes; PERF.md has the times.)
+   take minutes; PERF.md has the times.)  Then the dense multi-source
+   baseline on the same directed rmat(16): the ``to_dense_bits``
+   adjacency, ``make_dense_multi_source_bfs`` (``bit_spmm`` a level)
+   against the BVSS multi-source engine on 8 sources, ``dense_pull`` from
+   one, and ``bit_spmm`` timed at this shape against its twin (in row
+   chunks) and ``torch._int_mm`` over the unpacked int8 adjacency;
+6. the paper's Table-2 matrix: every variant of
+   ``repro_torch.launch.bfs.ENGINE_VARIANTS`` (BLEST a/ab/ac/full, BRS,
+   CSR push/pull, dirop) on rmat(18) (reusing phase 4's ordered
+   preparation) and on the launcher's ``road`` graph at scale 20,
+   ``grid2d(1024, 1024, shuffle=True)``: one warm and two timed BFSs each,
+   equal to the oracle, ms per BFS and speedup against ``brs``; on the
+   road graph ``brs``, ``blest_a`` and ``csr_push`` are profiled over
+   their first TABLE2_PROFILE_LEVELS levels;
+7. ``repro_torch.bench.kernel_bench.run()`` (the path of
+   ``finalize_sweep``, beside the fused lazy sweep) and the launcher
+   ``python -m repro_torch.launch.bfs`` in process for every variant on a
+   small road graph, each ending ``VERIFIED vs oracle``.
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched.  Every phase line
 carries its wall seconds (``phase_s``, since the previous phase line).
 The profile phases run ``torch.profiler`` over one BFS, wave or cohort of
-each path.  Then one ``{"kernels": [...]}`` line, the card's nvidia-smi
+each path (for ``components()``, over its first COMPONENTS_PROFILE_SEEDS
+refill floods).  Then one ``{"kernels": [...]}`` line, the card's nvidia-smi
 line, and as the last line ``{"ok": true, "device": {...}}``.  Bounds use
 the H100 SXM's published HBM3 rate, 3.35 TB/s (NVIDIA data sheet).
 """
@@ -75,6 +95,10 @@ PROFILE_LEVELS = 1024            # levels of the grid BFS under the profiler
 WAVE_PROFILE_LEVELS = 256        # levels of the grid wave under the profiler
 SLOTS = 8                        # GraphSession.max_batch of both regimes
 SPMM_S = 8                       # = SLOTS: the wave's stacked columns
+TABLE2_SOURCES = 2               # timed BFSs per Table-2 variant and graph
+COMPONENTS_PROFILE_SEEDS = 256   # floods of the components() profile
+CLI_SCALE = 12                   # the launcher's road graph: 64 x 64
+TABLE2_PROFILE_LEVELS = 128      # levels of each profiled Table-2 engine
 
 
 def fail(msg: str) -> None:
@@ -172,10 +196,13 @@ def check_equal(torch, name: str, got, want) -> int:
 
 
 def phase_kernels(torch, rt) -> dict:
-    from repro_torch.kernels import (bvss_pull, bvss_push, bvss_spmm,
-                                     finalize_pack_sweep)
-    from repro_torch.kernels.ref import (bvss_pull_ref, bvss_push_ref,
-                                         bvss_spmm_ref, finalize_pack_ref)
+    from repro_torch.kernels import (bit_spmm, bvss_pull, bvss_push,
+                                     bvss_spmm, finalize_pack_sweep,
+                                     finalize_sweep)
+    from repro_torch.kernels.ref import (bit_spmm_ref, bvss_pull_ref,
+                                         bvss_push_ref, bvss_spmm_ref,
+                                         finalize_pack_ref,
+                                         finalize_sweep_ref)
     rng = np.random.default_rng(SEED)
     cuda = torch.device("cuda")
 
@@ -225,6 +252,27 @@ def phase_kernels(torch, rt) -> dict:
                         finalize_pack_sweep(levels, lvl, marks=marks, **kw),
                         finalize_pack_ref(levels, lvl, marks=marks, **kw))
             checked += 2
+    # bit_spmm: ragged R x C x S, bits beyond C set in every last word (they
+    # count nothing), X in {0, 1} and over all of int8
+    for R in (1, 17, 130, 4099):
+        for C in (1, 31, 33, 260, 4096):
+            for S in (1, 8, 129):
+                for lo, hi in ((0, 2), (-128, 128)):
+                    a = u32_words(rng, (R, (C + 31) // 32))
+                    a[:, -1] |= np.int32(-2 ** 31)
+                    a, x = t(a), t(rng.integers(lo, hi, (C, S)).astype(
+                        np.int8))
+                    check_equal(torch, f"bit_spmm R={R} C={C} S={S} "
+                                f"x in [{lo}, {hi})", bit_spmm(a, x),
+                                bit_spmm_ref(a, x))
+                    checked += 1
+    for N in (1, 31, 1025, 4_194_305):
+        lv = rng.choice(np.array([INF, 6, 2], np.int32), N)
+        marks = t(rng.integers(0, 3, N).astype(np.uint8))
+        check_equal(torch, f"finalize_sweep N={N}",
+                    finalize_sweep(marks, t(lv), 7),
+                    finalize_sweep_ref(marks, t(lv), 7))
+        checked += 1
     torch.cuda.synchronize()
 
     # --- timing at the main-path shapes (grid2d(2048, 2048), sigma = 8) ---
@@ -298,6 +346,19 @@ def phase_kernels(torch, rt) -> dict:
             torch, lambda lv, mk: finalize_pack_ref(lv, lvl, marks=mk, **kw),
             fin_in),
         lazy_bound_ms=lazy_bytes / HBM_BYTES_PER_S * 1e3)
+    # the unit sweep at the same N: marks and levels in, levels' and flags
+    # out, 10 B a vertex
+    sweep_bytes = N + N * 4 + N * 4 + N
+    err = check_equal(torch, "finalize_sweep timed",
+                      finalize_sweep(fin_in[0][1], fin_in[0][0], lvl),
+                      finalize_sweep_ref(fin_in[0][1], fin_in[0][0], lvl))
+    out["finalize_sweep"] = dict(
+        shape={"N": N}, max_abs_err=err,
+        ms=device_ms(torch, lambda lv, mk: finalize_sweep(mk, lv, lvl),
+                     fin_in),
+        plain_ms=device_ms(
+            torch, lambda lv, mk: finalize_sweep_ref(mk, lv, lvl), fin_in),
+        bound_ms=sweep_bytes / HBM_BYTES_PER_S * 1e3, library_ms=None)
     # the wave pull on the grid's narrow ladder width: 65,536 VSSs, S = 8
     B, S = 65_536, SPMM_S
     spmm_in = rotating(lambda i: (t(u32_words(rng, (B, 32))),
@@ -681,7 +742,19 @@ def verbs_phase(torch, rt, sess, g, rng, card: str) -> dict:
                        "n_ecc_evals": rep.n_ecc_evals},
           "wave_stats": dict(sess._sym_ms().stats),
           "launches": counts, "card": card})
-    profile(torch, sess.components, "components_rmat_16", card)
+    # the refill rounds of components(), bounded: the first seeds outside
+    # the largest component flood through the session's symmetrised wave
+    # pool, one per freed slot (the whole verb is 2,356 rounds)
+    from repro_torch.core.multi_source import drive_wave
+    seeds = sess.perm[np.flatnonzero(want != big)[:COMPONENTS_PROFILE_SEEDS]]
+
+    def refill_rounds():
+        it = iter(seeds.tolist())
+        return drive_wave(sess._sym_ms(), lambda slot: next(it, None),
+                          lambda slot, levels: None)
+
+    profile(torch, refill_rounds, "components_rmat_16", card,
+            refill_seeds=len(seeds), rounds=refill_rounds())
     return counts
 
 
@@ -810,6 +883,202 @@ def pagerank_phase(torch, sess, g, card: str) -> dict:
     return counts
 
 
+def table2_phase(torch, rt, name: str, g, card: str, rng, ordered=None,
+                 profiled: tuple = ()) -> dict:
+    """The paper's Table-2 matrix on ``g``: every variant of
+    ``repro_torch.launch.bfs.ENGINE_VARIANTS``, one warm BFS then
+    TABLE2_SOURCES timed ones (sources with out-edges), each equal to the
+    oracle; ms per BFS, levels and speedup against ``brs``.  ``ordered``
+    is an ordered BVSS preparation of ``g`` to reuse.  The unordered
+    variants named in ``profiled`` are then profiled over their first
+    TABLE2_PROFILE_LEVELS levels from the first source."""
+    from repro_torch.bench.table2_bfs import variant_engines
+    from repro_torch.core.bfs import (make_blest_bfs, make_brs_bfs,
+                                      make_csr_bfs)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    sources = [int(s) for s in rng.choice(np.flatnonzero(g.out_degree > 0),
+                                          TABLE2_SOURCES, replace=False)]
+    oracle = memo_oracle(rt)
+    t0 = time.perf_counter()
+    variants = variant_engines(g, device="cuda", ordered=ordered)
+    build_s = time.perf_counter() - t0
+    rows, total = {}, {}
+    for vname, v in variants.items():
+        reset_launch_counts()
+        v.levels(sources[0])                    # warm: allocator
+        runs = run_sources(torch, g, v.levels, sources, oracle)
+        counts = launch_counts()
+        if vname == "brs":
+            require_launches(counts, f"{name} {vname}", ("bvss_pull",))
+        elif vname.startswith("blest"):
+            require_launches(counts, f"{name} {vname}",
+                             ("bvss_pull", "finalize_pack_sweep"))
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+        rows[vname] = {"engine": v.core,
+                       "ms_per_bfs": statistics.median(
+                           r["bfs_ms"] for r in runs),
+                       "levels": [r["levels_run"] for r in runs],
+                       "bfs_ms": [r["bfs_ms"] for r in runs],
+                       "launches": counts}
+    for row in rows.values():
+        row["speedup_vs_brs"] = rows["brs"]["ms_per_bfs"] / row["ms_per_bfs"]
+    emit({"phase": name, "n": g.n, "m": g.m, "sources": sources,
+          "ordering": variants["blest_full"].ordering,
+          "variant_build_s": build_s, "variants": rows,
+          "oracle": "equal to reference_bfs", "card": card})
+    cap = TABLE2_PROFILE_LEVELS
+    for vname in profiled:
+        problem = variants[vname].problem
+        fn = {"brs": lambda: make_brs_bfs(problem, max_levels=cap),
+              "blest_a": lambda: make_blest_bfs(problem, lazy=False,
+                                                max_levels=cap),
+              "csr_push": lambda: make_csr_bfs(g, "push", max_levels=cap,
+                                               device="cuda")}[vname]()
+        profile(torch, lambda: fn(sources[0]), f"{name}_{vname}", card,
+                levels_cap=cap)
+    return total
+
+
+def bit_spmm_twin_chunked(a, x, rows: int = 2048):
+    """bit_spmm_ref over row chunks: the twin unpacks A densely, 17.2 GB at
+    R = C = 65,536 in one piece."""
+    import torch
+    from repro_torch.kernels.ref import bit_spmm_ref
+    return torch.cat([bit_spmm_ref(a[i:i + rows], x)
+                      for i in range(0, a.shape[0], rows)])
+
+
+def dense_phase(torch, rt, sess, g, rng, card: str) -> tuple[dict, dict]:
+    """The dense multi-source baseline on ``g``: the ``to_dense_bits``
+    adjacency, ``make_dense_multi_source_bfs`` (``bit_spmm`` a level)
+    against the BVSS engine on the session's preparation, both equal to
+    each other and to the oracle; ``dense_pull`` from one source; then
+    ``bit_spmm`` timed at this shape against its twin and ``torch._int_mm``
+    over the unpacked int8 adjacency."""
+    from repro_torch.bench.bench_service import make_dense_multi_source_bfs
+    from repro_torch.core.bfs import make_engine
+    from repro_torch.core.multi_source import make_multi_source_bfs
+    from repro_torch.graphs import to_dense_bits
+    from repro_torch.kernels import (bit_spmm, launch_counts,
+                                     reset_launch_counts)
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    A = to_dense_bits(g)
+    dense_build_s = time.perf_counter() - t0
+    srcs = np.asarray(rng.choice(g.n, SLOTS, replace=False))
+    p = sess.prepared
+    f_dense = make_dense_multi_source_bfs(g, SLOTS)
+    f_bvss = make_multi_source_bfs(None, SLOTS, problem=p.problem)
+    internal = p.perm[srcs]
+
+    def timed(fn, arg):
+        fn(arg)                                 # warm: allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(arg).cpu().numpy()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_launch_counts()
+    lv_d, dense_ms = timed(f_dense, srcs)
+    counts = launch_counts()
+    require_launches(counts, "dense_rmat_16", ("bit_spmm",))
+    lv_b, bvss_ms = timed(f_bvss, internal)
+    if not np.array_equal(lv_b[p.perm], lv_d):
+        fail("dense_rmat_16: dense and BVSS multi-source levels differ")
+    for i, s in enumerate(srcs):
+        if not np.array_equal(lv_d[:, i], rt.reference_bfs(g, int(s))):
+            fail(f"dense_rmat_16: levels of source {s} differ from the "
+                 f"oracle")
+    f_pull = make_engine(g, "dense_pull")
+    pull_lv, pull_ms = timed(f_pull, int(srcs[0]))
+    if not np.array_equal(pull_lv, rt.reference_bfs(g, int(srcs[0]))):
+        fail("dense_rmat_16: dense_pull differs from the oracle")
+    levels_run = int(lv_d[lv_d != INF].max()) + 1
+    emit({"phase": "dense_rmat_16", "n": g.n, "m": g.m, "sources": SLOTS,
+          "to_dense_bits_s": dense_build_s,
+          "dense_adjacency_bytes": int(A.nbytes),
+          "bvss_static_bytes": int(p.bvss.memory_bytes()["bvss"]),
+          "dense_multi_source_ms": dense_ms, "bvss_multi_source_ms": bvss_ms,
+          "dense_vs_bvss": dense_ms / bvss_ms, "levels_run": levels_run,
+          "dense_pull_ms": pull_ms, "oracle": "equal to reference_bfs",
+          "launches": counts, "card": card})
+
+    # bit_spmm at this shape: the adjacency against S = 8 {0,1} columns
+    a = torch.from_numpy(A).to(cuda)
+    del A
+    x = torch.from_numpy(rng.integers(0, 2, (g.n, SLOTS)).astype(
+        np.int8)).to(cuda)
+    want = bit_spmm_twin_chunked(a, x)
+    err = check_equal(torch, "bit_spmm timed", bit_spmm(a, x), want)
+    nbytes = a.numel() * 4 + x.numel() + g.n * SLOTS * 4
+    row = dict(shape={"R": g.n, "C": g.n, "S": SLOTS,
+                      "set_bits": int(g.m)}, max_abs_err=err,
+               ms=device_ms(torch, bit_spmm, [(a, x)]),
+               plain_ms=device_ms(torch, bit_spmm_twin_chunked, [(a, x)],
+                                  reps=1),
+               plain_shape="bit_spmm_ref in row chunks of 2,048",
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    # the library call: int8 x int8 -> int32 over the unpacked adjacency
+    # (4.29 GB, its unpacking not timed)
+    shifts = torch.arange(32, dtype=torch.int32, device=cuda)
+    a8 = torch.empty((g.n, a.shape[1] * 32), dtype=torch.int8, device=cuda)
+    for i in range(0, g.n, 4096):
+        a8[i:i + 4096] = ((a[i:i + 4096, :, None] >> shifts) & 1).reshape(
+            -1, a.shape[1] * 32).to(torch.int8)
+    xt = x.t().contiguous().t()        # column-major X: cuBLASLt's fast case
+    lib = torch._int_mm(a8, xt)
+    row["library_err"] = check_equal(torch, "bit_spmm torch._int_mm", lib,
+                                     want)
+    row["library_ms"] = device_ms(torch, torch._int_mm, [(a8, xt)], reps=5)
+    row["library_shape"] = ("unpacked int8 A (65,536 x 65,536) against "
+                            "column-major X, unpack excluded")
+    del a8, lib, a, want
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def kernel_bench_phase(torch, card: str) -> dict:
+    """``repro_torch.bench.kernel_bench.run()`` on the card: the path of
+    ``finalize_sweep``, timed beside the fused lazy sweep."""
+    from repro_torch.bench import kernel_bench
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    rows = kernel_bench.run("cuda", verbose=False)
+    counts = launch_counts()
+    require_launches(counts, "kernel_bench",
+                     ("finalize_sweep", "bit_spmm", "bvss_pull",
+                      "finalize_pack_sweep"))
+    emit({"phase": "kernel_bench", "rows": rows,
+          "timing": "host clock around one launch and a synchronise",
+          "launches": counts, "card": card})
+    return counts
+
+
+def cli_phase(torch, card: str) -> dict:
+    """``python -m repro_torch.launch.bfs`` for every variant, in process,
+    on the card (its default device): each must end ``VERIFIED vs
+    oracle``."""
+    import contextlib
+    import io
+    from repro_torch.launch import bfs as launcher
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    last = {}
+    for variant in sorted(launcher.ENGINE_VARIANTS):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launcher.main(["--graph", "road", "--scale", str(CLI_SCALE),
+                           "--engine", variant, "--sources", "2"])
+        line = buf.getvalue().strip().splitlines()[-1]
+        if not line.endswith("VERIFIED vs oracle"):
+            fail(f"launcher {variant}: {line}")
+        last[variant] = line
+    emit({"phase": "launch_cli", "graph": f"road, scale {CLI_SCALE}",
+          "last_lines": last, "launches": launch_counts(), "card": card})
+    return launch_counts()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -921,6 +1190,9 @@ def main() -> None:
     profile(torch, lambda: sess._sssp_fn(SLOTS)(internal, delta),
             "sssp_rmat_18", card, sources=SLOTS, delta=delta)
     by_phase["pagerank_rmat_18"] = pagerank_phase(torch, sess, g, card)
+    # the Table-2 matrix, reusing this session's ordered preparation
+    by_phase["table2_rmat_18"] = table2_phase(torch, rt, "table2_rmat_18", g,
+                                              card, rng, ordered=p)
 
     del sess, p, bfs
     torch.cuda.empty_cache()
@@ -936,6 +1208,21 @@ def main() -> None:
         torch, rt, sess, g, [int(x) for x in rng.choice(g.n, 4,
                                                         replace=False)],
         card, "sssp_unit_rmat_16", None)
+    by_phase["dense_rmat_16"], timed["bit_spmm"] = dense_phase(
+        torch, rt, sess, g, rng, card)
+    del sess
+    torch.cuda.empty_cache()
+
+    # phase 6: the Table-2 matrix on the road graph of the launcher
+    from repro_torch.launch.bfs import build_graph
+    by_phase["table2_road_20"] = table2_phase(
+        torch, rt, "table2_road_20", build_graph("road", 20), card, rng,
+        profiled=("brs", "blest_a", "csr_push"))
+    torch.cuda.empty_cache()
+
+    # phase 7: the kernel bench and the launcher, end to end
+    by_phase["kernel_bench"] = kernel_bench_phase(torch, card)
+    by_phase["launch_cli"] = cli_phase(torch, card)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",
@@ -945,6 +1232,8 @@ def main() -> None:
         "bvss_spmm_w": "src/repro/kernels/mxu_pull.py:276",
         "bvss_spmm_t": "src/repro/kernels/mxu_pull.py:299",
         "bvss_spmm_minplus": "src/repro/kernels/mxu_pull.py:415",
+        "finalize_sweep": "src/repro/kernels/frontier_finalize.py:55",
+        "bit_spmm": "src/repro/kernels/mxu_pull.py:88",
     }
     sources_cu = {
         "bvss_pull": "src/repro_torch/kernels/csrc/bvss_pull.cu",
@@ -956,16 +1245,24 @@ def main() -> None:
         "bvss_spmm_t": "src/repro_torch/kernels/csrc/bvss_spmm_t.cu",
         "bvss_spmm_minplus":
             "src/repro_torch/kernels/csrc/bvss_spmm_minplus.cu",
+        "finalize_sweep":
+            "src/repro_torch/kernels/csrc/frontier_finalize.cu",
+        "bit_spmm": "src/repro_torch/kernels/csrc/bit_spmm.cu",
     }
     # each kernel's launches on its own main path: the single-source BFSs of
     # the road regime for the first three, the two waves for bvss_spmm,
-    # the float-channel verbs for the three float tiles
+    # the float-channel verbs for the three float tiles, the dense
+    # multi-source baseline for bit_spmm, the kernel bench for
+    # finalize_sweep
     main_path = {"bvss_spmm": ("wave_grid2d_2048", "wave_rmat_18"),
                  "bvss_spmm_w": ("betweenness_rmat_18", "pagerank_rmat_18"),
                  "bvss_spmm_t": ("betweenness_rmat_18",),
-                 "bvss_spmm_minplus": ("sssp_rmat_18", "sssp_rmat_16")}
+                 "bvss_spmm_minplus": ("sssp_rmat_18", "sssp_rmat_16"),
+                 "bit_spmm": ("dense_rmat_16",),
+                 "finalize_sweep": ("kernel_bench",)}
     library_by = {"bvss_spmm_w": "torch.bmm over the unpacked f32 tile",
-                  "bvss_spmm_t": "torch.bmm over the unpacked f32 tile"}
+                  "bvss_spmm_t": "torch.bmm over the unpacked f32 tile",
+                  "bit_spmm": "torch._int_mm over the unpacked int8 A"}
     timed_w1 = timed.pop("bvss_spmm_w_s1")
     timed["bvss_spmm_w"]["s1"] = timed_w1
     kernels = []

@@ -24,7 +24,11 @@ hand-written CUDA kernels for ``bvss_pull``, ``bvss_push`` and
 the components, eccentricity and closeness verbs) with a hand-written
 CUDA ``bvss_spmm``, and the float-channel verbs (betweenness, SSSP,
 PageRank and ``weights=``) with hand-written CUDA ``bvss_spmm_w``,
-``bvss_spmm_t`` and ``bvss_spmm_minplus``.
+``bvss_spmm_t`` and ``bvss_spmm_minplus``, and the paper's Table-2
+comparison (the BRS, dense-pull and CSR push/pull/dirop baselines,
+``python -m repro_torch.launch.bfs``, the bench scripts in
+``repro_torch.bench``) with hand-written CUDA ``bit_spmm`` (the dense
+multi-source baseline) and ``finalize_sweep`` (the kernel bench).
 """
 from repro_torch.core.bfs import reference_bfs
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,

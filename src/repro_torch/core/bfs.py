@@ -6,6 +6,13 @@ Engines
 reference      host NumPy queue BFS (test oracle)
 blest          Alg. 2: BVSS queue, frontier-aware blocks, eager scatter-min
 blest_lazy     Alg. 3: lazy marks (fire-and-forget) + dense finalise sweep
+brs            BerryBees-like: frontier-OBLIVIOUS sweep over every VSS
+dense_pull     bitmap pull over the dense (n, n/32) adjacency
+csr_push       edge-parallel CSR push (Gunrock-like baseline)
+csr_pull       edge-parallel CSR pull
+dirop          direction-optimising CSR (Beamer): push/pull per level
+
+The last five are the paper's Table-2 baselines.
 
 The level step is the reference's fused, direction-optimizing step
 (DESIGN §2.3/§2.8): one batched pull over the compacted VSS queue (CUDA
@@ -35,10 +42,11 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.bvss import BVSS, BVSSDevice, build_bvss, to_device
+from repro_torch.core.bvss import (BVSS, BVSSDevice, build_bvss,
+                                   resolve_device, to_device)
 from repro_torch.core.level_pipeline import LevelPipeline, run_levels
-from repro_torch.errors import ConfigError
-from repro_torch.graphs import Graph
+from repro_torch.errors import ConfigError, GraphValidationError
+from repro_torch.graphs import Graph, src_of_edges, to_dense_bits
 from repro_torch.kernels import (finalize_pack_sweep, pull_vss_kernel,
                                  push_vss_kernel)
 from repro_torch.kernels.ref import (bvss_pull_ref, bvss_push_ref,
@@ -499,12 +507,197 @@ def make_blest_bfs(problem: BlestProblem, *, lazy: bool,
 
 
 # ---------------------------------------------------------------------------
+# BRS baseline (BerryBees-like): frontier-oblivious slice-set sweep
+# ---------------------------------------------------------------------------
+class _BrsState(NamedTuple):
+    levels: torch.Tensor  # (n,) int32
+    marks: torch.Tensor   # (n + 1,) uint8 hit marks, slot n = dummy row sink
+    F: torch.Tensor       # (n_fwords,) int32 packed frontier
+    cont: bool            # some vertex was new (host copy)
+
+
+def make_brs_bfs(problem: BlestProblem, *, use_kernels: bool = True,
+                 max_levels: int | None = None
+                 ) -> Callable[[int], torch.Tensor]:
+    """The BRS baseline ``f(src) -> levels (n,) int32 tensor``: every level
+    pulls EVERY VSS against the frontier (paper drawback #2), whatever the
+    frontier's size.
+
+    The pull is the BLEST engines' (CUDA ``bvss_pull`` on a CUDA problem;
+    the reference pulls BRS with its many-op jnp pull), so the gap to BLEST
+    is the sweep alone.  The reference's scatter-min over every row of the
+    graph becomes a mark of 1 at hit rows (misses aim at the dummy row n)
+    and the lazy ``finalize_pack_sweep``, which sets ``lvl`` where marked
+    and still INF: the same levels, no atomic per entry."""
+    p = problem
+    sigma, n = p.sigma, p.n
+    max_lv = max_levels if max_levels is not None else n + 1
+    pull = pull_vss_kernel if use_kernels else pull_vss_twin
+    fin_impl = finalize_pack_sweep if use_kernels else finalize_pack_ref
+    dev = p.dev
+    device = p.device
+    masks = dev.masks[:p.num_vss]
+    sets = dev.virtual_to_real[:p.num_vss]
+    rows = dev.row_ids[:p.num_vss].reshape(-1).to(torch.int64)
+
+    def step(s: _BrsState, lvl: int) -> _BrsState:
+        hits = pull(masks, _frontier_bytes(s.F, sets, sigma), sigma)
+        s.marks.zero_().index_fill_(
+            0, torch.where(hits.reshape(-1), rows, n), 1)
+        return s
+
+    def finalize(s: _BrsState, lvl: int) -> _BrsState:
+        levels, F, set_active = fin_impl(
+            s.levels, lvl, sigma=sigma, n_fwords=p.n_fwords,
+            n_sets=p.n_sets, marks=s.marks[:n])
+        return _BrsState(levels, s.marks, F, bool(set_active.any()))
+
+    pipe = LevelPipeline(step=step, finalize=finalize,
+                         active=lambda s: s.cont)
+
+    def bfs(src: int) -> torch.Tensor:
+        src = int(src)
+        levels = torch.full((n,), INF, dtype=torch.int32, device=device)
+        levels[src] = 0
+        F = torch.zeros((p.n_fwords,), dtype=torch.int32, device=device)
+        F[src // 32] = _i32(1 << (src % 32))
+        marks = torch.zeros((n + 1,), dtype=torch.uint8, device=device)
+        state, _ = run_levels(pipe, _BrsState(levels, marks, F, True),
+                              max_levels=max_lv)
+        return state.levels
+
+    return bfs
+
+
+# ---------------------------------------------------------------------------
+# dense bitmap pull (naive SpMSpV lower bound)
+# ---------------------------------------------------------------------------
+def make_dense_pull_bfs(g: Graph, *, max_levels: int | None = None,
+                        device: "str | torch.device | None" = None
+                        ) -> Callable[[int], torch.Tensor]:
+    """``f(src) -> levels (n,) int32``: each level ANDs the packed frontier
+    into every row of the dense pull adjacency (:func:`to_dense_bits`),
+    O(n^2/32) words a level, so for small graphs only.  A host loop with
+    one host copy (``new.any()``) per level."""
+    device = resolve_device(device)
+    n = g.n
+    n_words = (n + 31) // 32
+    adj = torch.from_numpy(to_dense_bits(g)).to(device)   # (n, n_words)
+    max_lv = max_levels if max_levels is not None else n + 1
+
+    def bfs(src: int) -> torch.Tensor:
+        src = int(src)
+        levels = torch.full((n,), INF, dtype=torch.int32, device=device)
+        levels[src] = 0
+        F = torch.zeros((n_words,), dtype=torch.int32, device=device)
+        F[src // 32] = _i32(1 << (src % 32))
+        new_pad = torch.zeros((n_words * 32,), dtype=torch.bool,
+                              device=device)
+        lvl, cont = 0, True
+        while cont and lvl < max_lv:
+            lvl += 1
+            y = (adj & F[None, :]).ne(0).any(dim=1)
+            new = y & (levels == INF)
+            levels.masked_fill_(new, lvl)
+            new_pad[:n] = new
+            F = _pack_bits(new_pad, n_words)
+            cont = bool(new.any())
+        return levels
+
+    return bfs
+
+
+# ---------------------------------------------------------------------------
+# CSR edge-parallel baselines (push / pull / direction-optimised)
+# ---------------------------------------------------------------------------
+CSR_MODES = ("push", "pull", "dirop")
+
+
+def make_csr_bfs(g: Graph, mode: str = "push", *, alpha: float = 15.0,
+                 max_levels: int | None = None,
+                 device: "str | torch.device | None" = None
+                 ) -> Callable[[int], torch.Tensor]:
+    """Edge-parallel BFS baselines ``f(src) -> levels (n,) int32``.
+
+    push:  next[dst] |= frontier[src] over all out-edges.
+    pull:  next[u] |= frontier[v] over all in-edges (v -> u), unvisited u
+           only.
+    dirop: Beamer switching between the two on the scout count: pull iff
+           ``scout * alpha > m``, scout = the frontier's out-degree sum.
+
+    Each level covers all m edges.  The reference's byte scatter-max
+    ``nxt.at[e_dst].max(...)`` becomes an ``index_fill_`` of True at the
+    edges that carry the frontier, every other edge aimed at a spare slot
+    n (the reference has none: the vector is n + 1 long and sliced).  The
+    reference's device loop and ``lax.cond`` become a host loop that reads
+    ``new.any()`` (and, for dirop, the next scout count) in one host copy
+    per level."""
+    if mode not in CSR_MODES:
+        raise GraphValidationError(
+            f"CSR BFS mode must be one of {CSR_MODES}, got {mode!r}")
+    device = resolve_device(device)
+    n, m = g.n, g.m
+    e_src = torch.from_numpy(src_of_edges(g)).to(device)
+    e_dst = torch.from_numpy(g.indices.astype(np.int64)).to(device)
+    out_deg = torch.from_numpy(g.out_degree.astype(np.int64)).to(device)
+    host_deg = g.out_degree
+    max_lv = max_levels if max_levels is not None else n + 1
+
+    def scatter_or(vals: torch.Tensor) -> torch.Tensor:
+        """(m,) bool per edge -> (n,) bool: OR of the edges into e_dst."""
+        nxt = torch.zeros((n + 1,), dtype=torch.bool, device=device)
+        nxt.index_fill_(0, torch.where(vals, e_dst, n), True)
+        return nxt[:n]
+
+    def push_step(frontier, levels):
+        return scatter_or(frontier[e_src]) & (levels == INF)
+
+    def pull_step(frontier, levels):
+        # mask by unvisited dst FIRST (the work-saving property of pull)
+        unvis = levels == INF
+        return scatter_or(frontier[e_src] & unvis[e_dst])
+
+    def bfs(src: int) -> torch.Tensor:
+        src = int(src)
+        levels = torch.full((n,), INF, dtype=torch.int32, device=device)
+        levels[src] = 0
+        frontier = torch.zeros((n,), dtype=torch.bool, device=device)
+        frontier[src] = True
+        scout = int(host_deg[src])
+        lvl, cont = 0, True
+        while cont and lvl < max_lv:
+            lvl += 1
+            if mode == "push":
+                new = push_step(frontier, levels)
+            elif mode == "pull":
+                new = pull_step(frontier, levels)
+            else:   # the reference's float32 test
+                use_pull = (np.float32(scout) * np.float32(alpha)
+                            > np.float32(m))
+                new = (pull_step if use_pull else push_step)(frontier,
+                                                             levels)
+            levels.masked_fill_(new, lvl)
+            frontier = new
+            if mode == "dirop":
+                count, scout = torch.stack(
+                    [new.sum(), torch.where(new, out_deg, 0).sum()]).tolist()
+                cont = count > 0
+            else:
+                cont = bool(new.any())
+        return levels
+
+    return bfs
+
+
+# ---------------------------------------------------------------------------
 # engine registry
 # ---------------------------------------------------------------------------
-#: engines this port runs; the reference's others come in later slices
-ENGINES = ("blest", "blest_lazy")
+#: the single-source engines (the paper's Table-2 matrix)
+ENGINES = ("dense_pull", "csr_push", "csr_pull", "dirop", "brs", "blest",
+           "blest_lazy")
 #: engines with a (sources (S,)) -> (n, S) signature, built via n_sources=
 MULTI_ENGINES = ("multi_source",)
+_CSR_ENGINES = {"csr_push": "push", "csr_pull": "pull", "dirop": "dirop"}
 
 
 def make_engine(g: Graph, engine: str, *, sigma: int = 8,
@@ -520,17 +713,23 @@ def make_engine(g: Graph, engine: str, *, sigma: int = 8,
                 n_sources: int | None = None) -> Callable:
     """Build a BFS callable ``f(src) -> levels`` for the named engine.
 
-    ``problem`` lets callers that already hold a :class:`BlestProblem`
-    (``prepare``) skip rebuilding the device BVSS; otherwise one is built
-    from ``bvss`` (or from ``g``) on ``device`` (default: the card).
+    The BVSS engines (``brs``, ``blest``, ``blest_lazy``,
+    ``multi_source``) run on ``problem`` when given (``prepare`` passes
+    its own), else on one built from ``bvss`` (or from ``g``) on
+    ``device`` (default: the card).  The CSR and dense baselines build
+    their own arrays from ``g`` on ``device``.
+    ``direction``/``push_cap``/``alpha``/``widths`` are the hybrid knobs
+    (DESIGN §2.8) of the blest/blest_lazy/multi_source engines.
     ``engine="multi_source"`` builds the batched BVSS bit-SpMM engine
     ``f(sources (S,)) -> levels (n, S)`` and requires ``n_sources``.
     """
+    if engine == "dense_pull":
+        return make_dense_pull_bfs(g, device=device)
+    if engine in _CSR_ENGINES:
+        return make_csr_bfs(g, _CSR_ENGINES[engine], device=device)
     if engine not in ENGINES + MULTI_ENGINES:
-        raise ConfigError(
-            f"engine {engine!r} is not ported to PyTorch yet: this port "
-            f"runs {ENGINES + MULTI_ENGINES}; the Table-2 baselines (brs, "
-            f"dense_pull, csr_*, dirop) come with the baselines slice")
+        raise ConfigError(f"unknown engine {engine!r}: one of "
+                          f"{ENGINES + MULTI_ENGINES}")
     if problem is None:
         b = bvss if bvss is not None else build_bvss(g, sigma=sigma)
         problem = BlestProblem.build(b, device)
@@ -542,6 +741,8 @@ def make_engine(g: Graph, engine: str, *, sigma: int = 8,
                                      use_kernel=use_kernels,
                                      buckets=buckets, widths=widths,
                                      direction=direction, push_cap=push_cap)
+    if engine == "brs":
+        return make_brs_bfs(problem, use_kernels=use_kernels)
     return make_blest_bfs(problem, lazy=(engine == "blest_lazy"),
                           pull_impl=pull_impl, push_impl=push_impl,
                           use_kernels=use_kernels, buckets=buckets,

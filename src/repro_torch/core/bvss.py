@@ -116,6 +116,22 @@ class BVSS:
             return 1.0
         return self.m / (self.num_slices * self.sigma)
 
+    def memory_bytes(self) -> dict[str, int]:
+        """Table-4 style footprint breakdown (bytes), as the reference
+        counts it: ``bvss`` the static arrays, ``dynamic`` the queues and
+        frontier words (``push`` the auto-mode push working set, a sub-term
+        of it), ``level`` the level array; ``total`` = bvss + dynamic +
+        level."""
+        static = (self.masks.nbytes + self.row_ids.nbytes
+                  + self.real_ptrs.nbytes + self.virtual_to_real.nbytes)
+        pq = max(128, self.n // 8)  # default auto-mode push cap
+        push = 4 * (pq + 1) + 2 * 4 * pq * self.max_vss_per_set
+        dynamic = (2 * 4 * (self.num_vss + 1)
+                   + 2 * 4 * self.n_frontier_words + push)
+        level = 4 * (self.n + 1)
+        return {"bvss": static, "dynamic": dynamic, "push": push,
+                "level": level, "total": static + dynamic + level}
+
     def update_divergence(self) -> float:
         """Paper §3.2.1: mean over VSSs of the mean per-slot std of live row ids."""
         spw = self.slices_per_word

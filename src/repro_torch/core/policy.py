@@ -67,7 +67,10 @@ class PreparedBFS:
     ordering: str
     engine_name: str
     bvss: BVSS
-    problem: BlestProblem  # device-resident BVSS bundle, shared with the engine
+    # device-resident BVSS bundle, shared with the engine; None when the
+    # prepared engine is a CSR/dense baseline that never touches the BVSS
+    problem: BlestProblem | None
+    device: torch.device   # where the engine runs
     update_divergence: float
     options: PrepareOptions
     _fn: Callable[[int], torch.Tensor] | None = dataclasses.field(default=None)
@@ -75,10 +78,6 @@ class PreparedBFS:
     # and their device weight plane, when prepared with weights
     weights: np.ndarray | None = None
     wplane: torch.Tensor | None = None
-
-    @property
-    def device(self) -> torch.device:
-        return self.problem.device
 
     def levels(self, src: int) -> np.ndarray:
         """BFS levels in the caller's (original) vertex ids."""
@@ -97,6 +96,11 @@ def choose_update_scheme(bvss: BVSS, *, threshold: float | None = None
     if threshold is None:
         threshold = min(LAZY_UDIV_THRESHOLD, LAZY_UDIV_FRACTION * bvss.n)
     return "blest_lazy" if udiv > threshold else "blest"
+
+
+#: engines that run on the device BVSS (``prepare`` builds the problem
+#: only for these; the CSR and dense baselines build their own arrays)
+BVSS_ENGINES = ("brs", "blest", "blest_lazy")
 
 
 def build_problem(g_ord: Graph, *, sigma: int = 8, mesh=None,
@@ -154,14 +158,17 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
     bvss = build_bvss(g_ord, sigma=o.sigma)
     engine_name = o.engine if o.engine is not None else \
         choose_update_scheme(bvss, threshold=o.lazy_threshold)
-    problem = build_problem(g_ord, bvss=bvss, device=device)
+    problem = build_problem(g_ord, bvss=bvss, device=device) \
+        if engine_name in BVSS_ENGINES else None
     wplane = None if w_ord is None else weight_plane_to_device(
         build_weight_plane(g_ord, w_ord, sigma=o.sigma), device)
-    fn = make_engine(g_ord, engine_name, problem=problem,
-                     use_kernels=o.use_kernels, buckets=o.buckets,
-                     direction=o.direction, push_impl=o.push_impl)
+    fn = make_engine(g_ord, engine_name, bvss=bvss, problem=problem,
+                     device=device, use_kernels=o.use_kernels,
+                     buckets=o.buckets, direction=o.direction,
+                     push_impl=o.push_impl)
     return PreparedBFS(graph=g_ord, perm=perm, inv=inv, ordering=kind,
                        engine_name=engine_name, bvss=bvss, problem=problem,
+                       device=device,
                        update_divergence=bvss.update_divergence(),
                        options=o, _fn=fn, weights=w_ord, wplane=wplane)
 

@@ -1,4 +1,5 @@
-from .csr import Graph, from_edges, src_of_edges
+from .csr import Graph, from_edges, src_of_edges, to_dense_bits
 from . import generators
 
-__all__ = ["Graph", "from_edges", "src_of_edges", "generators"]
+__all__ = ["Graph", "from_edges", "src_of_edges", "to_dense_bits",
+           "generators"]

@@ -183,3 +183,19 @@ def from_edges(n: int, src: np.ndarray, dst: np.ndarray, *,
     np.cumsum(counts, out=indptr[1:])
     return Graph(n, indptr, dst.astype(np.int32))
 
+
+def to_dense_bits(g: Graph) -> np.ndarray:
+    """Packed bit-adjacency of the *transposed* graph (the pull view).
+
+    Returns (n, ceil(n/32)) uint32 words carried as int32 (the port's word
+    type): bit v of row u is set iff edge v -> u exists.  One vectorised
+    OR over the edges where the reference loops over rows; the bytes are
+    the same.  Dense: n * ceil(n/32) * 4 bytes, so only for small graphs
+    (537 MB at n = 65,536)."""
+    n_words = (g.n + 31) // 32
+    out = np.zeros((g.n, n_words), dtype=np.uint32)
+    src = src_of_edges(g)
+    dst = g.indices.astype(np.int64)
+    np.bitwise_or.at(out.reshape(-1), dst * n_words + src // 32,
+                     np.uint32(1) << (src % 32).astype(np.uint32))
+    return out.view(np.int32)

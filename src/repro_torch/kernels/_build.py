@@ -29,7 +29,7 @@ from repro_torch.errors import KernelBuildError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("bvss_pull", "bvss_push", "frontier_finalize", "bvss_spmm",
-           "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus")
+           "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus", "bit_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

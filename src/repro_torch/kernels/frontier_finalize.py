@@ -1,9 +1,14 @@
-"""Fused end-of-level sweep: CUDA kernel ``csrc/frontier_finalize.cu`` and
-its entry point.
+"""End-of-level sweeps: CUDA kernels ``csrc/frontier_finalize.cu`` and
+their entry points.
 
-Port of ``repro/kernels/frontier_finalize.py::finalize_pack_sweep``: one
-sweep over the vertices emits the finalised levels (lazy mode), the packed
-frontier words and the per-slice-set active flags (DESIGN §2.3).
+Port of ``repro/kernels/frontier_finalize.py``:
+
+* ``finalize_pack_sweep``, the fused sweep: one pass over the vertices
+  emits the finalised levels (lazy mode), the packed frontier words and the
+  per-slice-set active flags (DESIGN §2.3);
+* ``finalize_sweep``, the minimal unit (Alg. 3 stage 2): finalised levels
+  and the "new" flags from lazy marks, the baseline of the fused sweep
+  (``repro_torch.bench.kernel_bench`` times the two side by side).
 """
 from __future__ import annotations
 
@@ -12,12 +17,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import finalize_pack_ref
+from repro_torch.kernels.ref import finalize_pack_ref, finalize_sweep_ref
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int,
              _P]
+_SWEEP_ARGTYPES = [_P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P]
 
 
 def finalize_pack_sweep(levels: torch.Tensor, lvl: int, *, sigma: int,
@@ -63,3 +69,34 @@ def finalize_pack_sweep(levels: torch.Tensor, lvl: int, *, sigma: int,
 
 
 finalize_pack_sweep.launches = 0
+
+
+def finalize_sweep(marks: torch.Tensor, levels: torch.Tensor, lvl: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """marks (N,) uint8, levels (N,) int32, lvl a plain int -> new tensors
+    ``(levels' (N,) int32, new (N,) bool)``: new where marked and still
+    INF, levels' = lvl there.  CUDA tensors launch the kernel; CPU tensors
+    run :func:`~repro_torch.kernels.ref.finalize_sweep_ref`."""
+    from repro_torch.kernels.ops import check_operand, use_kernel
+    if not use_kernel(marks, levels):
+        return finalize_sweep_ref(marks, levels, lvl)
+    N = levels.shape[0] if levels.dim() == 1 else -1
+    check_operand(marks, "marks", torch.uint8, (N,))
+    check_operand(levels, "levels", torch.int32, (N,))
+    lv_out = torch.empty_like(levels)
+    new = torch.empty((N,), dtype=torch.bool, device=levels.device)
+    if N:
+        # the 4-wide loads and stores need 16-byte levels, 4-byte marks
+        vec = int(levels.data_ptr() % 16 == 0 and lv_out.data_ptr() % 16 == 0
+                  and marks.data_ptr() % 4 == 0 and new.data_ptr() % 4 == 0)
+        fn = _build.bind("frontier_finalize", "finalize_sweep_launch",
+                         _SWEEP_ARGTYPES)
+        stream = torch.cuda.current_stream(levels.device).cuda_stream
+        err = fn(marks.data_ptr(), levels.data_ptr(), lv_out.data_ptr(),
+                 new.data_ptr(), N, int(lvl), vec, stream)
+        _build.check("frontier_finalize", err, "finalize_sweep")
+        finalize_sweep.launches += 1
+    return lv_out, new
+
+
+finalize_sweep.launches = 0

@@ -1,6 +1,12 @@
-"""Batched BVSS tile products: CUDA kernels ``csrc/bvss_spmm.cu``,
-``csrc/bvss_spmm_w.cu``, ``csrc/bvss_spmm_t.cu`` and
+"""Bit-tile products: CUDA kernels ``csrc/bit_spmm.cu``,
+``csrc/bvss_spmm.cu``, ``csrc/bvss_spmm_w.cu``, ``csrc/bvss_spmm_t.cu`` and
 ``csrc/bvss_spmm_minplus.cu`` and their entry points.
+
+``bit_spmm`` ports ``repro/kernels/mxu_pull.py::bit_spmm``, the dense
+popcount SpMM ``Y = bits(A) @ X`` of the dense multi-source baseline
+(``repro_torch.bench.bench_service``): the TPU kernel unpacks 128-column
+stripes of A for its matrix unit; here a warp streams a row's words and
+adds the X rows of its set bits.
 
 Port of ``repro/kernels/mxu_pull.py::bvss_spmm``, the multi-source pull of
 the wave engine (DESIGN §2.5): per queued VSS, the ``(τ, σ)`` slice bits
@@ -27,8 +33,9 @@ import torch
 
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (bvss_spmm_minplus_ref, bvss_spmm_ref,
-                                     bvss_spmm_t_ref, bvss_spmm_w_ref)
+from repro_torch.kernels.ref import (bit_spmm_ref, bvss_spmm_minplus_ref,
+                                     bvss_spmm_ref, bvss_spmm_t_ref,
+                                     bvss_spmm_w_ref)
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -37,8 +44,45 @@ _T_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                _P]
 _MP_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, _P]
+_BIT_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
 _MAX_BLOCKS = 2 ** 31 - 1      # gridDim.x; one 256-thread block per 256 rows
 _SMEM_BYTES = 48 * 1024        # static shared memory of one block, no opt-in
+
+
+def bit_spmm(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Popcount-semiring SpMM ``Y = bits(A)[:, :C] @ X``: a_packed (R, W)
+    int32 (uint32 bit rows; bit i of word w is column 32w + i), x (C, S)
+    int8 with W·32 >= C -> (R, S) int32, exact for any int8 X; bits at
+    columns >= C count nothing.  CUDA tensors launch the kernel; CPU
+    tensors run :func:`~repro_torch.kernels.ref.bit_spmm_ref`."""
+    from repro_torch.kernels.ops import check_operand, use_kernel
+    if not use_kernel(a_packed, x):
+        return bit_spmm_ref(a_packed, x)
+    R, W = a_packed.shape if a_packed.dim() == 2 else (-1, -1)
+    C, S = x.shape if x.dim() == 2 else (-1, -1)
+    check_operand(a_packed, "a_packed", torch.int32, (R, W))
+    check_operand(x, "x", torch.int8, (C, S))
+    if W * 32 < C:
+        raise ConfigError(f"bit_spmm: {W} words per row hold fewer than the "
+                          f"C = {C} columns of x")
+    if 128 * C >= 2 ** 31 or -(-R // 8) > _MAX_BLOCKS:
+        raise ConfigError(f"bit_spmm: R = {R}, C = {C} exceed one launch "
+                          f"or the int32 sums")
+    y = torch.empty((R, S), dtype=torch.int32, device=a_packed.device)
+    if R and S:
+        # 16-byte word loads need every row 16-byte aligned
+        vec = int(W % 4 == 0 and a_packed.data_ptr() % 16 == 0)
+        fn = _build.bind("bit_spmm", "bit_spmm_launch", _BIT_ARGTYPES)
+        stream = torch.cuda.current_stream(a_packed.device).cuda_stream
+        err = fn(a_packed.data_ptr(), x.data_ptr(), y.data_ptr(), R, W, C, S,
+                 vec, stream)
+        _build.check("bit_spmm", err, "bit_spmm")
+        bit_spmm.launches += 1
+    return y
+
+
+bit_spmm.launches = 0
 
 
 def bvss_spmm(masks: torch.Tensor, fbytes: torch.Tensor, *, sigma: int = 8

@@ -176,6 +176,32 @@ def finalize_pack_ref(levels: torch.Tensor, lvl: int, *, sigma: int,
     return lv_out, pack_words(bits), sbits.reshape(n_sets, sigma).any(dim=1)
 
 
+def finalize_sweep_ref(marks: torch.Tensor, levels: torch.Tensor, lvl: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Twin of kernels.finalize_sweep: marks (N,) uint8, levels (N,) int32
+    -> ``(levels' (N,) int32, new (N,) bool)``, new where marked and still
+    INF, levels' = lvl there."""
+    new = (marks > 0) & (levels == INF32)
+    return torch.where(new, torch.full_like(levels, lvl), levels), new
+
+
+def bit_spmm_ref(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Twin of kernels.bit_spmm: a_packed (R, W) int32 packed bit rows (bit
+    i of word w is column 32w + i), x (C, S) int8, W·32 >= C -> (R, S)
+    int32 ``Y = bits(A)[:, :C] @ X``; bits at columns >= C count nothing.
+
+    The product runs in float64, which holds every partial sum of int8
+    values exactly (|Y| <= 128·C, far below 2^53), so any summation order
+    gives the integer result (CUDA has no integer matmul).  Unpacks A
+    densely: (R, W·32) values, for small R or row chunks only."""
+    R, W = a_packed.shape
+    C = x.shape[0]
+    shifts = torch.arange(32, dtype=torch.int32, device=a_packed.device)
+    bits = (a_packed[:, :, None] >> shifts) & 1   # & 1 drops sign extension
+    dense = bits.reshape(R, W * 32)[:, :C].to(torch.float64)
+    return (dense @ x.to(torch.float64)).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # analytics oracles (SciPy / NumPy) — the repro_torch.analytics contract
 # ---------------------------------------------------------------------------

@@ -128,7 +128,11 @@ class GraphSession:
         self._use_kernel = options.use_kernels
         self._direction = options.direction
         self.max_steps = max_steps
-        self._problem: BlestProblem = self.prepared.problem
+        # a CSR/dense engine override prepares no device BVSS, but the wave
+        # pool needs one: build it session-local, on the prepared device
+        self._problem: BlestProblem = self.prepared.problem \
+            if self.prepared.problem is not None else \
+            BlestProblem.build(self.prepared.bvss, self.prepared.device)
         self._ms = make_ms_engine(self._problem, self.max_batch,
                                   use_kernel=self._use_kernel,
                                   direction=self._direction)

@@ -175,5 +175,5 @@ def test_prepare_keyword_fields_and_validation():
         a.levels(-1)
     with pytest.raises(ConfigError):
         repro_torch.prepare(tg, device="cpu", direction="sideways")
-    with pytest.raises(ConfigError, match="not ported"):
-        repro_torch.prepare(tg, device="cpu", engine="brs")
+    with pytest.raises(ConfigError, match="unknown engine"):
+        repro_torch.prepare(tg, device="cpu", engine="warp_bfs")

@@ -228,3 +228,76 @@ def test_cuda_float_verbs_equal_oracles(cuda_device):
     assert np.max(np.abs(pr - ref) / ref) <= 1e-6
     assert abs(pr.sum() - 1.0) <= 1e-5
     assert tk.launch_counts()["bvss_spmm_w"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [False, True])
+def test_cuda_bit_spmm_equals_twin(cuda_device, signed):
+    """Ragged R x C x S, bits set beyond C in every last word (they count
+    nothing), X in {0, 1} or over all of int8; sums are integers, so the
+    kernel equals its twin exactly."""
+    rng = np.random.default_rng(300 + signed)
+    for R in (1, 17, 130, 4099):
+        for C in (1, 31, 33, 260, 4096):
+            for S in (1, 8, 129):
+                a = u32(rng, (R, (C + 31) // 32))
+                a[:, -1] |= np.uint32(0x80000000)
+                lo, hi = (-128, 128) if signed else (0, 2)
+                x = torch.from_numpy(rng.integers(lo, hi, (C, S)).astype(
+                    np.int8)).to(cuda_device)
+                a = t32(a).to(cuda_device)
+                before = tk.launch_counts()["bit_spmm"]
+                got = tk.bit_spmm(a, x)
+                torch.cuda.synchronize()
+                assert tk.launch_counts()["bit_spmm"] == before + 1
+                want = tref.bit_spmm_ref(a, x)
+                assert got.dtype == want.dtype and torch.equal(got, want), \
+                    (R, C, S)
+
+
+@pytest.mark.cuda
+def test_cuda_finalize_sweep_equals_twin(cuda_device):
+    """Ragged N, and operands one element off 16-byte alignment (the
+    kernel's one-vertex path)."""
+    rng = np.random.default_rng(400)
+    lvl = 6
+    for N in (1, 31, 1025, 4_194_305):
+        for offset in (0, 1):
+            levels = torch.from_numpy(rng.choice(
+                np.array([INF, lvl - 1, 2], np.int32), N + offset)).to(
+                cuda_device)[offset:]
+            marks = torch.from_numpy(rng.integers(0, 3, N + offset).astype(
+                np.uint8)).to(cuda_device)[offset:]
+            got = tk.finalize_sweep(marks, levels, lvl)
+            want = tref.finalize_sweep_ref(marks, levels, lvl)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), (N, offset)
+
+
+@pytest.mark.cuda
+def test_cuda_baselines_equal_oracle(cuda_device):
+    """Every Table-2 engine on the card equals the host oracle; BRS pulls
+    through ``bvss_pull``; the dense multi-source baseline (``bit_spmm``)
+    equals the BVSS multi-source engine."""
+    from repro_torch.bench.bench_service import make_dense_multi_source_bfs
+    from repro_torch.core.bfs import ENGINES, make_engine
+    from repro_torch.core.multi_source import make_multi_source_bfs
+    g = repro_torch.generators.rmat(9, 8, seed=2)
+    for engine in ENGINES:
+        tk.reset_launch_counts()
+        f = make_engine(g, engine)
+        for s in (0, 7, g.n - 1):
+            np.testing.assert_array_equal(f(s).cpu().numpy(),
+                                          repro_torch.reference_bfs(g, s))
+        if engine == "brs":
+            assert tk.launch_counts()["bvss_pull"] > 0
+    srcs = np.array([0, 7, 100, 7], dtype=np.int64)
+    tk.reset_launch_counts()
+    dense = make_dense_multi_source_bfs(g, len(srcs))(srcs)
+    assert tk.launch_counts()["bit_spmm"] > 0
+    bvss = make_multi_source_bfs(g, len(srcs))(srcs)
+    assert torch.equal(dense, bvss)
+    for i, s in enumerate(srcs):
+        np.testing.assert_array_equal(dense[:, i].cpu().numpy(),
+                                      repro_torch.reference_bfs(g, int(s)))

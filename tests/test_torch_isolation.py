@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and never falls back.
 
-* ``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the JAX
-  package ``repro``: a fresh interpreter that imports the port and runs a
-  CPU BFS has neither in ``sys.modules``, and no source file names them.
+* ``repro_torch`` and ``chip_smoke.py`` import neither ``jax``, nor the JAX
+  package ``repro``, nor its ``benchmarks``: a fresh interpreter that
+  imports the port and runs a CPU BFS, the launcher and the bench scripts
+  has none of them in ``sys.modules``, and no source file names them.
 * Entry points run on the card unless the caller asks for the CPU: without
   a card, ``prepare`` raises instead of quietly running on the CPU.
 * A CUDA operand goes through its kernel or the call raises: a kernel that
@@ -23,8 +24,8 @@ from repro_torch.errors import ConfigError, KernelBuildError
 from repro_torch.kernels import _build, ops
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
-                       r"from\s+(jax|repro)\b(?!_))", re.MULTILINE)
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro|benchmarks)\b(?!_)|"
+                       r"from\s+(jax|repro|benchmarks)\b(?!_))", re.MULTILINE)
 
 
 def test_port_process_never_loads_jax_or_reference():
@@ -58,6 +59,26 @@ def test_port_process_never_loads_jax_or_reference():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_launcher_and_benches_never_load_jax_reference_or_benchmarks():
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import bfs\n"
+        "from repro_torch.bench import bench_service, kernel_bench\n"
+        "from repro_torch.bench import table2_bfs\n"
+        "bfs.main(['--graph', 'road', '--scale', '6', '--engine', 'dirop',\n"
+        "          '--sources', '2', '--device', 'cpu'])\n"
+        "kernel_bench.run('cpu', n_vertices=100, verbose=False)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "print('LOADED', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "VERIFIED vs oracle" in out.stdout, out.stdout
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 SCANNED = sorted(str(p.relative_to(ROOT))
                  for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
                            ROOT / "chip_smoke.py"])
@@ -70,7 +91,9 @@ def test_scan_covers_the_wave_slice():
                    "serve/graph_session.py", "analytics/components.py",
                    "analytics/eccentricity.py", "analytics/closeness.py",
                    "analytics/common.py", "analytics/betweenness.py",
-                   "analytics/sssp.py", "analytics/pagerank.py"):
+                   "analytics/sssp.py", "analytics/pagerank.py",
+                   "launch/bfs.py", "bench/common.py", "bench/table2_bfs.py",
+                   "bench/bench_service.py", "bench/kernel_bench.py"):
         assert f"src/repro_torch/{module}" in SCANNED, module
 
 
@@ -83,7 +106,8 @@ def test_no_source_imports_jax_or_reference(path):
 def test_import_pattern_catches_what_it_must():
     for bad in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                 "import repro", "from repro.core import bfs",
-                "  from repro import prepare"):
+                "  from repro import prepare", "import benchmarks",
+                "from benchmarks.common import graph_suite"):
         assert FORBIDDEN.search(bad), bad
     for ok in ("import repro_torch", "from repro_torch.core import bfs",
                "# the port never imports jax"):
@@ -124,6 +148,30 @@ def test_unbuildable_kernel_raises_instead_of_twin(monkeypatch, tmp_path):
         repro_torch.kernels.finalize_pack_sweep(
             torch.zeros(64, dtype=torch.int32), 1, sigma=8, n_fwords=2,
             n_sets=8)
+    assert twin_calls == []
+
+
+def test_unbuildable_bench_kernels_raise_instead_of_twin(monkeypatch,
+                                                         tmp_path):
+    """The same for the dense multi-source and kernel-bench kernels."""
+    monkeypatch.setattr(_build, "nvcc", lambda: sys.executable)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(ops, "use_kernel", lambda *tensors: True)
+    twin_calls = []
+    for mod, twin in (("mxu_pull", "bit_spmm_ref"),
+                      ("frontier_finalize", "finalize_sweep_ref")):
+        monkeypatch.setattr(
+            importlib.import_module(f"repro_torch.kernels.{mod}"), twin,
+            lambda *a, **k: twin_calls.append(a))
+    with pytest.raises(KernelBuildError, match="nvcc failed"):
+        repro_torch.kernels.bit_spmm(torch.zeros((4, 2), dtype=torch.int32),
+                                     torch.zeros((64, 8), dtype=torch.int8))
+    with pytest.raises(KernelBuildError):
+        repro_torch.kernels.finalize_sweep(
+            torch.zeros(64, dtype=torch.uint8),
+            torch.zeros(64, dtype=torch.int32), 1)
     assert twin_calls == []
 
 
