@@ -13,15 +13,21 @@ Phases (any failure exits non-zero before the result line):
 2. kernels against their PyTorch twins on the card: random inputs from a
    seed, at the main-path shapes and at ragged sizes, for sigma in
    {1, 4, 8, 32}, words with bit 31 set and frontier bytes with bits above
-   sigma included, +inf weights and distances for the min-plus tile;
-   ``bit_spmm`` at ragged R x C x S with int8 X over [0, 2) and
-   [-128, 128) and bits set beyond C, ``finalize_sweep`` at ragged N;
+   sigma included, +inf weights and distances for the min-plus tile,
+   ``bvss_spmm`` frontier rows and ``finalize_pack_sweep`` operands one
+   element off 16-byte alignment; ``bit_spmm`` at ragged R x C x S with
+   int8 X over [0, 2) and [-128, 128) and bits set beyond C,
+   ``finalize_sweep`` at ragged N;
    integer outputs and ``bvss_spmm_minplus`` must be equal, ``bvss_spmm_w``
    and ``bvss_spmm_t`` within rtol 1e-6 (the reference's tolerance; they
    add in their twins' order, so they are expected equal); each kernel and
    twin is timed with CUDA events (median) over inputs rotated past L2,
    and the two weighted tiles beside ``torch.bmm`` over the unpacked f32
    tile (TF32 off), the library call that computes the same product;
+   ``bvss_spmm`` and ``finalize_pack_sweep`` also at a second shape (a
+   wide wave, B = 4,096, S = 128; the lazy sweep at N = 1,048,576), with
+   ``share`` = bound / time, and ``bvss_spmm`` beside ``fill_`` over its output bytes, the card's
+   own write stream;
 3. main path, road regime: ``repro_torch.GraphSession(grid2d(2048, 2048),
    max_batch=8)`` with default options (RCM, eager ``blest``, direction
    "auto" with push engaged) and ``.levels(src)`` for 4 sources, each equal
@@ -225,15 +231,19 @@ def phase_kernels(torch, rt) -> dict:
                         bvss_push(m, bits, sigma=sigma),
                         bvss_push_ref(m, bits, sigma))
             checked += 2
-        # bvss_spmm: ragged B x S (the 16-byte store path at S % 4 == 0),
-        # and the wave's main-path shape on the grid's narrow ladder width
-        shapes = [(B, S) for B in (1, 127, 1003) for S in (1, 3, 8, 9, 128)]
-        shapes.append((65_536, SPMM_S) if sigma == 8 else (4099, SPMM_S))
-        for B, S in shapes:
+        # bvss_spmm: ragged B x S (the 16-byte store path at S in {4, 8,
+        # ..., 128}), frontier rows off 16-byte alignment (offset 1), and
+        # the wave's main-path shape on the grid's narrow ladder width
+        shapes = [(B, S, 0) for B in (1, 127, 1003)
+                  for S in (1, 3, 4, 8, 9, 16, 128)]
+        shapes += [(1003, 3, 1), (1003, 8, 1)]
+        shapes.append((65_536, SPMM_S, 0) if sigma == 8
+                      else (4099, SPMM_S, 0))
+        for B, S, off in shapes:
             m = t(u32_words(rng, (B, 32)))
-            fb = t(u32_words(rng, (B, S)))
-            check_equal(torch, f"bvss_spmm sigma={sigma} B={B} S={S}",
-                        bvss_spmm(m, fb, sigma=sigma),
+            fb = t(u32_words(rng, (B * S + off,)))[off:].view(B, S)
+            check_equal(torch, f"bvss_spmm sigma={sigma} B={B} S={S} "
+                        f"offset={off}", bvss_spmm(m, fb, sigma=sigma),
                         bvss_spmm_ref(m, fb, sigma))
             checked += 1
         for N in (1, 33, 1000, 4_194_304 - 5, 4_194_304):
@@ -252,6 +262,13 @@ def phase_kernels(torch, rt) -> dict:
                         finalize_pack_sweep(levels, lvl, marks=marks, **kw),
                         finalize_pack_ref(levels, lvl, marks=marks, **kw))
             checked += 2
+        # views one element off alignment (the one-vertex path), both modes
+        for mk in (None, marks[1:]):
+            check_equal(torch, f"finalize view sigma={sigma} N={N - 1} "
+                        f"lazy={mk is not None}",
+                        finalize_pack_sweep(levels[1:], lvl, marks=mk, **kw),
+                        finalize_pack_ref(levels[1:], lvl, marks=mk, **kw))
+            checked += 1
     # bit_spmm: ragged R x C x S, bits beyond C set in every last word (they
     # count nothing), X in {0, 1} and over all of int8
     for R in (1, 17, 130, 4099):
@@ -332,7 +349,7 @@ def phase_kernels(torch, rt) -> dict:
                                         marks=fin_in[0][1], **kw),
                     finalize_pack_ref(fin_in[0][0], lvl,
                                       marks=fin_in[0][1], **kw)))
-    out["finalize_pack_sweep"] = dict(
+    row = dict(
         shape={"N": N, "sigma": sigma, "mode": "eager"}, max_abs_err=err,
         ms=device_ms(torch, lambda lv, mk: finalize_pack_sweep(lv, lvl, **kw),
                      fin_in),
@@ -346,6 +363,9 @@ def phase_kernels(torch, rt) -> dict:
             torch, lambda lv, mk: finalize_pack_ref(lv, lvl, marks=mk, **kw),
             fin_in),
         lazy_bound_ms=lazy_bytes / HBM_BYTES_PER_S * 1e3)
+    row.update(share=row["bound_ms"] / row["ms"],
+               lazy_share=row["lazy_bound_ms"] / row["lazy_ms"])
+    out["finalize_pack_sweep"] = row
     # the unit sweep at the same N: marks and levels in, levels' and flags
     # out, 10 B a vertex
     sweep_bytes = N + N * 4 + N * 4 + N
@@ -359,6 +379,24 @@ def phase_kernels(torch, rt) -> dict:
         plain_ms=device_ms(
             torch, lambda lv, mk: finalize_sweep_ref(mk, lv, lvl), fin_in),
         bound_ms=sweep_bytes / HBM_BYTES_PER_S * 1e3, library_ms=None)
+    del fin_in
+    # the lazy sweep at the launcher's road graph, scale 20: N = 1,048,576,
+    # the shape of the Table-2 road matrix's sweeps
+    N = 1_048_576                   # fin_inputs reads N when called
+    kw = dict(sigma=sigma, n_fwords=N // 32, n_sets=N // sigma)
+    road_in = rotating(fin_inputs, N * 5)
+    road_bytes = N * 4 + N + N * 4 + N // 32 * 4 + N // sigma
+    check_equal(torch, "finalize lazy road timed",
+                finalize_pack_sweep(road_in[0][0], lvl, marks=road_in[0][1],
+                                    **kw),
+                finalize_pack_ref(road_in[0][0], lvl, marks=road_in[0][1],
+                                  **kw))
+    ms = device_ms(torch, lambda lv, mk: finalize_pack_sweep(
+        lv, lvl, marks=mk, **kw), road_in)
+    row["road_lazy"] = dict(shape={"N": N, "sigma": sigma, "mode": "lazy"},
+                            ms=ms, bound_ms=road_bytes / HBM_BYTES_PER_S * 1e3,
+                            share=road_bytes / HBM_BYTES_PER_S * 1e3 / ms)
+    del road_in
     # the wave pull on the grid's narrow ladder width: 65,536 VSSs, S = 8
     B, S = 65_536, SPMM_S
     spmm_in = rotating(lambda i: (t(u32_words(rng, (B, 32))),
@@ -368,13 +406,33 @@ def phase_kernels(torch, rt) -> dict:
     err = check_equal(torch, "bvss_spmm timed",
                       bvss_spmm(*spmm_in[0], sigma=sigma),
                       bvss_spmm_ref(*spmm_in[0], sigma))
-    out["bvss_spmm"] = dict(
+    out_bytes = B * spw * 32 * S * 4
+    fill_out = torch.empty(out_bytes // 4, dtype=torch.int32, device=cuda)
+    row = dict(
         shape={"B": B, "S": S, "sigma": sigma}, max_abs_err=err,
         ms=device_ms(torch, lambda m, f: bvss_spmm(m, f, sigma=sigma),
                      spmm_in),
         plain_ms=device_ms(torch, lambda m, f: bvss_spmm_ref(m, f, sigma),
                            spmm_in),
-        bound_ms=spmm_bytes / HBM_BYTES_PER_S * 1e3)
+        bound_ms=spmm_bytes / HBM_BYTES_PER_S * 1e3,
+        # the card's own write stream over the same output bytes
+        fill_ms=device_ms(torch, lambda m, f: fill_out.fill_(1), spmm_in))
+    row["share"] = row["bound_ms"] / row["ms"]
+    del spmm_in, fill_out
+    # a wide wave: S = 128 columns, the same 268 MB of output
+    B, S = 4096, 128
+    wide_in = rotating(lambda i: (t(u32_words(rng, (B, 32))),
+                                  t(u32_words(rng, (B, S)))),
+                       B * (32 + S) * 4)
+    wide_bytes = B * 32 * 4 + B * S * 4 + B * spw * 32 * S * 4
+    check_equal(torch, "bvss_spmm wide timed",
+                bvss_spmm(*wide_in[0], sigma=sigma),
+                bvss_spmm_ref(*wide_in[0], sigma))
+    ms = device_ms(torch, lambda m, f: bvss_spmm(m, f, sigma=sigma), wide_in)
+    row["wide"] = dict(shape={"B": B, "S": S, "sigma": sigma}, ms=ms,
+                       bound_ms=wide_bytes / HBM_BYTES_PER_S * 1e3,
+                       share=wide_bytes / HBM_BYTES_PER_S * 1e3 / ms)
+    out["bvss_spmm"] = row
     emit({"phase": "kernels_vs_twins", "cases_equal": checked,
           "tolerance": "exact (max abs err 0)"})
     return out

@@ -5,7 +5,9 @@ Port of ``repro/kernels/frontier_finalize.py``:
 
 * ``finalize_pack_sweep``, the fused sweep: one pass over the vertices
   emits the finalised levels (lazy mode), the packed frontier words and the
-  per-slice-set active flags (DESIGN §2.3);
+  per-slice-set active flags (DESIGN §2.3); the kernel streams four
+  vertices a lane per 16-byte access, two accesses in flight, and writes
+  each warp pass's words and flags as contiguous runs;
 * ``finalize_sweep``, the minimal unit (Alg. 3 stage 2): finalised levels
   and the "new" flags from lazy marks, the baseline of the fused sweep
   (``repro_torch.bench.kernel_bench`` times the two side by side).
@@ -37,8 +39,10 @@ def finalize_pack_sweep(levels: torch.Tensor, lvl: int, *, sigma: int,
     marks:  (N,) uint8 lazy marks, or None for eager mode (newness =
             ``levels == lvl``; the returned levels ARE the input tensor).
     Returns ``(levels' (N,) int32, fwords (n_fwords,) int32,
-    set_active (n_sets,) bool)``.  CUDA tensors launch the kernel; CPU
-    tensors run :func:`~repro_torch.kernels.ref.finalize_pack_ref`.
+    set_active (n_sets,) bool)``.  The kernel takes views that are not
+    16-byte aligned (``levels[1:]``) one vertex at a time.  CUDA tensors
+    launch the kernel; CPU tensors run
+    :func:`~repro_torch.kernels.ref.finalize_pack_ref`.
     """
     from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
     operands = (levels,) if marks is None else (levels, marks)

@@ -66,43 +66,103 @@ def test_cuda_pull_push_equal_twins(cuda_device, sigma):
         assert torch.equal(got_push, tref.bvss_push_ref(masks, bits, sigma))
 
 
+SPMM_S = (1, 2, 3, 4, 5, 8, 9, 16, 64, 128)
+
+
+def spmm_case(rng, device, B, S, sigma, offset=0):
+    """One ``bvss_spmm`` call against its twin: one launch, equal output.
+    ``offset`` > 0 puts ``fbytes`` at that storage offset, so its rows are
+    not 16-byte aligned (the kernel's 4-byte frontier loads)."""
+    masks = t32(u32(rng, (B, 32))).to(device)
+    flat = t32(u32(rng, (B * S + offset,))).to(device)
+    fb = flat[offset:].view(B, S)
+    before = tk.launch_counts()["bvss_spmm"]
+    got = tk.bvss_spmm(masks, fb, sigma=sigma)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["bvss_spmm"] == before + 1
+    assert torch.equal(got, tref.bvss_spmm_ref(masks, fb, sigma)), \
+        (B, S, offset)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sigma", SIGMAS)
 def test_cuda_spmm_equals_twin(cuda_device, sigma):
-    """Ragged B and S (the 16-byte store path at S % 4 == 0, the scalar path
-    otherwise), bit-31 words, frontier bytes with bits above σ set."""
+    """Ragged B and S (the 16-byte store path at S in {4, 8, ..., 128},
+    the scalar path otherwise), bit-31 words, frontier bytes with bits
+    above σ set."""
     rng = np.random.default_rng(sigma + 200)
     for B in (1, 127, 1003):
-        for S in (1, 3, 8, 9, 128):
-            masks = t32(u32(rng, (B, 32))).to(cuda_device)
-            fb = t32(u32(rng, (B, S))).to(cuda_device)
-            before = tk.launch_counts()["bvss_spmm"]
-            got = tk.bvss_spmm(masks, fb, sigma=sigma)
-            torch.cuda.synchronize()
-            assert tk.launch_counts()["bvss_spmm"] == before + 1
-            assert torch.equal(got, tref.bvss_spmm_ref(masks, fb, sigma)), \
-                (B, S)
+        for S in SPMM_S:
+            spmm_case(rng, cuda_device, B, S, sigma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cuda_spmm_long_queue_equals_twin(cuda_device, sigma):
+    """B = 65,537 VSSs, one past the grid wave's queue: more blocks than
+    the card holds at once, the last block with one live warp; both store
+    paths."""
+    rng = np.random.default_rng(sigma + 250)
+    for S in (1, 8, 9):
+        spmm_case(rng, cuda_device, 65_537, S, sigma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cuda_spmm_misaligned_frontier_equals_twin(cuda_device, sigma):
+    """``fbytes`` at a storage offset of 1: rows not 16-byte aligned, on
+    both store paths."""
+    rng = np.random.default_rng(sigma + 270)
+    for B in (127, 1003):
+        for S in (3, 4, 8, 128):
+            spmm_case(rng, cuda_device, B, S, sigma, offset=1)
+
+
+def finalize_case(rng, device, N, sigma, lazy, *, pad=0, offset=0):
+    """One ``finalize_pack_sweep`` call against its twin: one launch, equal
+    outputs.  ``pad`` extra words and sets give ``n_fwords·32 > N`` and
+    ``n_sets·σ > N`` beyond the minimum; ``offset`` puts levels and marks
+    at that storage offset (views the kernel takes one vertex at a time)."""
+    lvl = 5
+    levels = torch.from_numpy(rng.choice(
+        np.array([INF, lvl, 2, 0], np.int32), N + offset)).to(device)[offset:]
+    marks = (torch.from_numpy(rng.integers(0, 3, N + offset).astype(
+        np.uint8)).to(device)[offset:] if lazy else None)
+    n_sets = -(-N // sigma) + pad
+    kw = dict(sigma=sigma, n_fwords=(n_sets * sigma + 31) // 32 + pad,
+              n_sets=n_sets, marks=marks)
+    before = tk.launch_counts()["finalize_pack_sweep"]
+    got = tk.finalize_pack_sweep(levels, lvl, **kw)
+    want = tref.finalize_pack_ref(levels, lvl, **kw)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["finalize_pack_sweep"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), (N, pad, offset)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lazy", [False, True])
-@pytest.mark.parametrize("sigma", [1, 4, 8, 32])
+@pytest.mark.parametrize("sigma", SIGMAS)
 def test_cuda_finalize_equals_twin(cuda_device, sigma, lazy):
+    """Ragged N around the 128-vertex warp pass and the 256-vertex step of
+    two passes, up to one past the grid's 4,194,304 vertices."""
     rng = np.random.default_rng(sigma * 3 + lazy)
-    lvl = 5
-    for N in (1, 33, 1000, 70_001):
-        levels = torch.from_numpy(rng.choice(
-            np.array([INF, lvl, 2, 0], np.int32), N)).to(cuda_device)
-        marks = (torch.from_numpy(rng.integers(0, 3, N).astype(np.uint8))
-                 .to(cuda_device) if lazy else None)
-        n_sets = -(-N // sigma)
-        kw = dict(sigma=sigma, n_fwords=(n_sets * sigma + 31) // 32,
-                  n_sets=n_sets, marks=marks)
-        got = tk.finalize_pack_sweep(levels, lvl, **kw)
-        want = tref.finalize_pack_ref(levels, lvl, **kw)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w)
+    for N in (1, 31, 33, 127, 128, 129, 1000, 4095, 70_001, 4_194_305):
+        finalize_case(rng, cuda_device, N, sigma, lazy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cuda_finalize_padding_and_views_equal_twin(cuda_device, sigma,
+                                                    lazy):
+    """``n_fwords·32 > N`` and ``n_sets·σ > N`` past the minimum (words and
+    flags of vertices that are never new), and ``levels[1:]`` /
+    ``marks[1:]`` views that take the one-vertex path."""
+    rng = np.random.default_rng(sigma * 5 + lazy + 50)
+    for N in (1, 129, 4095, 70_001):
+        finalize_case(rng, cuda_device, N, sigma, lazy, pad=3)
+        finalize_case(rng, cuda_device, N, sigma, lazy, offset=1)
 
 
 @pytest.mark.cuda
