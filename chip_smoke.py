@@ -17,17 +17,23 @@ Phases (any failure exits non-zero before the result line):
    ``bvss_spmm`` frontier rows and ``finalize_pack_sweep`` operands one
    element off 16-byte alignment; ``bit_spmm`` at ragged R x C x S with
    int8 X over [0, 2) and [-128, 128) and bits set beyond C,
-   ``finalize_sweep`` at ragged N;
+   ``finalize_sweep`` at ragged N; ``bvss_spmm_w`` and ``bvss_spmm_t`` at
+   B in {1, 7, 8, 9, 127, 1003} x S in {1, 2, 3, 4, 8, 9, 16, 32, 128}
+   and with values and rows one float off 16-byte alignment, over words
+   with all-zero, single-bit and bit-31 words and values with -0.0 and
+   subnormals throughout and a few +inf (at least 90% of every case's
+   outputs finite);
    integer outputs and ``bvss_spmm_minplus`` must be equal, ``bvss_spmm_w``
-   and ``bvss_spmm_t`` within rtol 1e-6 (the reference's tolerance; they
-   add in their twins' order, so they are expected equal); each kernel and
-   twin is timed with CUDA events (median) over inputs rotated past L2,
-   and the two weighted tiles beside ``torch.bmm`` over the unpacked f32
-   tile (TF32 off), the library call that computes the same product;
-   ``bvss_spmm`` and ``finalize_pack_sweep`` also at a second shape (a
-   wide wave, B = 4,096, S = 128; the lazy sweep at N = 1,048,576), with
-   ``share`` = bound / time, and ``bvss_spmm`` beside ``fill_`` over its output bytes, the card's
-   own write stream;
+   and ``bvss_spmm_t`` equal bit for bit (they add in their twins' order);
+   each kernel and twin is timed with CUDA events (median) over inputs
+   rotated past L2, and the two weighted tiles beside ``torch.bmm`` over
+   the unpacked f32 tile (TF32 off), the library call that computes the
+   same product; ``bvss_push`` also at B = 1 and 16,384 (the launch floor
+   control); ``bvss_spmm`` and ``finalize_pack_sweep`` also at a second
+   shape (a wide wave, B = 4,096, S = 128; the lazy sweep at N =
+   1,048,576); the redesigned kernels with ``share`` = bound / time, and
+   ``bvss_spmm`` beside ``fill_`` over its output bytes, the card's own
+   write stream;
 3. main path, road regime: ``repro_torch.GraphSession(grid2d(2048, 2048),
    max_batch=8)`` with default options (RCM, eager ``blest``, direction
    "auto" with push engaged) and ``.levels(src)`` for 4 sources, each equal
@@ -42,7 +48,9 @@ Phases (any failure exits non-zero before the result line):
    The rmat(18) session is weighted (``weights=`` dyadic weights k/32
    drawn from SEED), so the same preparation then serves the
    float-channel verbs: ``betweenness_batch`` of 8 sources against the
-   level-synchronous Brandes oracle ``betweenness_ref``, ``sssp_batch``
+   level-synchronous Brandes oracle ``betweenness_ref`` (then profiled),
+   ``bvss_spmm_w`` and ``bvss_spmm_t`` timed again on the session's own
+   mask words (real slices are sparse), ``sssp_batch``
    of 8 and ``sssp(src)`` against SciPy's Dijkstra (exactly: dyadic sums
    are exact in float32) and ``pagerank()`` against the float64 power
    iteration ``pagerank_ref``;
@@ -129,7 +137,13 @@ def emit(obj: dict) -> None:
 # timing
 # ---------------------------------------------------------------------------
 def device_ms(torch, fn, inputs: list, reps: int = 20) -> float:
-    """Median device time of one ``fn(*inp)`` call, in ms.
+    """Median device time of one ``fn(*inp)`` call, in ms (the median of
+    :func:`device_samples`)."""
+    return statistics.median(device_samples(torch, fn, inputs, reps))
+
+
+def device_samples(torch, fn, inputs: list, reps: int = 20) -> list:
+    """Five samples of the device time of one ``fn(*inp)`` call, in ms.
 
     ``inputs`` is a list of argument tuples whose total size exceeds the L2
     cache, cycled so every call reads cold inputs.  Each sample is a batch
@@ -155,7 +169,7 @@ def device_ms(torch, fn, inputs: list, reps: int = 20) -> float:
         end.record()
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / reps)
-    return statistics.median(samples)
+    return samples
 
 
 def rotating(make, nbytes: int) -> list:
@@ -311,21 +325,31 @@ def phase_kernels(torch, rt) -> dict:
                            pull_in),
         bound_ms=pull_bytes / HBM_BYTES_PER_S * 1e3)
 
+    def push_timing(B):
+        """bvss_push at B queued VSSs: inputs and a row with the median,
+        the five samples and the bound, in ms."""
+        ins = rotating(lambda i: (
+            t(u32_words(rng, (B, 32))),
+            t(rng.integers(0, sigma, B).astype(np.int32))), B * 132)
+        nbytes = B * 32 * 4 + B * 4 + B * spw * 32
+        samples = device_samples(
+            torch, lambda m, b: bvss_push(m, b, sigma=sigma), ins)
+        return ins, dict(shape={"B": B, "sigma": sigma},
+                         ms=statistics.median(samples), samples_ms=samples,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
     B = 128                         # push_cap * max_vss_per_set on the grid
-    push_in = rotating(lambda i: (
-        t(u32_words(rng, (B, 32))),
-        t(rng.integers(0, sigma, B).astype(np.int32))), B * 132)
-    push_bytes = B * 32 * 4 + B * 4 + B * spw * 32
-    err = check_equal(torch, "bvss_push timed",
-                      bvss_push(*push_in[0], sigma=sigma),
-                      bvss_push_ref(*push_in[0], sigma))
-    out["bvss_push"] = dict(
-        shape={"B": B, "sigma": sigma}, max_abs_err=err,
-        ms=device_ms(torch, lambda m, b: bvss_push(m, b, sigma=sigma),
-                     push_in),
-        plain_ms=device_ms(torch, lambda m, b: bvss_push_ref(m, b, sigma),
-                           push_in),
-        bound_ms=push_bytes / HBM_BYTES_PER_S * 1e3)
+    push_in, row = push_timing(B)
+    row["max_abs_err"] = check_equal(torch, "bvss_push timed",
+                                     bvss_push(*push_in[0], sigma=sigma),
+                                     bvss_push_ref(*push_in[0], sigma))
+    row["plain_ms"] = device_ms(
+        torch, lambda m, b: bvss_push_ref(m, b, sigma), push_in)
+    # the control: one VSS and a wide queue beside B = 128, same body; equal
+    # times at B = 1 and 128 put the kernel at the card's launch floor
+    for B in (1, 16_384):
+        row[f"b{B}"] = push_timing(B)[1]
+    out["bvss_push"] = row
 
     N = 4_194_304
     n_sets, n_fwords = N // sigma, N // 32
@@ -460,6 +484,70 @@ def check_close(torch, name: str, got, want, rtol: float) -> float:
     return err
 
 
+def float_words(rng, shape) -> np.ndarray:
+    """:func:`u32_words` with all-zero and single-bit words mixed in: real
+    slices are sparse, and these take the kernels' skip-free adds through
+    empty and one-bit rows and columns."""
+    w = u32_words(rng, shape).view(np.uint32)
+    flat = w.reshape(-1)
+    flat[5::13] = 0
+    flat[2::17] = np.uint32(1) << rng.integers(0, 32, flat[2::17].size,
+                                                dtype=np.uint32)
+    return w.view(np.int32)
+
+
+def float_values(rng, shape) -> np.ndarray:
+    """Values in [0, 1) with -0.0 and subnormals mixed in, and one +inf in
+    each of three VSSs (the first, middle and last of the leading axis)
+    when there are 16 or more: few enough that almost every sum stays
+    finite, so the exact comparison still sees the adds.  No -inf, so no
+    sum is NaN and exact equality is defined."""
+    v = rng.random(shape, dtype=np.float32)
+    flat = v.reshape(-1)
+    flat[::9] = -0.0
+    flat[6::29] = np.float32(1e-40) * rng.random(flat[6::29].size,
+                                                 dtype=np.float32)
+    if shape[0] >= 16:
+        per = v.reshape(shape[0], -1)
+        for b in (0, shape[0] // 2, shape[0] - 1):
+            per[b, rng.integers(per.shape[1])] = np.inf
+    return v
+
+
+def check_bits(torch, name: str, got, want) -> float:
+    """Fail unless the float kernel output equals its twin bit for bit
+    (-0.0 against +0.0 counts as a difference); return 0.0.  A case whose
+    twin gives less than 90% finite outputs fails too: +inf against +inf
+    would say nothing of the adds."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: kernel gave {got.dtype} {tuple(got.shape)}, twin "
+             f"{want.dtype} {tuple(want.shape)}")
+    finite = float(torch.isfinite(want).float().mean()) if want.numel() \
+        else 1.0
+    if finite < 0.9:
+        fail(f"{name}: only {finite:.3f} of the twin's outputs are finite")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        diff = (got[fin] - want[fin]).abs()
+        fail(f"{name}: kernel differs from its twin at "
+             f"{int((got.view(torch.int32) != want.view(torch.int32)).sum())}"
+             f" entries (max abs err over finite entries "
+             f"{float(diff.max()) if diff.numel() else 0.0})")
+    return 0.0
+
+
+def float_tile_bytes(kind: str, B: int, S: int, sigma: int) -> int:
+    """Bytes each float tile must move: every input read once, every output
+    written once (mask words, then values; the min-plus tile also reads its
+    weight-plane rows)."""
+    tau = 32 * (32 // sigma)
+    if kind == "bvss_spmm_w":
+        return B * 128 + B * sigma * S * 4 + B * tau * S * 4
+    if kind == "bvss_spmm_t":
+        return B * 128 + B * tau * S * 4 + B * sigma * S * 4
+    return B * 128 + B * tau * sigma * 4 + B * sigma * S * 4 + B * tau * S * 4
+
+
 def phase_float_kernels(torch) -> dict:
     """bvss_spmm_w, bvss_spmm_t and bvss_spmm_minplus against their twins
     on ragged cases, then timed at the rmat(18) shapes (B = 38,852 VSSs,
@@ -474,35 +562,50 @@ def phase_float_kernels(torch) -> dict:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
 
-    def inputs(B, S, sigma):
-        spw = 32 // sigma
-        w = rng.uniform(0.5, 4.0, (B, spw, 32, sigma)).astype(np.float32)
-        w[rng.random(w.shape) < 0.2] = np.inf
-        d = rng.uniform(0.0, 9.0, (B, sigma, S)).astype(np.float32)
-        d[rng.random(d.shape) < 0.3] = np.inf
-        return (t(u32_words(rng, (B, 32))),
-                t(rng.random((B, sigma, S), dtype=np.float32)),
-                t(rng.random((B, spw, 32, S), dtype=np.float32)), t(w), t(d))
+    def view(a, off):
+        """``a`` on the card at storage offset ``off`` floats: off = 1 puts
+        its rows off 16-byte alignment (the kernels' 4-byte paths)."""
+        flat = t(np.concatenate([np.zeros(off, np.float32), a.reshape(-1)]))
+        return flat[off:].view(a.shape)
 
     checked, errs = 0, {"bvss_spmm_w": 0.0, "bvss_spmm_t": 0.0,
                         "bvss_spmm_minplus": 0.0}
     for sigma in SIGMAS:
+        spw = 32 // sigma
+        # every path of both tiles: around a block's 8 VSSs in B; S = 1
+        # (PageRank), the 16-byte paths (S in {4, ..., 128}), the scalar
+        # ones (S = 2, 3, 9 and rows off alignment) and the column tiles
+        # of bvss_spmm_t (S > sigma)
+        cases = [(B, S, 0) for B in (1, 7, 8, 9, 127, 1003)
+                 for S in (1, 2, 3, 4, 8, 9, 16, 32, 128)]
+        cases += [(1003, S, 1) for S in (3, 4, 8, 16)]
+        for B, S, off in cases:
+            tag = f"sigma={sigma} B={B} S={S} offset={off}"
+            m = t(float_words(rng, (B, 32)))
+            x = view(float_values(rng, (B, sigma, S)), off)
+            h = view(float_values(rng, (B, spw, 32, S)), off)
+            errs["bvss_spmm_w"] = max(errs["bvss_spmm_w"], check_bits(
+                torch, f"bvss_spmm_w {tag}", bvss_spmm_w(m, x, sigma=sigma),
+                bvss_spmm_w_ref(m, x, sigma)))
+            errs["bvss_spmm_t"] = max(errs["bvss_spmm_t"], check_bits(
+                torch, f"bvss_spmm_t {tag}", bvss_spmm_t(m, h, sigma=sigma),
+                bvss_spmm_t_ref(m, h, sigma)))
+            checked += 2
+        # the min-plus tile keeps its own cases
         for B in (1, 127, 1003):
             for S in (1, 3, 8, 9):
-                m, x, h, w, d = inputs(B, S, sigma)
-                tag = f"sigma={sigma} B={B} S={S}"
-                errs["bvss_spmm_w"] = max(errs["bvss_spmm_w"], check_close(
-                    torch, f"bvss_spmm_w {tag}", bvss_spmm_w(m, x, sigma=sigma),
-                    bvss_spmm_w_ref(m, x, sigma), 1e-6))
-                errs["bvss_spmm_t"] = max(errs["bvss_spmm_t"], check_close(
-                    torch, f"bvss_spmm_t {tag}", bvss_spmm_t(m, h, sigma=sigma),
-                    bvss_spmm_t_ref(m, h, sigma), 1e-6))
+                w = rng.uniform(0.5, 4.0, (B, spw, 32, sigma)).astype(
+                    np.float32)
+                w[rng.random(w.shape) < 0.2] = np.inf
+                d = rng.uniform(0.0, 9.0, (B, sigma, S)).astype(np.float32)
+                d[rng.random(d.shape) < 0.3] = np.inf
+                m, w, d = t(u32_words(rng, (B, 32))), t(w), t(d)
                 errs["bvss_spmm_minplus"] = max(
                     errs["bvss_spmm_minplus"], check_close(
-                        torch, f"bvss_spmm_minplus {tag}",
+                        torch, f"bvss_spmm_minplus sigma={sigma} B={B} S={S}",
                         bvss_spmm_minplus(m, w, d, sigma=sigma),
                         bvss_spmm_minplus_ref(m, w, d, sigma), 0.0))
-                checked += 3
+                checked += 1
     torch.cuda.synchronize()
 
     # --- timing at the rmat(18) shapes, sigma = 8 ---
@@ -523,15 +626,14 @@ def phase_float_kernels(torch) -> dict:
     for name, S in (("bvss_spmm_w", SPMM_S), ("bvss_spmm_w_s1", 1),
                     ("bvss_spmm_t", SPMM_S), ("bvss_spmm_minplus", SPMM_S)):
         kind = name.replace("_s1", "")
+        nbytes = float_tile_bytes(kind, B, S, sigma)
         if kind == "bvss_spmm_w":
-            nbytes = B * 128 + B * sigma * S * 4 + B * tau * S * 4
             ins = rotating(lambda i: (t(u32_words(rng, (B, 32))), t(
                 rng.random((B, sigma, S), dtype=np.float32))), nbytes)
             kern = lambda m, x: bvss_spmm_w(m, x, sigma=sigma)   # noqa: E731
             twin = lambda m, x: bvss_spmm_w_ref(m, x, sigma)      # noqa: E731
             lib = lambda m, x, a: torch.bmm(a, x)                 # noqa: E731
         elif kind == "bvss_spmm_t":
-            nbytes = B * 128 + B * tau * S * 4 + B * sigma * S * 4
             ins = rotating(lambda i: (t(u32_words(rng, (B, 32))), t(
                 rng.random((B, spw, 32, S), dtype=np.float32))), nbytes)
             kern = lambda m, h: bvss_spmm_t(m, h, sigma=sigma)   # noqa: E731
@@ -539,9 +641,6 @@ def phase_float_kernels(torch) -> dict:
             lib = lambda m, h, a: torch.bmm(                      # noqa: E731
                 a.transpose(1, 2), h.view(B, tau, S))
         else:
-            # the weight-plane rows are read as well as masks and distances
-            nbytes = (B * 128 + B * tau * sigma * 4 + B * sigma * S * 4
-                      + B * tau * S * 4)
             ins = rotating(lambda i: (
                 t(u32_words(rng, (B, 32))),
                 t(rng.uniform(0.5, 4.0, (B, spw, 32, sigma)
@@ -553,13 +652,18 @@ def phase_float_kernels(torch) -> dict:
             twin = lambda m, w, d: bvss_spmm_minplus_ref(  # noqa: E731
                 m, w, d, sigma)
             lib = None
-        err = check_close(torch, f"{name} timed", kern(*ins[0]),
-                          twin(*ins[0]), 0.0 if lib is None else 1e-6)
+        if lib is None:
+            err = check_close(torch, f"{name} timed", kern(*ins[0]),
+                              twin(*ins[0]), 0.0)
+        else:
+            err = check_bits(torch, f"{name} timed", kern(*ins[0]),
+                             twin(*ins[0]))
         row = dict(shape={"B": B, "S": S, "sigma": sigma}, max_abs_err=err,
                    ms=device_ms(torch, kern, ins),
                    plain_ms=device_ms(torch, twin, ins),
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                    library_ms=None)
+        row["share"] = row["bound_ms"] / row["ms"]
         if lib is not None:
             lib_in = [(*inp, unpacked(inp[0])) for inp in ins[:1]]
             lib_out = lib(*lib_in[0]).reshape(kern(*ins[0]).shape)
@@ -573,8 +677,47 @@ def phase_float_kernels(torch) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
     emit({"phase": "float_kernels_vs_twins", "cases_checked": checked,
           "max_abs_err": errs,
-          "tolerance": "bvss_spmm_minplus exact; bvss_spmm_w, bvss_spmm_t "
-                       "rtol 1e-6", **out})
+          "tolerance": "bvss_spmm_w, bvss_spmm_t bit for bit; "
+                       "bvss_spmm_minplus exact", **out})
+    return out
+
+
+def real_mask_timing(torch, masks, card: str) -> dict:
+    """``bvss_spmm_w`` (S = 8 and S = 1) and ``bvss_spmm_t`` (S = 8) timed a
+    second time on a prepared graph's own mask words (all its VSSs, the
+    dummy row excluded) against random values, each equal to its twin bit
+    for bit; -> {kernel: row} beside the random-word rows.  Each rotated
+    input holds its own copy of the words, so they too are read past L2,
+    as the bound counts them.  Real slices are sparse where random words
+    set half the bits."""
+    from repro_torch.kernels import bvss_spmm_t, bvss_spmm_w
+    from repro_torch.kernels.ref import bvss_spmm_t_ref, bvss_spmm_w_ref
+    rng = np.random.default_rng(SEED + 2)
+    sigma, spw = 8, 4
+    B = masks.shape[0]
+    cuda = masks.device
+    out = {}
+    for name, S in (("bvss_spmm_w", SPMM_S), ("bvss_spmm_w_s1", 1),
+                    ("bvss_spmm_t", SPMM_S)):
+        kind = name.replace("_s1", "")
+        nbytes = float_tile_bytes(kind, B, S, sigma)
+        shape = (B, sigma, S) if kind == "bvss_spmm_w" else (B, spw, 32, S)
+        ins = rotating(lambda i: (masks.clone(), torch.from_numpy(
+            rng.random(shape, dtype=np.float32)).to(cuda)), nbytes)
+        kern = (bvss_spmm_w if kind == "bvss_spmm_w" else bvss_spmm_t)
+        twin = (bvss_spmm_w_ref if kind == "bvss_spmm_w" else bvss_spmm_t_ref)
+        err = check_bits(torch, f"{name} real masks",
+                         kern(*ins[0], sigma=sigma), twin(*ins[0], sigma))
+        ms = device_ms(torch, lambda m, v: kern(m, v, sigma=sigma), ins)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(shape={"B": B, "S": S, "sigma": sigma},
+                         max_abs_err=err, ms=ms, bound_ms=bound,
+                         share=bound / ms)
+        del ins
+    words = masks.to(torch.int64) & 0xFFFFFFFF
+    bits = int(sum(int(((words >> b) & 1).sum()) for b in range(32)))
+    emit({"phase": "float_kernels_real_masks", "num_vss": B,
+          "set_bit_share": bits / (B * 32 * 32), **out, "card": card})
     return out
 
 
@@ -854,6 +997,11 @@ def betweenness_phase(torch, sess, g, sources, card: str) -> dict:
           "max_score": float(want.max()),
           "tolerance": "rtol 1e-4, atol 1e-4", "launches": counts,
           "card": card})
+    # the cohort's device busy and the float tiles' share of it: both
+    # Brandes phases, the hrows[row_ids] gather of the backward sweep too
+    internal = sess.perm[np.asarray(sources)]
+    profile(torch, lambda: f(internal), "betweenness_rmat_18", card,
+            sources=len(sources))
     return counts
 
 
@@ -1239,9 +1387,9 @@ def main() -> None:
                                                replace=False)]
     by_phase["betweenness_rmat_18"] = betweenness_phase(torch, sess, g,
                                                         fsrcs, card)
+    real_masks = real_mask_timing(
+        torch, p.problem.dev.masks[:p.bvss.num_vss], card)
     internal = p.perm[np.asarray(fsrcs)]
-    profile(torch, lambda: sess._bc_fn(SLOTS)(internal),
-            "betweenness_rmat_18", card, sources=SLOTS)
     by_phase["sssp_rmat_18"] = sssp_phase(torch, rt, sess, g, fsrcs, card,
                                           "sssp_rmat_18", weights)
     delta = float(weights.mean())
@@ -1323,6 +1471,10 @@ def main() -> None:
                   "bit_spmm": "torch._int_mm over the unpacked int8 A"}
     timed_w1 = timed.pop("bvss_spmm_w_s1")
     timed["bvss_spmm_w"]["s1"] = timed_w1
+    for name, row in (("bvss_spmm_w", timed["bvss_spmm_w"]),
+                      ("bvss_spmm_w_s1", timed_w1),
+                      ("bvss_spmm_t", timed["bvss_spmm_t"])):
+        row["real_masks"] = real_masks[name]
     kernels = []
     for name, row in timed.items():
         kernels.append({

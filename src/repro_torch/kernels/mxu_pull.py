@@ -22,10 +22,13 @@ The three float tiles of the analytics semiring (DESIGN §2.6, §2.9) port
 ``bvss_spmm_w`` (σ path counts, PageRank), ``bvss_spmm_t`` (the Brandes
 backward sweep) and ``bvss_spmm_minplus`` (the SSSP relaxation).  The
 TPU kernels unpack the mask bits into a float tile for its matrix or
-vector unit; here a thread walks the set bits of its slice, adding (or
-taking the min) in ascending order, so each kernel equals its twin bit
-for bit.  The ``*_local`` forms are indexing around a kernel, as in the
-reference, not kernels.
+vector unit; here each output is one chain of f32 adds (or mins) over
+the set bits in ascending order, so each kernel equals its twin bit for
+bit.  ``bvss_spmm_w`` writes like ``bvss_spmm`` (a warp per VSS, 512-byte
+runs of whole sectors); ``bvss_spmm_t`` stages a VSS's row values in
+shared memory with 16-byte asynchronous copies and reduces them there
+(the source notes have both designs).  The ``*_local`` forms are
+indexing around a kernel, as in the reference, not kernels.
 """
 from __future__ import annotations
 
@@ -40,8 +43,6 @@ from repro_torch.kernels.ref import (bit_spmm_ref, bvss_spmm_minplus_ref,
                                      bvss_spmm_w_ref)
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P]
 _T_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                _P]
 _MP_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
@@ -123,8 +124,8 @@ bvss_spmm.launches = 0
 
 
 def _check_block_columns(name: str, B: int, S: int, sigma: int) -> None:
-    """The one-block-per-VSS kernels stage a (σ, S) f32 block in shared
-    memory and launch B blocks."""
+    """A one-block-per-VSS kernel (``bvss_spmm_minplus``) stages a (σ, S)
+    f32 block in shared memory and launches B blocks."""
     if 4 * sigma * S > _SMEM_BYTES:
         raise ConfigError(
             f"{name}: S = {S} columns at sigma = {sigma} need "
@@ -145,7 +146,11 @@ def bvss_spmm_w(masks: torch.Tensor, xvals: torch.Tensor, *,
     (B, σ, S) float32 values of each VSS's σ slice-set columns -> (B, 32/σ,
     32, S) float32; ``[b, j, l, s]`` sums the values of the set bits of
     slice ``k = j*32 + l`` (scatter-add it into rows via ``row_ids``).
-    CUDA tensors launch the kernel; CPU tensors run
+    Any B (a warp per VSS) and any S; S = 1 and, with 16-byte aligned
+    ``xvals`` rows, S in {4, 8, ..., 128} take 16-byte stores, every other
+    case 4-byte ones (the kernel picks by the alignment of ``xvals``, as
+    :func:`bvss_spmm_t` does by that of ``hvals``).  CUDA tensors launch
+    the kernel; CPU tensors run
     :func:`~repro_torch.kernels.ref.bvss_spmm_w_ref`."""
     from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
     if not use_kernel(masks, xvals):
@@ -155,15 +160,14 @@ def bvss_spmm_w(masks: torch.Tensor, xvals: torch.Tensor, *,
     S = xvals.shape[2] if xvals.dim() == 3 else -1
     check_operand(masks, "masks", torch.int32, (B, 32))
     check_operand(xvals, "xvals", torch.float32, (B, sigma, S))
-    _check_block_columns("bvss_spmm_w", B, S, sigma)
     spw = 32 // sigma
     out = torch.empty((B, spw, 32, S), dtype=torch.float32,
                       device=masks.device)
     if B and S:
-        fn = _build.bind("bvss_spmm_w", "bvss_spmm_w_launch", _ARGTYPES)
+        fn = _build.bind("bvss_spmm_w", "bvss_spmm_w_launch", _T_ARGTYPES)
         stream = torch.cuda.current_stream(masks.device).cuda_stream
         err = fn(masks.data_ptr(), xvals.data_ptr(), out.data_ptr(), B, S,
-                 sigma, _vec(S, out), stream)
+                 sigma, stream)
         _build.check("bvss_spmm_w", err, "bvss_spmm_w")
         bvss_spmm_w.launches += 1
     return out
@@ -177,8 +181,11 @@ def bvss_spmm_t(masks: torch.Tensor, hvals: torch.Tensor, *,
     """Transposed weighted BVSS product: masks (B, 32) int32, hvals
     (B, 32/σ, 32, S) float32 per-row values -> (B, σ, S) float32;
     ``[b, i, s]`` sums the values of the rows whose slice has bit i set
-    (scatter-add it into columns).  CUDA tensors launch the kernel; CPU
-    tensors run :func:`~repro_torch.kernels.ref.bvss_spmm_t_ref`."""
+    (scatter-add it into columns).  Any B and S: a warp per VSS and tile
+    of ``min(S, σ)`` columns (rounded down to a power of two); the kernel
+    picks 16-byte or 4-byte copies by the alignment of ``hvals``.  CUDA
+    tensors launch the kernel; CPU tensors run
+    :func:`~repro_torch.kernels.ref.bvss_spmm_t_ref`."""
     from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
     if not use_kernel(masks, hvals):
         return bvss_spmm_t_ref(masks, hvals, sigma)
@@ -188,8 +195,6 @@ def bvss_spmm_t(masks: torch.Tensor, hvals: torch.Tensor, *,
     S = hvals.shape[3] if hvals.dim() == 4 else -1
     check_operand(masks, "masks", torch.int32, (B, 32))
     check_operand(hvals, "hvals", torch.float32, (B, spw, 32, S))
-    if B * sigma * S > _MAX_BLOCKS * 256:
-        raise ConfigError(f"bvss_spmm_t: B = {B} VSSs exceed one launch")
     out = torch.empty((B, sigma, S), dtype=torch.float32,
                       device=masks.device)
     if B and S:

@@ -261,6 +261,82 @@ def test_cuda_float_tiles_equal_twins(cuda_device, sigma):
                 assert torch.equal(g, w), (B, S)
 
 
+FLOAT_B = (1, 7, 8, 9, 127, 1003)           # around a block's 8 VSSs
+FLOAT_S = (1, 2, 3, 4, 8, 9, 16, 32, 128)
+
+
+def float_words(rng, shape):
+    """:func:`u32` words with all-zero and single-bit words mixed in."""
+    w = u32(rng, shape)
+    flat = w.reshape(-1)
+    flat[5::13] = 0
+    flat[2::17] = np.uint32(1) << rng.integers(0, 32, flat[2::17].size,
+                                                dtype=np.uint32)
+    return w
+
+
+def float_values(rng, shape):
+    """Values in [0, 1) with -0.0 and subnormals mixed in, and one +inf in
+    each of three VSSs (first, middle, last) when there are 16 or more:
+    almost every sum stays finite, so equality still sees the adds.  No
+    -inf: no sum is NaN."""
+    v = rng.random(shape, dtype=np.float32)
+    flat = v.reshape(-1)
+    flat[::9] = -0.0
+    flat[6::29] = np.float32(1e-40) * rng.random(flat[6::29].size,
+                                                 dtype=np.float32)
+    if shape[0] >= 16:
+        per = v.reshape(shape[0], -1)
+        for b in (0, shape[0] // 2, shape[0] - 1):
+            per[b, rng.integers(per.shape[1])] = np.inf
+    return v
+
+
+def on_card(a, device, offset):
+    """``a`` on the card at storage offset ``offset`` floats (1: rows off
+    16-byte alignment, the kernels' 4-byte paths)."""
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.float32), a.reshape(-1)])).to(device)
+    return flat[offset:].view(a.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cuda_float_tiles_ragged_equal_twins(cuda_device, sigma, offset):
+    """bvss_spmm_w and bvss_spmm_t through every path of their designs: B
+    around a block's 8 VSSs, S = 1 (PageRank's rows path), the 16-byte
+    paths (S in {4, ..., 128}), the scalar ones (other S, or values one
+    float off alignment), bvss_spmm_t's column tiles (S > sigma); zero,
+    single-bit and bit-31 words; -0.0, subnormal and a few +inf values.
+    Every output equal to the twin bit for bit, at least 90% of them
+    finite, every call one launch."""
+    rng = np.random.default_rng(400 + 2 * sigma + offset)
+    spw = 32 // sigma
+    for B in FLOAT_B:
+        for S in FLOAT_S:
+            masks = t32(float_words(rng, (B, 32))).to(cuda_device)
+            xv = on_card(float_values(rng, (B, sigma, S)), cuda_device,
+                         offset)
+            hv = on_card(float_values(rng, (B, spw, 32, S)), cuda_device,
+                         offset)
+            before = tk.launch_counts()
+            got = (tk.bvss_spmm_w(masks, xv, sigma=sigma),
+                   tk.bvss_spmm_t(masks, hv, sigma=sigma))
+            torch.cuda.synchronize()
+            after = tk.launch_counts()
+            for name in ("bvss_spmm_w", "bvss_spmm_t"):
+                assert after[name] == before[name] + 1
+            want = (tref.bvss_spmm_w_ref(masks, xv, sigma),
+                    tref.bvss_spmm_t_ref(masks, hv, sigma))
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype == torch.float32
+                assert torch.isfinite(w).float().mean() >= 0.9, (B, S)
+                assert torch.equal(g, w), (B, S)
+                assert torch.equal(g.view(torch.int32),
+                                   w.view(torch.int32)), (B, S)
+
+
 @pytest.mark.cuda
 def test_cuda_float_verbs_equal_oracles(cuda_device):
     """betweenness_batch, sssp_batch / sssp and pagerank on the card, in
