@@ -33,13 +33,21 @@ Phases (any failure exits non-zero before the result line):
    shape (a wide wave, B = 4,096, S = 128; the lazy sweep at N =
    1,048,576); the redesigned kernels with ``share`` = bound / time, and
    ``bvss_spmm`` beside ``fill_`` over its output bytes, the card's own
-   write stream;
+   write stream; then ``bvss_push_level``, the one-launch push level,
+   against its twin, eager and lazy, every sigma, on rmat(15) and
+   grid2d(256, 256), frontiers of 1, 128 and 16,384 vertices;
 3. main path, road regime: ``repro_torch.GraphSession(grid2d(2048, 2048),
    max_batch=8)`` with default options (RCM, eager ``blest``, direction
    "auto" with push engaged) and ``.levels(src)`` for 4 sources, each equal
-   to the host oracle ``reference_bfs``; then the lazy engine
-   (``blest_lazy``) on the same prepared graph, and one ``levels_batch``
-   cohort of 8 sources (the wave path, batched push engaged since R = 1);
+   to the host oracle ``reference_bfs``, every push level one
+   ``bvss_push_level`` launch; ``bvss_push_level`` timed at the grid's own
+   push frontiers (see ``push_level_timing``) beside its byte bound, the
+   unfused push level and the launch floor; the first 128 levels from the
+   corner (all push levels) profiled through ``bvss_push_level`` and
+   through the unfused ``push_impl`` seam around ``bvss_push``; then the
+   lazy engine (``blest_lazy``) on the same prepared graph, one BFS
+   through the push seam, and one ``levels_batch`` cohort of 8 sources
+   (the wave path, batched push engaged since R = 1);
 4. main path, social regime: ``GraphSession(rmat(18), max_batch=8)``,
    ``.levels(src)`` for 4 sources, ``levels_batch`` of 24 sources (more
    than the 8 slots, so slots are refilled mid-flight) and
@@ -73,14 +81,17 @@ Phases (any failure exits non-zero before the result line):
    ``grid2d(1024, 1024, shuffle=True)``: one warm and two timed BFSs each,
    equal to the oracle, ms per BFS and speedup against ``brs``; on the
    road graph ``brs``, ``blest_a`` and ``csr_push`` are profiled over
-   their first TABLE2_PROFILE_LEVELS levels;
+   their first TABLE2_PROFILE_LEVELS levels, and ``bvss_push_level`` is
+   timed at its push frontiers;
 7. ``repro_torch.bench.kernel_bench.run()`` (the path of
    ``finalize_sweep``, beside the fused lazy sweep) and the launcher
    ``python -m repro_torch.launch.bfs`` in process for every variant on a
    small road graph, each ending ``VERIFIED vs oracle``.
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
-after, and fails if a kernel of its path never launched.  Every phase line
+after, and fails if a kernel of its path never launched; the
+single-source phases also fail unless every push level was one
+``bvss_push_level`` launch and ``bvss_push`` never ran.  Every phase line
 carries its wall seconds (``phase_s``, since the previous phase line).
 The profile phases run ``torch.profiler`` over one BFS, wave or cohort of
 each path (for ``components()``, over its first COMPONENTS_PROFILE_SEEDS
@@ -462,6 +473,242 @@ def phase_kernels(torch, rt) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the one-launch push level: against its twin, and timed on real frontiers
+# ---------------------------------------------------------------------------
+FORCED_FRONTIER = 16_384         # a forced push level's frontier (vertices)
+PUSH_TIMED_FRONTIERS = 8         # distinct frontiers of a push-level timing
+PUSH_PROFILE_LEVELS = 128        # a grid BFS from its corner pushes these
+
+
+def pack_frontier(torch, verts, n_fwords: int, device):
+    """Packed frontier words (n_fwords,) int32 with the bits ``verts``."""
+    from repro_torch.kernels.ref import pack_words
+    bits = torch.zeros(n_fwords * 32, dtype=torch.bool, device=device)
+    bits[torch.as_tensor(np.asarray(verts, np.int64), device=device)] = True
+    return pack_words(bits)
+
+
+def phase_push_level(torch, rt) -> int:
+    """bvss_push_level against its twin, eager and lazy, every σ, on
+    rmat(15) (R from 4 to 259; isolated vertices, so empty slice sets) and
+    grid2d(256, 256) (R = 1 up to σ = 16): frontiers of one vertex with
+    out-edges, of DEFAULT_PUSH_CAP vertices and of FORCED_FRONTIER; levels
+    mixing INF with levels below, at and above lvl, marks holding stale
+    values.  The whole arrays must be equal, slot n included."""
+    from repro_torch.core.bfs import DEFAULT_PUSH_CAP, BlestProblem
+    from repro_torch.core.bvss import build_bvss
+    from repro_torch.kernels import bvss_push_level
+    from repro_torch.kernels.ref import bvss_push_level_ref
+    rng = np.random.default_rng(SEED + 2)
+    cuda = torch.device("cuda")
+    lvl = 5
+    checked = 0
+    for gname, g in (("rmat_15", rt.generators.rmat(15)),
+                     ("grid2d_256", rt.generators.grid2d(256, 256))):
+        linked = np.flatnonzero(g.out_degree > 0)
+        for sigma in (1, 2, 4, 8, 16, 32):
+            p = BlestProblem.build(build_bvss(g, sigma=sigma), cuda)
+            dev = p.dev
+            for size in (1, DEFAULT_PUSH_CAP, FORCED_FRONTIER):
+                verts = (rng.choice(linked, 1) if size == 1
+                         else rng.choice(p.n, size, replace=False))
+                ops = (pack_frontier(torch, verts, p.n_fwords, cuda),
+                       dev.vss_of_vertex_start, dev.vss_of_vertex_end,
+                       dev.masks, dev.row_ids, lvl)
+                for lazy in (False, True):
+                    if lazy:
+                        key, out = "marks", rng.integers(0, 3, p.n + 1
+                                                         ).astype(np.uint8)
+                    else:
+                        key, out = "levels", rng.choice(np.array(
+                            [INF, 2, lvl - 1, lvl, lvl + 2], np.int32),
+                            p.n + 1, p=[0.6, 0.1, 0.1, 0.1, 0.1])
+                    out = torch.from_numpy(out).to(cuda)
+                    want = bvss_push_level_ref(*ops, sigma,
+                                               **{key: out.clone()})
+                    check_equal(torch, f"bvss_push_level {gname} "
+                                f"sigma={sigma} frontier={size} "
+                                f"lazy={lazy}",
+                                bvss_push_level(*ops, sigma=sigma,
+                                                **{key: out}), want)
+                    checked += 1
+    torch.cuda.synchronize()
+    return checked
+
+
+def push_level_work(torch, F, dev, sigma: int, lvl: int, levels=None
+                    ) -> dict:
+    """What one push level over frontier F must touch, counted from the
+    data (``push_level_hits``): frontier vertices, (vertex, VSS) pairs,
+    hit slots, and the rows it must write (eager: hit rows whose level is
+    above lvl; lazy: every hit row); and the bytes: the frontier words
+    read once, 8 B of VSS range a vertex, 128 B of mask a pair, 4 B of
+    row id (eager: and 4 B of level) a hit slot, 4 B (eager) or 1 B
+    (lazy) a written row."""
+    from repro_torch.kernels.ref import push_level_hits
+    verts, ids, rows = push_level_hits(F, dev.vss_of_vertex_start,
+                                       dev.vss_of_vertex_end, dev.masks,
+                                       dev.row_ids, sigma)
+    if levels is not None:
+        written = torch.unique(rows[levels[rows] > lvl]).numel()
+    else:
+        written = torch.unique(rows).numel()
+    nbytes = (F.numel() * 4 + verts.numel() * 8 + ids.numel() * 128
+              + rows.numel() * (4 if levels is None else 8)
+              + written * (1 if levels is None else 4))
+    return {"frontier": verts.numel(), "pairs": ids.numel(),
+            "hit_slots": rows.numel(), "rows_written": written,
+            "bytes": nbytes}
+
+
+def push_level_timing(torch, problem, lv: np.ndarray, name: str,
+                      card: str) -> dict:
+    """bvss_push_level at a graph's own push levels.  ``lv`` holds one
+    BFS's levels in the problem's vertex ids; its frontiers of at most
+    DEFAULT_PUSH_CAP vertices are the ones an auto push level takes, and
+    the PUSH_TIMED_FRONTIERS largest of them are timed, each against the
+    levels as they stand before its push (lvl = its level + 1).  Each is
+    first held against the twin and against the unfused push level (the
+    engine's step around bvss_push, as the push_impl seam runs it), eager
+    and lazy.  Then, with the frontier words rotated past L2: the kernel
+    beside its byte bound (the mean over the frontiers, see
+    push_level_work), the twin, the unfused push level's time (CUDA
+    events around the whole composition; ``unfused_busy_ms`` is its
+    device busy time under the profiler, without the waits for the host
+    that the events include), and bvss_push at B = 1, the launch floor;
+    lazy, the kernel and the step (marks memset and kernel) beside the
+    unfused lazy level.  The eager stores of a
+    frontier happen on its first call only: later calls find the rows
+    already at lvl (they are a few hundred bytes a call)."""
+    from repro_torch.core.bfs import (DEFAULT_PUSH_CAP, _BlestState,
+                                      _make_hybrid_step, queue_widths)
+    from repro_torch.kernels import (bvss_push, bvss_push_level,
+                                     pull_vss_kernel, push_vss_kernel)
+    from repro_torch.kernels.ref import bvss_push_level_ref
+    p, dev, cuda = problem, problem.dev, torch.device("cuda")
+    n, sigma = p.n, p.sigma
+    sizes = np.bincount(lv[lv != INF])
+    ks = sorted((k for k in range(len(sizes) - 1)
+                 if 1 <= sizes[k] <= DEFAULT_PUSH_CAP),
+                key=lambda k: (-sizes[k], k))[:PUSH_TIMED_FRONTIERS]
+    if not ks:
+        fail(f"{name}: no frontier of at most {DEFAULT_PUSH_CAP} vertices")
+    lv_t = torch.from_numpy(np.append(lv, INF).astype(np.int32)).to(cuda)
+    fronts, states, work = [], [], []
+    for k in ks:
+        F = pack_frontier(torch, np.flatnonzero(lv == k), p.n_fwords, cuda)
+        levels = torch.where(lv_t <= k, lv_t, INF)
+        fronts.append(F)
+        states.append(levels)
+        work.append(push_level_work(torch, F, dev, sigma, k + 1, levels))
+    ops = (dev.vss_of_vertex_start, dev.vss_of_vertex_end, dev.masks,
+           dev.row_ids)
+
+    def step_of(push, lazy):
+        return _make_hybrid_step(
+            dev, pull_vss_kernel, push, sigma, n,
+            queue_widths(p.num_vss, 2), lazy=lazy, direction="push",
+            num_vss=p.num_vss, n_fwords=p.n_fwords, dummy_vertex=n,
+            R=p.max_vss_per_set, push_cap=DEFAULT_PUSH_CAP, alpha=4.0)
+
+    def state_of(F, levels, marks):
+        return _BlestState(levels, F, None, 0, marks, n, 0, True)
+
+    unfused = {lazy: step_of(push_vss_kernel, lazy) for lazy in (0, 1)}
+    fused = {lazy: step_of(None, lazy) for lazy in (0, 1)}
+    marks = torch.zeros(n + 1, dtype=torch.uint8, device=cuda)
+    err = 0
+    for F, levels, k in zip(fronts, states, ks):
+        lvl = k + 1
+        got = bvss_push_level(F, *ops, lvl, sigma=sigma,
+                              levels=levels.clone())
+        err = max(err, check_equal(
+            torch, f"{name} push level {lvl} vs twin", got,
+            bvss_push_level_ref(F, *ops, lvl, sigma, levels=levels.clone())))
+        want = unfused[0](state_of(F, levels.clone(), marks), lvl).levels
+        check_equal(torch, f"{name} push level {lvl} vs unfused",
+                    got[:n], want[:n])
+        got = fused[1](state_of(F, levels, marks.clone()), lvl).marks
+        want = unfused[1](state_of(F, levels, marks.clone()), lvl).marks
+        check_equal(torch, f"{name} lazy push level {lvl} vs unfused",
+                    got[:n], want[:n])
+    copies = max(1, -(-2 * L2_BYTES // (p.n_fwords * 4)))
+    inputs = [(fronts[i % len(ks)].clone(), states[i % len(ks)],
+               ks[i % len(ks)] + 1) for i in range(copies)]
+    frontier_marks = [torch.zeros(n + 1, dtype=torch.uint8, device=cuda)
+                      for _ in ks]
+    lazy_inputs = [(F, frontier_marks[i % len(ks)], lvl)
+                   for i, (F, _, lvl) in enumerate(inputs)]
+
+    def kernel(F, lv_, lvl):
+        return bvss_push_level(F, *ops, lvl, sigma=sigma, levels=lv_)
+
+    def unfused_eager(F, lv_, lvl):
+        return unfused[0](state_of(F, lv_, marks), lvl)
+
+    def kernel_lazy(F, mk, lvl):
+        return bvss_push_level(F, *ops, lvl, sigma=sigma, marks=mk)
+
+    def step_lazy(F, mk, lvl):
+        return fused[1](state_of(F, lv_t, mk), lvl)
+
+    def unfused_lazy(F, mk, lvl):
+        return unfused[1](state_of(F, lv_t, mk), lvl)
+
+    def samples(fn, ins):
+        return device_samples(torch, fn, ins, reps=len(ins))
+
+    times = {"kernel": samples(kernel, inputs),
+             "unfused": samples(unfused_eager, inputs),
+             "kernel_lazy": samples(kernel_lazy, lazy_inputs),
+             "step_lazy": samples(step_lazy, lazy_inputs),
+             "unfused_lazy": samples(unfused_lazy, lazy_inputs)}
+    busy = {"kernel": device_busy_ms(torch, kernel, inputs),
+            "unfused": device_busy_ms(torch, unfused_eager, inputs),
+            "step_lazy": device_busy_ms(torch, step_lazy, lazy_inputs),
+            "unfused_lazy": device_busy_ms(torch, unfused_lazy, lazy_inputs)}
+    floor_in = [(torch.zeros((1, 32), dtype=torch.int32, device=cuda),
+                 torch.zeros(1, dtype=torch.int32, device=cuda))
+                for _ in range(64)]
+    floor = samples(lambda m, b: bvss_push(m, b, sigma=sigma), floor_in)
+    plain_ms = device_ms(torch, lambda F, lv_, lvl: bvss_push_level_ref(
+        F, *ops, lvl, sigma, levels=lv_), inputs)
+    lazy_bytes = [push_level_work(torch, F, dev, sigma, k + 1)["bytes"]
+                  for F, k in zip(fronts, ks)]
+    med = statistics.median
+    row = dict(
+        shape={"graph": name, "n": n, "n_fwords": p.n_fwords, "sigma": sigma,
+               "max_vss_per_set": p.max_vss_per_set, "mode": "eager",
+               "frontier_levels": [int(k) for k in ks],
+               "frontier_sizes": [int(sizes[k]) for k in ks],
+               "rotated_inputs": copies},
+        work=work, max_abs_err=err, ms=med(times["kernel"]),
+        samples_ms=times["kernel"], plain_ms=plain_ms,
+        bound_ms=statistics.mean(w["bytes"] for w in work)
+        / HBM_BYTES_PER_S * 1e3, busy_ms=busy["kernel"],
+        unfused_ms=med(times["unfused"]),
+        unfused_samples_ms=times["unfused"],
+        unfused_busy_ms=busy["unfused"],
+        launch_floor_ms=med(floor), launch_floor_samples_ms=floor,
+        launch_floor="bvss_push at B = 1",
+        lazy={"ms": med(times["kernel_lazy"]),
+              "samples_ms": times["kernel_lazy"],
+              "step_ms": med(times["step_lazy"]),
+              "step_samples_ms": times["step_lazy"],
+              "step_busy_ms": busy["step_lazy"],
+              "unfused_ms": med(times["unfused_lazy"]),
+              "unfused_samples_ms": times["unfused_lazy"],
+              "unfused_busy_ms": busy["unfused_lazy"],
+              "bound_ms": statistics.mean(lazy_bytes)
+              / HBM_BYTES_PER_S * 1e3})
+    row["share"] = row["bound_ms"] / row["ms"]
+    emit({"phase": f"push_level_{name}", **{k: v for k, v in row.items()
+                                            if k != "work"},
+          "card": card})
+    return row
+
+
 RMAT18_VSS = 38_852              # rmat(18)'s num_vss: the float tiles' width
 
 
@@ -763,12 +1010,43 @@ def memo_oracle(rt):
     return oracle
 
 
+def device_spans(prof) -> tuple[float, list]:
+    """The device's busy time in a torch.profiler trace, in us (the union
+    of its kernel and copy intervals), and those intervals as sorted
+    ``(start, end, name)``."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us, spans
+
+
+def device_busy_ms(torch, fn, inputs: list) -> float:
+    """Device busy time of one ``fn(*inp)`` call, in ms: torch.profiler
+    over one pass of ``inputs`` after a warm pass, busy time over calls.
+    Unlike CUDA events around queued calls it leaves out the time the
+    device waits for the host, which a composition of many small
+    operations cannot hide."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for inp in inputs:
+        fn(*inp)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for inp in inputs:
+            fn(*inp)
+        torch.cuda.synchronize()
+    return device_spans(prof)[0] / 1e3 / len(inputs)
+
+
 def profile(torch, run, name: str, card: str, **extra) -> None:
     """Where one run's time goes on the card: ``torch.profiler`` over
     ``run()`` after one warm run.  Prints the wall time, the device's busy
     time (the union of its kernel and copy intervals) and idle share, and
     the device time by kernel name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     run()                                       # warm: allocator, libraries
     torch.cuda.synchronize()
@@ -778,13 +1056,9 @@ def profile(torch, run, name: str, card: str, **extra) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
+    busy_us, spans = device_spans(prof)
     by_name: dict = {}
     for a, b, kname in spans:
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
         row = by_name.setdefault(kname, [0.0, 0])
         row[0] += b - a
         row[1] += 1
@@ -813,6 +1087,17 @@ def require_launches(counts: dict, phase: str, kernels: tuple) -> None:
         fail(f"{phase} never launched {missing}: {counts}")
 
 
+def require_push_levels(counts: dict, phase: str) -> None:
+    """A single-source BVSS phase sweeps once a level and pulls once a pull
+    level, so its push levels are the sweeps less the pulls: each must be
+    one bvss_push_level launch, and the unfused bvss_push must not run."""
+    push_levels = counts["finalize_pack_sweep"] - counts["bvss_pull"]
+    if counts["bvss_push_level"] != push_levels or counts["bvss_push"]:
+        fail(f"{phase}: {push_levels} push levels but "
+             f"{counts['bvss_push_level']} bvss_push_level and "
+             f"{counts['bvss_push']} bvss_push launches")
+
+
 def session_phase(torch, rt, name: str, g, sources, card: str, oracle,
                   kernels: tuple, weights=None):
     """Build ``GraphSession(g, max_batch=SLOTS, weights=weights)`` and
@@ -824,6 +1109,7 @@ def session_phase(torch, rt, name: str, g, sources, card: str, oracle,
     rows = run_sources(torch, g, sess.levels, sources, oracle)
     counts = launch_counts()
     require_launches(counts, name, kernels)
+    require_push_levels(counts, name)
     emit({"phase": name, "n": g.n, "m": g.m, "ordering": p.ordering,
           "engine": p.engine_name, "sigma": p.bvss.sigma,
           "num_vss": p.bvss.num_vss,
@@ -1090,14 +1376,18 @@ def pagerank_phase(torch, sess, g, card: str) -> dict:
 
 
 def table2_phase(torch, rt, name: str, g, card: str, rng, ordered=None,
-                 profiled: tuple = ()) -> dict:
+                 profiled: tuple = (), push_row: dict | None = None
+                 ) -> dict:
     """The paper's Table-2 matrix on ``g``: every variant of
     ``repro_torch.launch.bfs.ENGINE_VARIANTS``, one warm BFS then
     TABLE2_SOURCES timed ones (sources with out-edges), each equal to the
     oracle; ms per BFS, levels and speedup against ``brs``.  ``ordered``
     is an ordered BVSS preparation of ``g`` to reuse.  The unordered
     variants named in ``profiled`` are then profiled over their first
-    TABLE2_PROFILE_LEVELS levels from the first source."""
+    TABLE2_PROFILE_LEVELS levels from the first source.  With
+    ``push_row``, bvss_push_level is timed at this graph's push levels
+    (``blest_full``'s problem, the first source's BFS) into
+    ``push_row[name]``."""
     from repro_torch.bench.table2_bfs import variant_engines
     from repro_torch.core.bfs import (make_blest_bfs, make_brs_bfs,
                                       make_csr_bfs)
@@ -1119,6 +1409,7 @@ def table2_phase(torch, rt, name: str, g, card: str, rng, ordered=None,
         elif vname.startswith("blest"):
             require_launches(counts, f"{name} {vname}",
                              ("bvss_pull", "finalize_pack_sweep"))
+        require_push_levels(counts, f"{name} {vname}")
         for k, c in counts.items():
             total[k] = total.get(k, 0) + c
         rows[vname] = {"engine": v.core,
@@ -1143,6 +1434,11 @@ def table2_phase(torch, rt, name: str, g, card: str, rng, ordered=None,
                                                device="cuda")}[vname]()
         profile(torch, lambda: fn(sources[0]), f"{name}_{vname}", card,
                 levels_cap=cap)
+    if push_row is not None:
+        v = variants["blest_full"]
+        lv = np.empty(g.n, np.int32)
+        lv[v.perm] = oracle(g, sources[0])
+        push_row[name] = push_level_timing(torch, v.problem, lv, name, card)
     return total
 
 
@@ -1296,7 +1592,8 @@ def main() -> None:
     import repro_torch as rt
     from repro_torch.core.bfs import make_blest_bfs, make_engine
     from repro_torch.core.multi_source import make_multi_source_bfs
-    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import (_build, launch_counts, push_vss_kernel,
+                                     reset_launch_counts)
 
     # phase 1: build and identify
     smi = subprocess.run(
@@ -1314,6 +1611,9 @@ def main() -> None:
     # phase 2: kernels against twins
     timed = phase_kernels(torch, rt)
     timed.update(phase_float_kernels(torch))
+    emit({"phase": "push_level_vs_twin",
+          "cases_equal": phase_push_level(torch, rt),
+          "tolerance": "exact (max abs err 0)"})
     by_phase: dict = {}
 
     # phase 3: main path, road regime (counts read from this run)
@@ -1323,12 +1623,34 @@ def main() -> None:
     oracle = memo_oracle(rt)
     sess, main_counts = session_phase(
         torch, rt, "main_path_grid2d_2048", g, sources, card, oracle,
-        ("bvss_pull", "bvss_push", "finalize_pack_sweep"))
+        ("bvss_pull", "bvss_push_level", "finalize_pack_sweep"))
     by_phase["grid2d_2048"] = main_counts
     p = sess.prepared
     bfs = make_blest_bfs(p.problem, lazy=False, max_levels=PROFILE_LEVELS)
     profile(torch, lambda: bfs(int(p.perm[0])), "grid2d_2048", card,
             levels_cap=PROFILE_LEVELS)
+    # the push level at the grid's own push frontiers (the corner's BFS)
+    lv = np.empty(g.n, np.int32)
+    lv[p.perm] = oracle(g, sources[0])
+    timed["bvss_push_level"] = push_level_timing(torch, p.problem, lv,
+                                                 "grid2d_2048", card)
+    # the push levels alone: from the corner, the first PUSH_PROFILE_LEVELS
+    # levels all push (frontiers of 1 to 128 vertices); one launch a level,
+    # then the same levels through the unfused seam around bvss_push
+    for tag, kw, kernel in (("push", {}, "bvss_push_level"),
+                            ("push_seam", {"push_impl": push_vss_kernel},
+                             "bvss_push")):
+        bfs = make_blest_bfs(p.problem, lazy=False,
+                             max_levels=PUSH_PROFILE_LEVELS, **kw)
+        reset_launch_counts()
+        profile(torch, lambda: bfs(int(p.perm[0])), f"grid2d_2048_{tag}",
+                card, levels_cap=PUSH_PROFILE_LEVELS)
+        counts = launch_counts()
+        if (counts[kernel] != 2 * PUSH_PROFILE_LEVELS or counts["bvss_pull"]
+                or counts["bvss_push"] + counts["bvss_push_level"]
+                != counts[kernel]):
+            fail(f"the {tag} profile did not push every level once through "
+                 f"{kernel}: {counts}")
 
     # the lazy engine on the same prepared graph
     lazy = make_engine(p.graph, "blest_lazy", problem=p.problem)
@@ -1338,10 +1660,27 @@ def main() -> None:
         sources[:2], oracle)
     by_phase["lazy_grid2d_2048"] = launch_counts()
     require_launches(by_phase["lazy_grid2d_2048"], "the lazy engine",
-                     ("finalize_pack_sweep",))
+                     ("finalize_pack_sweep", "bvss_push_level"))
+    require_push_levels(by_phase["lazy_grid2d_2048"], "the lazy engine")
     emit({"phase": "lazy_grid2d_2048", "sources": rows,
           "launches": by_phase["lazy_grid2d_2048"], "card": card})
     del lazy
+
+    # the push seam (push_impl=): the unfused push level around bvss_push,
+    # from the corner, on the same prepared graph
+    seam = make_engine(p.graph, "blest", problem=p.problem,
+                       push_impl=push_vss_kernel)
+    reset_launch_counts()
+    rows = run_sources(
+        torch, g, lambda s: seam(int(p.perm[s])).cpu().numpy()[p.perm],
+        sources[:1], oracle)
+    by_phase["push_seam_grid2d_2048"] = counts = launch_counts()
+    require_launches(counts, "the push seam", ("bvss_push",))
+    if counts["bvss_push_level"]:
+        fail(f"the push seam launched bvss_push_level: {counts}")
+    emit({"phase": "push_seam_grid2d_2048", "sources": rows,
+          "launches": counts, "card": card})
+    del seam
 
     # the wave path, road regime: one cohort of 8 (the 4 above + 4 new)
     cohort = sources + [int(s) for s in rng.choice(g.n, SLOTS - 4,
@@ -1423,7 +1762,8 @@ def main() -> None:
     from repro_torch.launch.bfs import build_graph
     by_phase["table2_road_20"] = table2_phase(
         torch, rt, "table2_road_20", build_graph("road", 20), card, rng,
-        profiled=("brs", "blest_a", "csr_push"))
+        profiled=("brs", "blest_a", "csr_push"),
+        push_row=timed["bvss_push_level"])
     torch.cuda.empty_cache()
 
     # phase 7: the kernel bench and the launcher, end to end
@@ -1433,6 +1773,7 @@ def main() -> None:
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",
         "bvss_push": "src/repro/kernels/bvss_push.py:52",
+        "bvss_push_level": "src/repro/kernels/bvss_push.py:52",
         "finalize_pack_sweep": "src/repro/kernels/frontier_finalize.py:124",
         "bvss_spmm": "src/repro/kernels/mxu_pull.py:156",
         "bvss_spmm_w": "src/repro/kernels/mxu_pull.py:276",
@@ -1444,6 +1785,7 @@ def main() -> None:
     sources_cu = {
         "bvss_pull": "src/repro_torch/kernels/csrc/bvss_pull.cu",
         "bvss_push": "src/repro_torch/kernels/csrc/bvss_push.cu",
+        "bvss_push_level": "src/repro_torch/kernels/csrc/bvss_push.cu",
         "finalize_pack_sweep":
             "src/repro_torch/kernels/csrc/frontier_finalize.cu",
         "bvss_spmm": "src/repro_torch/kernels/csrc/bvss_spmm.cu",
@@ -1456,11 +1798,13 @@ def main() -> None:
         "bit_spmm": "src/repro_torch/kernels/csrc/bit_spmm.cu",
     }
     # each kernel's launches on its own main path: the single-source BFSs of
-    # the road regime for the first three, the two waves for bvss_spmm,
+    # the road regime for bvss_pull, bvss_push_level and the fused sweep,
+    # the push seam for bvss_push, the two waves for bvss_spmm,
     # the float-channel verbs for the three float tiles, the dense
     # multi-source baseline for bit_spmm, the kernel bench for
     # finalize_sweep
-    main_path = {"bvss_spmm": ("wave_grid2d_2048", "wave_rmat_18"),
+    main_path = {"bvss_push": ("push_seam_grid2d_2048",),
+                 "bvss_spmm": ("wave_grid2d_2048", "wave_rmat_18"),
                  "bvss_spmm_w": ("betweenness_rmat_18", "pagerank_rmat_18"),
                  "bvss_spmm_t": ("betweenness_rmat_18",),
                  "bvss_spmm_minplus": ("sssp_rmat_18", "sssp_rmat_16"),

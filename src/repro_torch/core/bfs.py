@@ -16,10 +16,13 @@ The last five are the paper's Table-2 baselines.
 
 The level step is the reference's fused, direction-optimizing step
 (DESIGN §2.3/§2.8): one batched pull over the compacted VSS queue (CUDA
-``bvss_pull``) or, on small frontiers, one push over the frontier
-vertices' own VSSs (CUDA ``bvss_push``); one scatter; one fused finalise +
-frontier-pack + set-flag sweep (CUDA ``finalize_pack_sweep``) feeding
-cumsum compaction.
+``bvss_pull``) and one scatter or, on small frontiers, one push over the
+frontier vertices' own VSSs; one fused finalise + frontier-pack + set-flag
+sweep (CUDA ``finalize_pack_sweep``) feeding cumsum compaction.  The push
+is one launch of CUDA ``bvss_push_level``, which walks the frontier and
+stores the levels (lazy: the marks) itself; the reference's unfused push
+(vertex queue, expansion, ``bvss_push``, scatter) stays behind the
+``push_impl`` seam and ``use_kernels=False``.
 
 What changes from the reference is where the control lives.  The
 reference keeps the loop, the queue-width ladder (``lax.cond``) and the
@@ -47,8 +50,8 @@ from repro_torch.core.bvss import (BVSS, BVSSDevice, build_bvss,
 from repro_torch.core.level_pipeline import LevelPipeline, run_levels
 from repro_torch.errors import ConfigError, GraphValidationError
 from repro_torch.graphs import Graph, src_of_edges, to_dense_bits
-from repro_torch.kernels import (finalize_pack_sweep, pull_vss_kernel,
-                                 push_vss_kernel)
+from repro_torch.kernels import (bvss_push_level, finalize_pack_sweep,
+                                 pull_vss_kernel)
 from repro_torch.kernels.ref import (bvss_pull_ref, bvss_push_ref,
                                      finalize_pack_ref, pack_words)
 
@@ -302,7 +305,7 @@ def make_queue_history(widths: list[int]) -> tuple[QueueHistory, Callable]:
     return hist0, record
 
 
-def _make_hybrid_step(dev: BVSSDevice, pull: PullFn, push: PushFn,
+def _make_hybrid_step(dev: BVSSDevice, pull: PullFn, push: PushFn | None,
                       sigma: int, n_rows: int, widths: list[int], *,
                       lazy: bool, direction: str, num_vss: int,
                       n_fwords: int, dummy_vertex: int, R: int,
@@ -310,10 +313,16 @@ def _make_hybrid_step(dev: BVSSDevice, pull: PullFn, push: PushFn,
     """The direction-optimizing level step (DESIGN §2.3/§2.8).
 
     Pull side: gather → pull → update over the compacted VSS queue, at the
-    ladder width the live count selects.  Push side: compact the frontier
-    BITS into a vertex queue, expand each vertex into the ≤ R VSSs of its
-    own slice set, and resolve each (vertex, VSS) pair with the one-hot
-    push kernel — processing width ``pqcap·R`` regardless of ``num_vss``.
+    ladder width the live count selects.  Push side, with ``push=None``:
+    one :func:`~repro_torch.kernels.bvss_push_level` over the packed
+    frontier, which stores into the levels (lazy: the zeroed marks)
+    itself.  With a ``push`` function, the reference's unfused push:
+    compact the frontier BITS into a vertex queue, expand each vertex into
+    the ≤ R VSSs of its own slice set, resolve each (vertex, VSS) pair with
+    ``push`` and scatter — processing width ``pqcap·R`` regardless of
+    ``num_vss``.  Both leave the same levels and marks on every real row:
+    nothing is dropped, since auto pushes only when the frontier fits the
+    cap and forced push sets the cap to n (:func:`resolve_push_cap`).
 
     ``direction``: "pull"/"push" force a branch; "auto" picks per level on
     the host: push iff the frontier fits the cap, the frontier is small
@@ -365,17 +374,31 @@ def _make_hybrid_step(dev: BVSSDevice, pull: PullFn, push: PushFn,
     if direction == "auto" and push_cost >= widths[-1]:
         # push can never undercut even the full pull width
         return pull_step
-    compact_vertices = make_vertex_compactor(n_fwords, dummy_vertex, pqcap,
-                                             dev.masks.device)
+    if push is None:
+        operands = (dev.vss_of_vertex_start, dev.vss_of_vertex_end,
+                    dev.masks, dev.row_ids)
 
-    def push_update(state: _BlestState, lvl: int) -> _BlestState:
-        VQ, _ = compact_vertices(state.F)
-        ids = expand_push_queue(dev, VQ, R, num_vss)
-        bits = (VQ % sigma).to(torch.int32)[:, None].expand(pqcap, R
-                                                            ).reshape(-1)
-        hits = push(dev.masks[ids], bits, sigma)         # (pqcap*R, spw, 32)
-        return scatter(state, dev.row_ids[ids].reshape(-1),
-                       hits.reshape(-1), lvl)
+        def push_update(state: _BlestState, lvl: int) -> _BlestState:
+            # one launch (lazy: a memset and a launch), in place
+            if lazy:
+                bvss_push_level(state.F, *operands, lvl, sigma=sigma,
+                                marks=state.marks.zero_())
+            else:
+                bvss_push_level(state.F, *operands, lvl, sigma=sigma,
+                                levels=state.levels)
+            return state
+    else:
+        compact_vertices = make_vertex_compactor(n_fwords, dummy_vertex,
+                                                 pqcap, dev.masks.device)
+
+        def push_update(state: _BlestState, lvl: int) -> _BlestState:
+            VQ, _ = compact_vertices(state.F)
+            ids = expand_push_queue(dev, VQ, R, num_vss)
+            bits = (VQ % sigma).to(torch.int32)[:, None].expand(
+                pqcap, R).reshape(-1)
+            hits = push(dev.masks[ids], bits, sigma)     # (pqcap*R, spw, 32)
+            return scatter(state, dev.row_ids[ids].reshape(-1),
+                           hits.reshape(-1), lvl)
 
     if direction == "push":
         return push_update
@@ -412,11 +435,14 @@ def make_blest_bfs(problem: BlestProblem, *, lazy: bool,
     (Alg. 2 eager / Alg. 3 lazy) on the problem's device.
 
     pull_impl:   custom pull (masks, fbytes, sigma) -> hits.
-    push_impl:   custom push (masks, bits, sigma) -> hits (the push seam).
+    push_impl:   custom push (masks, bits, sigma) -> hits (the push seam):
+                 push levels take the unfused path around it (vertex
+                 queue, expansion, ``push_impl``, scatter).
     use_kernels: route pull, push and the finalise sweep through the kernel
                  entry points (the CUDA kernels on a CUDA problem, their
-                 twins on a CPU one); False = the plain PyTorch twins on
-                 any device.
+                 twins on a CPU one); a push level is then one
+                 ``bvss_push_level``.  False = the plain PyTorch twins on
+                 any device, the push unfused around ``bvss_push_ref``.
     buckets:     graduations of the pull-width ladder (:func:`queue_widths`).
     widths:      explicit pull-width ladder (ascending; overrides buckets).
     direction:   "auto" (per-level host switch), "pull", "push".
@@ -446,7 +472,7 @@ def make_blest_bfs(problem: BlestProblem, *, lazy: bool,
     if push_impl is not None:
         push = push_impl
     elif use_kernels:
-        push = push_vss_kernel
+        push = None                 # the one-launch push level
     else:
         push = bvss_push_ref
     fin_impl = finalize_pack_sweep if use_kernels else finalize_pack_ref

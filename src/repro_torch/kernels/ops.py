@@ -52,7 +52,7 @@ def check_sigma(sigma: int) -> None:
 
 
 from .bvss_pull import bvss_pull                                  # noqa: E402
-from .bvss_push import bvss_push                                  # noqa: E402
+from .bvss_push import bvss_push, bvss_push_level                 # noqa: E402
 from .frontier_finalize import (finalize_pack_sweep,               # noqa: E402
                                 finalize_sweep)
 from .mxu_pull import (bit_spmm, bvss_spmm, bvss_spmm_minplus,    # noqa: E402
@@ -62,9 +62,9 @@ from . import ref                                                 # noqa: E402
 
 #: every hand-written kernel's entry point; each carries a ``launches``
 #: count that grows by one per kernel launch (twin calls do not count)
-KERNELS = (bvss_pull, bvss_push, finalize_pack_sweep, bvss_spmm,
-           bvss_spmm_w, bvss_spmm_t, bvss_spmm_minplus, finalize_sweep,
-           bit_spmm)
+KERNELS = (bvss_pull, bvss_push, bvss_push_level, finalize_pack_sweep,
+           bvss_spmm, bvss_spmm_w, bvss_spmm_t, bvss_spmm_minplus,
+           finalize_sweep, bit_spmm)
 
 
 def launch_counts() -> dict[str, int]:
@@ -89,7 +89,8 @@ def push_vss_kernel(masks: torch.Tensor, bits: torch.Tensor,
 
 
 __all__ = ["use_kernel", "check_operand", "check_sigma", "bvss_pull",
-           "bvss_push", "finalize_pack_sweep", "finalize_sweep", "bit_spmm",
+           "bvss_push", "bvss_push_level", "finalize_pack_sweep",
+           "finalize_sweep", "bit_spmm",
            "bvss_spmm", "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus",
            "bvss_spmm_w_local", "bvss_spmm_t_local",
            "bvss_spmm_minplus_local", "KERNELS", "launch_counts",

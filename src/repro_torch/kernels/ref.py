@@ -80,6 +80,47 @@ def bvss_push_ref(masks: torch.Tensor, bits: torch.Tensor, sigma: int = 8
     return bvss_pull_ref(masks, fb.to(torch.int32), sigma)
 
 
+def push_level_hits(F: torch.Tensor, vss_start: torch.Tensor,
+                    vss_end: torch.Tensor, masks: torch.Tensor,
+                    row_ids: torch.Tensor, sigma: int = 8
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What one push level touches: the set bits v < n of the packed
+    frontier F (``verts``), the VSS ids of their ranges ``[vss_start[v],
+    vss_end[v])`` (``ids``, one per (vertex, VSS) pair), and the rows of
+    the pairs' hits under :func:`bvss_push_ref` (``rows`` int64, one per
+    hit slot)."""
+    dev = F.device
+    n = vss_start.shape[0] - 1
+    bits = (_u32(F)[:, None] >> torch.arange(32, device=dev)) & 1
+    verts = torch.nonzero(bits.reshape(-1)[:n]).reshape(-1)
+    first = vss_start[verts].to(torch.int64)
+    count = vss_end[verts].to(torch.int64) - first
+    pair_vertex = torch.repeat_interleave(
+        torch.arange(verts.numel(), device=dev), count)
+    pair_offset = torch.arange(pair_vertex.numel(), device=dev) - \
+        (torch.cumsum(count, 0) - count)[pair_vertex]
+    ids = first[pair_vertex] + pair_offset
+    hits = bvss_push_ref(masks[ids],
+                         (verts[pair_vertex] % sigma).to(torch.int32), sigma)
+    rows = row_ids[ids].reshape(-1).to(torch.int64)[hits.reshape(-1)]
+    return verts, ids, rows
+
+
+def bvss_push_level_ref(F: torch.Tensor, vss_start: torch.Tensor,
+                        vss_end: torch.Tensor, masks: torch.Tensor,
+                        row_ids: torch.Tensor, lvl: int, sigma: int = 8, *,
+                        levels: torch.Tensor | None = None,
+                        marks: torch.Tensor | None = None) -> torch.Tensor:
+    """Twin of kernels.bvss_push_level, in place: the hit rows of
+    :func:`push_level_hits` take ``lvl`` where their level is above it
+    (``levels``, eager) or a mark of 1 (``marks``, lazy).  Returns the
+    updated tensor."""
+    rows = push_level_hits(F, vss_start, vss_end, masks, row_ids, sigma)[2]
+    if marks is not None:
+        return marks.index_fill_(0, rows, 1)
+    return levels.index_fill_(0, rows[levels[rows] > lvl], lvl)
+
+
 def bvss_spmm_ref(masks: torch.Tensor, fbytes: torch.Tensor, sigma: int = 8
                   ) -> torch.Tensor:
     """Twin of kernels.bvss_spmm: masks (B, 32) int32, fbytes (B, S) int32 ->

@@ -185,7 +185,69 @@ def test_cuda_bfs_equals_oracle(cuda_device, engine, direction):
     counts = tk.launch_counts()
     assert counts["finalize_pack_sweep"] > 0, counts
     assert (counts["bvss_pull"] > 0) == (direction != "push"), counts
-    assert (counts["bvss_push"] > 0) == (direction != "pull"), counts
+    # one finalize sweep a level; a push level is one bvss_push_level
+    # launch, and the unfused bvss_push is not on this path
+    push_levels = counts["finalize_pack_sweep"] - counts["bvss_pull"]
+    assert counts["bvss_push_level"] == push_levels, counts
+    assert (push_levels > 0) == (direction != "pull"), counts
+    assert counts["bvss_push"] == 0, counts
+
+
+def push_level_problem(name, sigma, device):
+    """The CPU push-level tests' graphs, on the card: ``grid_isolated`` is
+    grid2d(20, 20) with 40 edgeless vertices after it (empty slice sets;
+    R = 1 up to σ = 16), ``clustered`` the planted partition (R >= 2 from
+    σ = 8)."""
+    from repro_torch.core.bfs import BlestProblem
+    from repro_torch.core.bvss import build_bvss
+    from repro_torch.graphs import from_edges, src_of_edges
+    gen = repro_torch.generators
+    if name == "grid_isolated":
+        g = gen.grid2d(20, 20)
+        g = from_edges(g.n + 40, src_of_edges(g), g.indices)
+    else:
+        g = gen.clustered(40, 60, p_in=0.4, seed=1)
+    return BlestProblem.build(build_bvss(g, sigma=sigma), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("sigma", SIGMAS)
+@pytest.mark.parametrize("name", ["grid_isolated", "clustered"])
+def test_cuda_push_level_equals_twin(cuda_device, name, sigma, lazy):
+    """bvss_push_level against its twin on frontiers of one vertex, of the
+    auto cap's 128 vertices and of 300 (a forced push), the last two with
+    the graph's last vertex (an empty slice set on the grid); levels mix
+    INF with levels below, at and above lvl, marks hold stale values.
+    Both whole arrays equal, slot n included; every call one launch."""
+    p = push_level_problem(name, sigma, cuda_device)
+    dev = p.dev
+    rng = np.random.default_rng(500 + 2 * sigma + lazy)
+    lvl = 5
+    for size in (1, 128, 300):
+        verts = (np.array([p.n // 3]) if size == 1 else np.append(
+            rng.choice(p.n - 1, size - 1, replace=False), p.n - 1))
+        bits = torch.zeros(p.n_fwords * 32, dtype=torch.bool)
+        bits[torch.from_numpy(verts)] = True
+        F = tref.pack_words(bits).to(cuda_device)
+        if lazy:
+            out = torch.from_numpy(rng.integers(0, 3, p.n + 1).astype(
+                np.uint8)).to(cuda_device)
+        else:
+            out = torch.from_numpy(rng.choice(
+                np.array([INF, 2, lvl - 1, lvl, lvl + 2], np.int32),
+                p.n + 1)).to(cuda_device)
+        key = "marks" if lazy else "levels"
+        want = out.clone()
+        operands = (F, dev.vss_of_vertex_start, dev.vss_of_vertex_end,
+                    dev.masks, dev.row_ids, lvl)
+        before = tk.launch_counts()["bvss_push_level"]
+        got = tk.bvss_push_level(*operands, sigma=sigma, **{key: out})
+        torch.cuda.synchronize()
+        assert got is out
+        assert tk.launch_counts()["bvss_push_level"] == before + 1
+        tref.bvss_push_level_ref(*operands, sigma, **{key: want})
+        assert torch.equal(got, want), (size, lazy)
 
 
 @pytest.mark.cuda
