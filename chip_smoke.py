@@ -28,7 +28,8 @@ Phases (any failure exits non-zero before the result line):
    each kernel and twin is timed with CUDA events (median) over inputs
    rotated past L2, and the two weighted tiles beside ``torch.bmm`` over
    the unpacked f32 tile (TF32 off), the library call that computes the
-   same product; ``bvss_push`` also at B = 1 and 16,384 (the launch floor
+   same product (and ``bvss_spmm`` beside it at its own shape);
+   ``bvss_push`` also at B = 1 and 16,384 (the launch floor
    control); ``bvss_spmm`` and ``finalize_pack_sweep`` also at a second
    shape (a wide wave, B = 4,096, S = 128; the lazy sweep at N =
    1,048,576); the redesigned kernels with ``share`` = bound / time, and
@@ -86,7 +87,18 @@ Phases (any failure exits non-zero before the result line):
 7. ``repro_torch.bench.kernel_bench.run()`` (the path of
    ``finalize_sweep``, beside the fused lazy sweep) and the launcher
    ``python -m repro_torch.launch.bfs`` in process for every variant on a
-   small road graph, each ending ``VERIFIED vs oracle``.
+   small road graph, each ending ``VERIFIED vs oracle``;
+8. the analytics launcher ``python -m repro_torch.launch.analytics`` in
+   process on rmat(16), every verb of its ``WHAT`` (all but ``extremes``
+   ending ``VERIFIED``; ``launch_analytics``); the paper's host Tables
+   1a, 1b and 4 at the reference's sizes, their derived columns equal to
+   the JAX package's (``PAPER_TABLE_DERIVED``; ``paper_tables_host``);
+   Figure 3, compression and ms per BFS for windows 8 ... 4096 on
+   ``clustered(256, 64)`` (``fig3_clustered_16``, cut to scale 14); the
+   RMAT scale sweep at scales 14, 16 and 18, MTEPS and the
+   ``memory_bytes`` model beside ``torch.cuda.max_memory_allocated``
+   (``bench_scale_rmat``); and ``bench_analytics.run(scale=12)``, the
+   wave verbs against sequential baselines and the oracles.
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -124,6 +136,34 @@ TABLE2_SOURCES = 2               # timed BFSs per Table-2 variant and graph
 COMPONENTS_PROFILE_SEEDS = 256   # floods of the components() profile
 CLI_SCALE = 12                   # the launcher's road graph: 64 x 64
 TABLE2_PROFILE_LEVELS = 128      # levels of each profiled Table-2 engine
+
+# the derived columns of the paper's host tables at their default sizes
+# (Table 1a n = 4,096, Table 1b and Table 4 scale 11): the JAX package's
+# rows, which tests/test_torch_paper_tables.py holds the port to on the CPU
+PAPER_TABLE_DERIVED = {
+    "table1a/natural": "compression=0.138",
+    "table1a/random": "compression=0.138",
+    "table1a/shingle(gorder-lite)": "compression=0.147",
+    "table1a/rcm": "compression=0.138",
+    "table1a/jaccard_windows": "compression=0.155",
+    "table1b/road(grid)": "udiv_before=572;udiv_after=30;reduction=19.1x",
+    "table1b/rgg": "udiv_before=202;udiv_after=31;reduction=6.4x",
+    "table1b/path": "udiv_before=3;udiv_after=3;reduction=1.0x",
+    "table4/kron": "n_sets=256;num_vss=312;slices=18387;"
+                   "padded_slices=39936;conn_bits=147096;udiv=236;"
+                   "compression=0.173;mem_mb=0.23",
+    "table4/urand": "n_sets=256;num_vss=339;slices=31777;"
+                    "padded_slices=43392;conn_bits=254216;udiv=117;"
+                    "compression=0.128;mem_mb=0.24",
+    "table4/road": "n_sets=254;num_vss=254;slices=7881;padded_slices=32512;"
+                   "conn_bits=63048;udiv=572;compression=0.126;mem_mb=0.18",
+    "table4/web": "n_sets=256;num_vss=510;slices=41141;padded_slices=65280;"
+                  "conn_bits=329128;udiv=100;compression=0.130;mem_mb=0.35",
+    "table4/rgg": "n_sets=256;num_vss=256;slices=19758;padded_slices=32768;"
+                  "conn_bits=158064;udiv=202;compression=0.127;mem_mb=0.18",
+    "table4/star": "n_sets=256;num_vss=271;slices=2303;padded_slices=34688;"
+                   "conn_bits=18424;udiv=1;compression=0.222;mem_mb=0.22",
+}
 
 
 def fail(msg: str) -> None:
@@ -453,7 +493,28 @@ def phase_kernels(torch, rt) -> dict:
         # the card's own write stream over the same output bytes
         fill_ms=device_ms(torch, lambda m, f: fill_out.fill_(1), spmm_in))
     row["share"] = row["bound_ms"] / row["ms"]
-    del spmm_in, fill_out
+    # the library call for the same product: torch.bmm of the unpacked f32
+    # slice bits (B, τ, σ) against the unpacked f32 frontier bits (B, σ, S),
+    # TF32 off; the unpack is outside the clock.  Counts <= σ are exact in
+    # f32, so the product must equal the kernel's counts
+    m, f = spmm_in[0]
+    shifts = (torch.arange(spw, device=cuda) * sigma)[:, None, None]
+    bits = torch.arange(sigma, device=cuda)
+    a = ((m.to(torch.int64) & 0xFFFFFFFF)[:, None, :, None]
+         >> (shifts + bits)) & 1
+    a = a.reshape(B, spw * 32, sigma).to(torch.float32)
+    x = ((f.to(torch.int64)[:, None, :] >> bits[None, :, None]) & 1).to(
+        torch.float32)                              # (B, σ, S)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib_out = torch.bmm(a, x).reshape(B, spw, 32, S)
+    row["library_err"] = check_equal(
+        torch, "bvss_spmm bmm", lib_out.to(torch.int32),
+        bvss_spmm(m, f, sigma=sigma))
+    row["library_ms"] = device_ms(torch, lambda a, x: torch.bmm(a, x),
+                                  [(a, x)])
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    del spmm_in, fill_out, a, x, lib_out
     # a wide wave: S = 128 columns, the same 268 MB of output
     B, S = 4096, 128
     wide_in = rotating(lambda i: (t(u32_words(rng, (B, 32))),
@@ -1581,6 +1642,171 @@ def cli_phase(torch, card: str) -> dict:
     return launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the analytics launcher, the paper's other tables, Figure 3, the
+# RMAT scale sweep and the analytics bench
+# ---------------------------------------------------------------------------
+ANALYTICS_ARGS = ["--graph", "rmat", "--scale", "16", "--sources", "8",
+                  "--max-batch", "8", "--verify"]
+FIG3_SCALE = 14                  # clustered(256, 64); cut from 16 (PERF.md)
+SCALE_SWEEP = (14, 16, 18)       # the RMAT scale sweep's scales
+ANALYTICS_BENCH_SCALE = 12       # bench_analytics' graph suite scale
+
+
+def bench_call(fn, *args, **kwargs):
+    """Run a bench of the port; a check it fails becomes :func:`fail`."""
+    from repro_torch.errors import KernelFaultError
+    try:
+        return fn(*args, **kwargs)
+    except KernelFaultError as e:
+        fail(f"{fn.__module__}: {e}")
+
+
+def analytics_cli_phase(torch, card: str) -> dict:
+    """``python -m repro_torch.launch.analytics`` in process, on the card
+    (its default device), every verb of ``WHAT`` on rmat(16): each checked
+    verb must end in its ``VERIFIED`` suffix, through the four tiles."""
+    import contextlib
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import analytics
+    reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_call(analytics.main,
+                   ANALYTICS_ARGS + ["--what", ",".join(analytics.WHAT)])
+    counts = launch_counts()
+    lines = buf.getvalue().strip().splitlines()
+    verbs = {}
+    for line in lines[1:]:
+        verb = line.removeprefix("[analytics] ").split(":")[0].split(" ")[0]
+        verbs[verb] = line
+    if list(verbs) != list(analytics.WHAT):
+        fail(f"launch_analytics printed {list(verbs)}: {lines}")
+    for verb, line in verbs.items():
+        if verb != "extremes" and "; VERIFIED vs " not in line:
+            fail(f"launch_analytics {verb}: {line}")
+    require_launches(counts, "launch_analytics",
+                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t",
+                      "bvss_spmm_minplus"))
+    emit({"phase": "launch_analytics", "args": ANALYTICS_ARGS,
+          "first_line": lines[0], "verbs": verbs, "launches": counts,
+          "card": card})
+    return counts
+
+
+def paper_tables_phase(torch, card: str) -> dict:
+    """Tables 1a, 1b and 4 at the reference's default sizes: host
+    statistics, each derived column equal to the JAX package's row
+    (:data:`PAPER_TABLE_DERIVED`); the time column is this host's."""
+    from repro_torch.bench import (table1a_compression, table1b_divergence,
+                                   table4_footprint)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    rows = (table1a_compression.run(verbose=False)
+            + table1b_divergence.run(verbose=False)
+            + table4_footprint.run(verbose=False))
+    counts = launch_counts()
+    got = {}
+    host_us = {}
+    for r in rows:
+        name, us, rest = r.split(",", 2)
+        got[name], host_us[name] = rest, float(us)
+    if got != PAPER_TABLE_DERIVED:
+        bad = sorted(k for k in set(got) | set(PAPER_TABLE_DERIVED)
+                     if got.get(k) != PAPER_TABLE_DERIVED.get(k))
+        fail(f"paper_tables_host: rows differ from the reference's: "
+             f"{[(k, got.get(k), PAPER_TABLE_DERIVED.get(k)) for k in bad]}")
+    emit({"phase": "paper_tables_host", "rows": got,
+          "host_us": host_us, "tolerance": "derived columns equal",
+          "launches": counts, "card": card})
+    return counts
+
+
+def fig3_phase(torch, card: str) -> dict:
+    """Figure 3 on the card: for each window w = 8 ... 4096 the
+    compression and the ms per BFS of ``clustered`` under
+    ``jaccard_windows(w)``, every timed BFS held against
+    ``reference_bfs``."""
+    from repro_torch.bench import fig3_window
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    rows = bench_call(fig3_window.run, scale=FIG3_SCALE, verbose=False)
+    counts = launch_counts()
+    require_launches(counts, "fig3_clustered_16",
+                     ("bvss_pull", "finalize_pack_sweep"))
+    windows = []
+    for r in rows:
+        name, us, rest = r.split(",", 2)
+        windows.append({"w": int(name.split("=")[1]),
+                        "compression": float(rest.split("=")[1]),
+                        "ms_per_bfs": float(us) / 1e3})
+    if [w["w"] for w in windows] != [1 << k for k in range(3, 13)
+                                     if 1 << k <= 1 << FIG3_SCALE]:
+        fail(f"fig3: windows {[w['w'] for w in windows]}")
+    emit({"phase": "fig3_clustered_16",
+          "graph": f"clustered({(1 << FIG3_SCALE) // 64}, 64)",
+          "n": 1 << FIG3_SCALE, "windows": windows,
+          "reduced": {"scale": [16, FIG3_SCALE],
+                      "why": "jaccard_windows' host loop: 10-11 s a window "
+                             "at n = 65,536 on the card machine's host, "
+                             "about 100 s for ten (PERF.md section 4)"},
+          "launches": counts, "card": card})
+    return counts
+
+
+def scale_phase(torch, card: str) -> dict:
+    """The RMAT scale sweep, one ``bench_scale.run`` a scale (each held
+    against the oracle first): MTEPS, the ``memory_bytes`` model and, beside
+    it, the card's own peak of allocated memory over the scale's
+    ``prepare`` and BFSs."""
+    from repro_torch.bench import bench_scale
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    scales = {}
+    for sc in SCALE_SWEEP:
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = bench_call(bench_scale.run, scales=(sc,), verbose=False)
+        wall = time.perf_counter() - t0
+        row = out["scales"][str(sc)]
+        if not out["summary"]["all_verified"]:
+            fail(f"bench_scale rmat({sc}) not verified")
+        scales[str(sc)] = {
+            **row, "wall_s": wall,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "allocated_before": base}
+    counts = launch_counts()
+    require_launches(counts, "bench_scale_rmat",
+                     ("bvss_pull", "finalize_pack_sweep"))
+    emit({"phase": "bench_scale_rmat", "scales": scales,
+          "launches": counts, "card": card})
+    return counts
+
+
+def analytics_bench_phase(torch, card: str) -> dict:
+    """``repro_torch.bench.bench_analytics.run`` on the card: the wave verbs
+    against sequential single-source BFSs and the oracles, every check of
+    the reference bench passing."""
+    from repro_torch.bench import bench_analytics
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = bench_call(bench_analytics.run, scale=ANALYTICS_BENCH_SCALE,
+                     n_queries=8, n_pivots=4, verbose=False)
+    counts = launch_counts()
+    if out["summary"]["all_verified"] is not True:
+        fail(f"bench_analytics: not all verified: {out['summary']}")
+    require_launches(counts, "bench_analytics",
+                     ("bvss_pull", "finalize_pack_sweep", "bvss_spmm",
+                      "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus"))
+    emit({"phase": "bench_analytics", "scale": ANALYTICS_BENCH_SCALE,
+          "summary": out["summary"], "graphs": out["graphs"],
+          "launches": counts, "card": card})
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1769,6 +1995,15 @@ def main() -> None:
     # phase 7: the kernel bench and the launcher, end to end
     by_phase["kernel_bench"] = kernel_bench_phase(torch, card)
     by_phase["launch_cli"] = cli_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # phase 8: the analytics launcher, the paper's other tables, Figure 3,
+    # the RMAT scale sweep and the analytics bench
+    by_phase["launch_analytics"] = analytics_cli_phase(torch, card)
+    by_phase["paper_tables_host"] = paper_tables_phase(torch, card)
+    by_phase["fig3_clustered_16"] = fig3_phase(torch, card)
+    by_phase["bench_scale_rmat"] = scale_phase(torch, card)
+    by_phase["bench_analytics"] = analytics_bench_phase(torch, card)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",
@@ -1810,7 +2045,8 @@ def main() -> None:
                  "bvss_spmm_minplus": ("sssp_rmat_18", "sssp_rmat_16"),
                  "bit_spmm": ("dense_rmat_16",),
                  "finalize_sweep": ("kernel_bench",)}
-    library_by = {"bvss_spmm_w": "torch.bmm over the unpacked f32 tile",
+    library_by = {"bvss_spmm": "torch.bmm over the unpacked f32 tile",
+                  "bvss_spmm_w": "torch.bmm over the unpacked f32 tile",
                   "bvss_spmm_t": "torch.bmm over the unpacked f32 tile",
                   "bit_spmm": "torch._int_mm over the unpacked int8 A"}
     timed_w1 = timed.pop("bvss_spmm_w_s1")

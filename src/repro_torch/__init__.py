@@ -28,7 +28,10 @@ PageRank and ``weights=``) with hand-written CUDA ``bvss_spmm_w``,
 comparison (the BRS, dense-pull and CSR push/pull/dirop baselines,
 ``python -m repro_torch.launch.bfs``, the bench scripts in
 ``repro_torch.bench``) with hand-written CUDA ``bit_spmm`` (the dense
-multi-source baseline) and ``finalize_sweep`` (the kernel bench).
+multi-source baseline) and ``finalize_sweep`` (the kernel bench), and
+the analytics launcher (``python -m repro_torch.launch.analytics``) with
+the paper's Tables 1a, 1b and 4, Figure 3, the RMAT scale sweep and the
+analytics bench in ``repro_torch.bench``.
 """
 from repro_torch.core.bfs import reference_bfs
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,

@@ -9,11 +9,12 @@ device time plus the host's share.
 from __future__ import annotations
 
 import math
+import subprocess
 import time
 
 import numpy as np
 
-from repro_torch.core import BVSS, reference_bfs
+from repro_torch.core import BVSS, reference_bfs, resolve_device
 from repro_torch.graphs import Graph
 from repro_torch.graphs import generators as gen
 
@@ -65,6 +66,18 @@ def modeled_tc_pulls(g: Graph, b: BVSS, src: int, *,
     return total
 
 
+def median_sec(f, reps: int = 3) -> float:
+    """Median seconds per call of ``f()`` over ``reps`` calls, the caller
+    having warmed it; ``f`` must end in a host copy or a synchronise, as
+    every verb of ``GraphSession`` does."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.time()
+        f()
+        ts.append(time.time() - t0)
+    return float(np.median(ts))
+
+
 def fmt_row(name: str, us_per_call: float, derived: str) -> str:
     return f"{name},{us_per_call:.1f},{derived}"
 
@@ -73,3 +86,30 @@ def geomean(xs) -> float:
     """Geometric mean of the positive entries (0.0 if none)."""
     xs = [x for x in xs if x and x > 0]
     return math.exp(sum(math.log(x) for x in xs) / len(xs)) if xs else 0.0
+
+
+def card_identity() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (first
+    card), or ``"nvidia-smi unavailable"``."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return "nvidia-smi unavailable"
+    return out.strip().splitlines()[0] if out.strip() else \
+        "nvidia-smi unavailable"
+
+
+def bench_envelope(bench: str, scale: int, device) -> dict:
+    """The metadata envelope of a bench's JSON: the bench, its scale, the
+    torch device it ran on and the time; on the card also the card's name
+    and power limit (:func:`card_identity`)."""
+    dev = resolve_device(device)
+    out = {"bench": bench, "device": str(dev), "scale": scale,
+           "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S")}
+    if dev.type == "cuda":
+        out["card"] = card_identity()
+    return out

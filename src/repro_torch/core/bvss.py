@@ -116,6 +116,11 @@ class BVSS:
             return 1.0
         return self.m / (self.num_slices * self.sigma)
 
+    def connectivity_bits(self) -> int:
+        """Bits of the unpadded slices, num_slices * σ (Table 4's
+        connectivity column)."""
+        return self.num_slices * self.sigma
+
     def memory_bytes(self) -> dict[str, int]:
         """Table-4 style footprint breakdown (bytes), as the reference
         counts it: ``bvss`` the static arrays, ``dynamic`` the queues and

@@ -53,7 +53,7 @@ bvss_spmm_minplus_kernel(const uint32_t* __restrict__ masks,
   __syncthreads();
   const float inf = __int_as_float(0x7f800000);
   float* y = out + (b * TAU + k) * (long long)S;
-  if (vec) {  // S % 4 == 0 and 16-byte aligned rows (checked by the wrapper)
+  if (vec) {  // S % 4 == 0: out is the wrapper's own, so rows align
     for (int s = 0; s < S; s += 4) {
       float4 acc = make_float4(inf, inf, inf, inf);
 #pragma unroll

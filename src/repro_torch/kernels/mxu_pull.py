@@ -131,13 +131,6 @@ def _check_block_columns(name: str, B: int, S: int, sigma: int) -> None:
             f"{name}: S = {S} columns at sigma = {sigma} need "
             f"{4 * sigma * S} B of shared memory per block, above "
             f"{_SMEM_BYTES}")
-    if B > _MAX_BLOCKS:
-        raise ConfigError(f"{name}: B = {B} VSSs exceed one launch")
-
-
-def _vec(S: int, *tensors: torch.Tensor) -> int:
-    """1 when the kernel may use 16-byte row stores and loads."""
-    return int(S % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def bvss_spmm_w(masks: torch.Tensor, xvals: torch.Tensor, *,
@@ -239,7 +232,7 @@ def bvss_spmm_minplus(masks: torch.Tensor, wvals: torch.Tensor,
                          _MP_ARGTYPES)
         stream = torch.cuda.current_stream(masks.device).cuda_stream
         err = fn(masks.data_ptr(), wvals.data_ptr(), xvals.data_ptr(),
-                 out.data_ptr(), B, S, sigma, _vec(S, out), stream)
+                 out.data_ptr(), B, S, sigma, int(S % 4 == 0), stream)
         _build.check("bvss_spmm_minplus", err, "bvss_spmm_minplus")
         bvss_spmm_minplus.launches += 1
     return out

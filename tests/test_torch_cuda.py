@@ -499,3 +499,39 @@ def test_cuda_baselines_equal_oracle(cuda_device):
     for i, s in enumerate(srcs):
         np.testing.assert_array_equal(dense[:, i].cpu().numpy(),
                                       repro_torch.reference_bfs(g, int(s)))
+
+
+@pytest.mark.cuda
+def test_cuda_analytics_cli_verifies_every_verb(cuda_device, capsys):
+    """``python -m repro_torch.launch.analytics`` on the card (its default
+    device): every checked verb ends ``VERIFIED`` at the reference's
+    tolerances, through the four tile kernels."""
+    from repro_torch.launch import analytics
+    tk.reset_launch_counts()
+    analytics.main(["--graph", "rmat", "--scale", "10"])
+    counts = tk.launch_counts()
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "device=cuda" in lines[0]
+    checked = [ln for ln in lines[1:] if "extremes" not in ln]
+    assert len(checked) == len(analytics.WHAT) - 1
+    assert all("; VERIFIED vs " in ln for ln in checked), lines
+    for kernel in ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t",
+                   "bvss_spmm_minplus"):
+        assert counts[kernel] > 0, (kernel, counts)
+
+
+@pytest.mark.cuda
+def test_cuda_scale_sweep_and_fig3(cuda_device):
+    """The RMAT scale sweep and Figure 3 on the card: the sweep's smallest
+    scale and every Figure-3 window against the oracle, through the
+    single-source kernels."""
+    from repro_torch.bench import bench_scale, fig3_window
+    tk.reset_launch_counts()
+    out = bench_scale.run(scales=(9, 10), verbose=False)
+    assert out["summary"]["all_verified"] and out["device"] == "cuda"
+    assert all(so["mteps"] > 0 for so in out["scales"].values())
+    rows = fig3_window.run(scale=9, verbose=False)
+    assert [r.split(",")[0] for r in rows] == \
+        [f"fig3/w={1 << k}" for k in range(3, 10)]
+    counts = tk.launch_counts()
+    assert counts["bvss_pull"] > 0 and counts["finalize_pack_sweep"] > 0

@@ -68,6 +68,15 @@ def test_launcher_and_benches_never_load_jax_reference_or_benchmarks():
         "bfs.main(['--graph', 'road', '--scale', '6', '--engine', 'dirop',\n"
         "          '--sources', '2', '--device', 'cpu'])\n"
         "kernel_bench.run('cpu', n_vertices=100, verbose=False)\n"
+        "from repro_torch.launch import analytics\n"
+        "from repro_torch.bench import (bench_analytics, bench_scale,\n"
+        "                               fig3_window, table1a_compression,\n"
+        "                               table1b_divergence, table4_footprint)\n"
+        "analytics.main(['--graph', 'road', '--scale', '6', '--what',\n"
+        "                'components,pagerank', '--device', 'cpu'])\n"
+        "out = bench_scale.run(scales=(6,), verbose=False, device='cpu')\n"
+        "assert out['summary']['all_verified']\n"
+        "table4_footprint.run(6, verbose=False, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "print('LOADED', bad)\n")
@@ -76,6 +85,7 @@ def test_launcher_and_benches_never_load_jax_reference_or_benchmarks():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "VERIFIED vs oracle" in out.stdout, out.stdout
+    assert "VERIFIED vs float64 power iteration" in out.stdout, out.stdout
     assert "LOADED []" in out.stdout, out.stdout
 
 
@@ -93,7 +103,11 @@ def test_scan_covers_the_wave_slice():
                    "analytics/common.py", "analytics/betweenness.py",
                    "analytics/sssp.py", "analytics/pagerank.py",
                    "launch/bfs.py", "bench/common.py", "bench/table2_bfs.py",
-                   "bench/bench_service.py", "bench/kernel_bench.py"):
+                   "bench/bench_service.py", "bench/kernel_bench.py",
+                   "launch/analytics.py", "bench/table1a_compression.py",
+                   "bench/table1b_divergence.py", "bench/table4_footprint.py",
+                   "bench/fig3_window.py", "bench/bench_scale.py",
+                   "bench/bench_analytics.py"):
         assert f"src/repro_torch/{module}" in SCANNED, module
 
 
