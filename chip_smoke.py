@@ -98,7 +98,34 @@ Phases (any failure exits non-zero before the result line):
    RMAT scale sweep at scales 14, 16 and 18, MTEPS and the
    ``memory_bytes`` model beside ``torch.cuda.max_memory_allocated``
    (``bench_scale_rmat``); and ``bench_analytics.run(scale=12)``, the
-   wave verbs against sequential baselines and the oracles.
+   wave verbs against sequential baselines and the oracles;
+9. the hardened serving tier: ``rmat(18)`` opened once through
+   ``GraphSessionManager(verify_fraction=1.0)`` (Jaccard, eager ``blest``,
+   8 slots): ``levels_batch`` of 24 sources, every answer the oracle's and
+   verified, no quarantine; ``betweenness`` and ``closeness`` of 8
+   through the finite guards; the bare session against the manager with
+   a never-firing deadline; ``session_cost_bytes`` beside
+   ``max_memory_allocated`` over the open and over the wave alone
+   (``serve_manager_rmat_18``); a ``RequestQueue`` over it: first
+   ``bench_queue``'s call-at-a-time against queued comparison of its 24
+   requests, verification off, then 24 requests from two tenants (the
+   second on its own session of the same graph), four slots each,
+   staggered ``not_before``, once through ``drain()`` and once through the
+   ``start()`` pump with two submitting threads, every future the
+   oracle's and requests coalescing (``serve_queue_rmat_18``); the launch
+   counter's lock against a plain increment, per call and on the wave
+   (``launch_counter``); on
+   ``grid2d(512, 512)`` a 0.2 s deadline over a whole call and over one
+   queued request of eight, each harvest the oracle's levels up to its
+   depth (``serve_deadline_grid_512``); the fault gauntlet on ``rmat(16)``,
+   ``corrupt_spmm_tile``, ``corrupt_push_tile`` (forced push, through
+   ``bvss_push``, never ``bvss_push_level``) and ``nan_sigma``, each
+   diverging unverified and quarantined and correct verified, and a clean
+   ``FaultPlan()`` session never quarantined (``serve_faults_rmat_16``);
+   the launcher's ``--service --queue --verify-fraction 1.0`` on ``road``
+   scale 16 (``launch_service``); and ``bench_service`` and
+   ``bench_queue`` at their default size (``bench_service_serve``,
+   ``bench_queue``).
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -1807,6 +1834,547 @@ def analytics_bench_phase(torch, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the hardened serving tier — the manager, the async queue,
+# deadlines, the fault gauntlet on the hand kernels, the launcher's
+# --service and the two serving benches
+# ---------------------------------------------------------------------------
+SERVE_SCALE = 18                 # the social regime's rmat(18)
+SERVE_QUERIES = 3 * SLOTS        # 24 sources through the 8 slots
+DEADLINE_SIDE = 512              # grid2d(512, 512): 1,023 levels a corner
+DEADLINE_S = 0.2                 # harvests mid-flight at a few hundred
+FAULT_SCALE = 16                 # the verbs phase's rmat(16)
+FAULT_QUERIES = 4
+SERVICE_ARGS = ["--graph", "road", "--scale", "16", "--engine",
+                "blest_full", "--sources", "8", "--service", "--max-batch",
+                "8", "--queue", "--verify-fraction", "1.0"]
+SERVE_BENCH_SCALE = 9            # bench_service's and bench_queue's default
+
+
+def check_levels(phase: str, g, sources, got, oracle) -> None:
+    """Every answer a full level array equal to the oracle's."""
+    for s, lv in zip(sources, got):
+        want = oracle(g, s)
+        if not isinstance(lv, np.ndarray) or lv.dtype != want.dtype or \
+                not np.array_equal(lv, want):
+            fail(f"{phase}: the answer for source {s} differs from the "
+                 f"oracle ({type(lv).__name__})")
+
+
+def check_partial(phase: str, g, r, oracle, depth_max: int) -> int:
+    """A deadline harvest: a TimeoutResult whose levels are the oracle's
+    up to its depth, bit for bit, with ``0 < depth < depth_max``."""
+    from repro_torch.serve import TimeoutResult
+    if not isinstance(r, TimeoutResult):
+        fail(f"{phase}: expected a TimeoutResult, got {type(r).__name__}")
+    want = oracle(g, r.source)
+    if not 0 < r.depth < depth_max:
+        fail(f"{phase}: harvested at depth {r.depth}, outside (0, "
+             f"{depth_max})")
+    if not np.array_equal(r.levels, np.where(want <= r.depth, want, INF)):
+        fail(f"{phase}: the partial levels of source {r.source} differ "
+             f"from the oracle's up to depth {r.depth}")
+    if not np.array_equal(r.frontier, np.flatnonzero(want == r.depth)):
+        fail(f"{phase}: the frontier of source {r.source} at depth "
+             f"{r.depth} differs from the oracle's")
+    return r.depth
+
+
+def serve_manager_phase(torch, rt, rng, card: str):
+    """The full-width serving path: ``rmat(18)`` opened once through
+    ``GraphSessionManager(verify_fraction=1.0)``; ``levels_batch`` of 24
+    sources through 8 slots (every answer the oracle's and verified, no
+    quarantine), ``betweenness`` and ``closeness`` of 8 through the
+    manager's finite guards (against the oracles at the reference's
+    tolerances), the hardened ratio (bare session against the manager with
+    a deadline that never fires, verification off for the timing), the
+    verify cost, and ``session_cost_bytes`` beside the card's own peaks
+    (over the open and warm-up, and over the verified wave alone)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import betweenness_ref, closeness_ref
+    from repro_torch.serve import session_cost_bytes
+    g = rt.generators.rmat(SERVE_SCALE)
+    oracle = memo_oracle(rt)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mgr = rt.GraphSessionManager(verify_fraction=1.0)
+    sess = mgr.open_session("serve", g, tenant="acme", max_batch=SLOTS)
+    open_s = time.perf_counter() - t0
+    queries = [int(s) for s in rng.choice(g.n, SERVE_QUERIES, replace=False)]
+    sess.levels_batch(queries[:2])                      # warm: allocator
+    torch.cuda.synchronize()
+    # the peak over open and warm-up (the ordering pass, the BVSS build),
+    # then the wave's own peak; both above the memory before the open
+    peak_open = torch.cuda.max_memory_allocated() - base
+    before_wave = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lvs = mgr.levels_batch("serve", queries, tenant="acme")
+    verified_s = time.perf_counter() - t0
+    wave_counts = launch_counts()
+    torch.cuda.synchronize()
+    peak_wave = torch.cuda.max_memory_allocated() - base
+    resident = torch.cuda.memory_allocated() - base
+    t0 = time.perf_counter()
+    check_levels("serve_manager_rmat_18", g, queries, lvs, oracle)
+    oracle_s = time.perf_counter() - t0
+    st = mgr.stats()
+    if st["verified"] != SERVE_QUERIES or st["quarantines"]:
+        fail(f"serve_manager_rmat_18: {st['verified']} verified, "
+             f"{st['quarantines']} quarantines: {st}")
+
+    # the hardened ratio: the same engine bare and through the manager
+    # (deadline armed, never firing); verification off for the timing, as
+    # in bench_service's manager, so the ratio is the layer's own cost
+    mgr.verify_fraction = 0.0
+    samples = {"bare": [], "hardened": []}
+    calls = {"bare": lambda: sess.levels_batch(queries),
+             "hardened": lambda: mgr.levels_batch(
+                 "serve", queries, tenant="acme", deadline_s=3600.0)}
+    for _ in range(3):
+        for key, call in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            samples[key].append(time.perf_counter() - t0)
+            check_levels(f"serve_manager_rmat_18 {key}", g, queries, out,
+                         oracle)
+    mgr.verify_fraction = 1.0
+    bare_s, hard_s = (statistics.median(samples[k])
+                      for k in ("bare", "hardened"))
+
+    # the float verbs through the manager's finite guards
+    fsrcs = [int(s) for s in rng.choice(g.n, SLOTS, replace=False)]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bc = mgr.betweenness("serve", fsrcs, tenant="acme")
+    bc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cc = mgr.closeness("serve", fsrcs, tenant="acme")
+    cc_s = time.perf_counter() - t0
+    verb_counts = launch_counts()
+    st = mgr.stats()
+    if st["quarantines"] or st["degraded_serves"]:
+        fail(f"serve_manager_rmat_18: a finite guard tripped: {st}")
+    want_bc = betweenness_ref(g, fsrcs)
+    bc_err = np.abs(bc - want_bc)
+    if not np.all(np.isfinite(bc)) or \
+            bool((bc_err > 1e-4 + 1e-4 * np.abs(want_bc)).any()):
+        fail(f"serve_manager_rmat_18: betweenness differs from "
+             f"betweenness_ref (max abs err {float(bc_err.max())})")
+    want_cc = closeness_ref(g, fsrcs)
+    cc_err = float(np.max(np.abs(cc - want_cc)
+                          / np.maximum(np.abs(want_cc), 1e-300)))
+    if not np.all(np.isfinite(cc)) or cc_err > 1e-12:
+        fail(f"serve_manager_rmat_18: closeness differs from closeness_ref "
+             f"(rel err {cc_err})")
+    counts = {k: wave_counts[k] + verb_counts[k] for k in wave_counts}
+    require_launches(wave_counts, "serve_manager_rmat_18 levels_batch",
+                     ("bvss_spmm",))
+    require_launches(verb_counts, "serve_manager_rmat_18 verbs",
+                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))
+    p = sess.prepared
+    cost = session_cost_bytes(sess)
+    emit({"phase": "serve_manager_rmat_18", "n": g.n, "m": g.m,
+          "ordering": p.ordering, "engine": p.engine_name,
+          "num_vss": p.bvss.num_vss, "slots": SLOTS,
+          "open_session_s": open_s, "queries": SERVE_QUERIES,
+          "levels_batch_verified_ms": verified_s * 1e3,
+          "bare_ms": bare_s * 1e3, "hardened_ms": hard_s * 1e3,
+          "bare_vs_hardened": bare_s / hard_s,
+          "verify_cost_ms": (verified_s - hard_s) * 1e3,
+          "smoke_oracle_s": oracle_s,
+          "bare_samples_ms": [t * 1e3 for t in samples["bare"]],
+          "hardened_samples_ms": [t * 1e3 for t in samples["hardened"]],
+          "betweenness_ms": bc_s * 1e3,
+          "betweenness_max_abs_err": float(bc_err.max()),
+          "closeness_ms": cc_s * 1e3, "closeness_max_rel_err": cc_err,
+          "tolerance": "levels exact; betweenness rtol 1e-4, atol 1e-4; "
+                       "closeness rtol 1e-12",
+          "session_cost_bytes": cost,
+          "max_memory_allocated_open": peak_open,
+          "max_memory_allocated_wave": peak_wave,
+          "memory_allocated_before_wave": before_wave,
+          "memory_allocated": resident,
+          "stats": mgr.stats(), "launches": counts, "card": card})
+    return mgr, g, oracle, queries, counts
+
+
+def serve_queue_phase(torch, rt, mgr, g, oracle, queries, card: str):
+    """A ``RequestQueue`` over the manager of the serving phase: 24
+    requests from two tenants, four slots each (``max_inflight``), arriving
+    with staggered ``not_before`` (exponential gaps, mean a quarter of the
+    measured single-query time, as in ``bench_queue``); once through
+    ``drain(wait=True)`` and once through the ``start()`` pump with the two
+    tenants submitting from two threads.  A session belongs to one tenant,
+    so the second tenant gets its own session over the same graph, without
+    the ordering pass (its preparation is the BVSS build).  Every future
+    equals the oracle, and requests coalesce into waves in flight.
+
+    First, ``bench_queue``'s comparison at this width: the 24 requests of
+    one tenant answered call at a time (``bench_queue``'s server loop)
+    against one queue's ``drain(wait=True)``, under the same arrivals
+    (``poisson``) and all at t = 0 (``backlog``), with verification off so
+    the makespans time the card and not the host oracle; every answer is
+    still held to the oracle here."""
+    import threading
+    from repro_torch.bench.bench_queue import serve_call_at_a_time
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import RequestQueue, TenantQuota
+    sess = mgr._sessions["serve"].session
+    t0 = time.perf_counter()
+    for s in queries[:3]:
+        sess.levels(s)
+    t1 = (time.perf_counter() - t0) / 3
+    rng = np.random.default_rng(SEED + 10)
+    arrivals = np.cumsum(np.r_[0.0, rng.exponential(t1 / 4,
+                                                    len(queries) - 1)])
+    reset_launch_counts()
+    mgr.verify_fraction = 0.0
+    ratios = {}
+    for section, arr in (("poisson", arrivals),
+                         ("backlog", np.zeros(len(queries)))):
+        t_call, seq = serve_call_at_a_time(sess, queries, arr)
+        check_levels(f"serve_queue_rmat_18 {section} call_at_a_time", g,
+                     queries, seq, oracle)
+        q = RequestQueue(mgr)
+        t0 = time.monotonic()
+        futs = [q.submit("serve", s, tenant="acme", not_before=t0 + a)
+                for s, a in zip(queries, arr)]
+        q.drain(wait=True)
+        t_queued = time.monotonic() - t0
+        check_levels(f"serve_queue_rmat_18 {section} queued", g, queries,
+                     [f.result(0) for f in futs], oracle)
+        ratios[section] = {"call_at_a_time_ms": t_call * 1e3,
+                           "queued_ms": t_queued * 1e3,
+                           "queued_vs_call_at_a_time": t_call / t_queued,
+                           "waves": q.stats()["waves"],
+                           "coalesced": q.stats()["coalesced"]}
+    mgr.verify_fraction = 1.0
+    ratio_counts = launch_counts()
+    require_launches(ratio_counts, "serve_queue_rmat_18 ratio",
+                     ("finalize_pack_sweep", "bvss_spmm"))
+
+    t0 = time.perf_counter()
+    mgr.open_session("serve_beta", g, tenant="beta", max_batch=SLOTS,
+                     order=False)
+    beta_open_s = time.perf_counter() - t0
+    for tenant in ("acme", "beta"):
+        mgr.set_quota(tenant, TenantQuota(max_inflight=SLOTS // 2))
+    owner = [("serve", "acme") if i % 2 == 0 else ("serve_beta", "beta")
+             for i in range(len(queries))]
+    runs = {}
+    reset_launch_counts()
+    for mode in ("drain", "pump"):
+        q = RequestQueue(mgr)
+        t0 = time.monotonic()
+        futs = [None] * len(queries)
+        if mode == "drain":
+            for i, (s, a) in enumerate(zip(queries, arrivals)):
+                name, tenant = owner[i]
+                futs[i] = q.submit(name, s, tenant=tenant,
+                                   not_before=t0 + a)
+            q.drain(wait=True)
+        else:
+            q.start(poll_s=0.001)
+
+            def client(parity, q=q, t0=t0, futs=futs):
+                for i in range(parity, len(queries), 2):
+                    name, tenant = owner[i]
+                    futs[i] = q.submit(name, queries[i], tenant=tenant,
+                                       not_before=t0 + arrivals[i])
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in (0, 1)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(60.0)
+            if any(th.is_alive() for th in threads):
+                q.stop(drain=False)
+                fail("serve_queue_rmat_18: a submitting thread hung")
+            try:
+                for f in futs:
+                    f.result(120.0)
+            finally:
+                q.stop()
+        makespan = time.monotonic() - t0
+        got = [f.result(0) for f in futs]
+        check_levels(f"serve_queue_rmat_18 {mode}", g, queries, got, oracle)
+        runs[mode] = {"makespan_ms": makespan * 1e3, **q.stats()}
+    counts = launch_counts()
+    require_launches(counts, "serve_queue_rmat_18", ("bvss_spmm",))
+    counts = {k: c + ratio_counts[k] for k, c in counts.items()}
+    coalesced = sum(r["coalesced"] for r in runs.values())
+    if coalesced == 0 or any(r["completed"] != len(queries)
+                             for r in runs.values()):
+        fail(f"serve_queue_rmat_18: no coalescing or lost requests: {runs}")
+    if mgr.stats()["quarantines"]:
+        fail(f"serve_queue_rmat_18: an unfaulted session quarantined: "
+             f"{mgr.stats()}")
+    emit({"phase": "serve_queue_rmat_18", "requests": len(queries),
+          "tenants": 2, "max_inflight": SLOTS // 2,
+          "beta_open_session_s": beta_open_s,
+          "single_query_ms": t1 * 1e3, "mean_gap_ms": t1 / 4 * 1e3,
+          "unverified": ratios, "runs": runs,
+          "verified": mgr.stats()["verified"],
+          "launches": counts, "card": card})
+    return counts
+
+
+def launch_counter_phase(torch, sess, g, oracle, queries, card: str) -> None:
+    """The cost of the launch counter's lock, the one change this tier
+    makes on the paths of the older phases.  Host nanoseconds a call of
+    ``_build.count`` (the lock), of the same function without the lock,
+    and of the bare ``+=`` the wrappers did before; then the serving
+    session's wave of 24 in six turns, the lock on and off in alternating
+    order, every wave's answers those of the first, which equal the
+    oracle's."""
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+
+    class Entry:
+        launches = 0
+
+    def unlocked(entry):
+        entry.launches += 1
+
+    def inline(n):
+        for _ in range(n):
+            Entry.launches += 1
+
+    def called(fn, n):
+        for _ in range(n):
+            fn(Entry)
+
+    n = 200_000
+    per_call = {"locked": [], "unlocked": [], "inline": []}
+    for _ in range(5):
+        for key, run in (("locked", lambda: called(_build.count, n)),
+                         ("unlocked", lambda: called(unlocked, n)),
+                         ("inline", lambda: inline(n))):
+            t0 = time.perf_counter()
+            run()
+            per_call[key].append((time.perf_counter() - t0) / n * 1e9)
+    locked = _build.count
+    waves = {"locked": [], "unlocked": []}
+    reset_launch_counts()
+    first = sess.levels_batch(queries)
+    per_wave = sum(launch_counts().values())
+    check_levels("launch_counter", g, queries, first, oracle)
+    try:
+        for turn in range(6):
+            for key in (("locked", "unlocked") if turn % 2 == 0
+                        else ("unlocked", "locked")):
+                _build.count = locked if key == "locked" else unlocked
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = sess.levels_batch(queries)
+                waves[key].append((time.perf_counter() - t0) * 1e3)
+                if any(not np.array_equal(a, b) for a, b in zip(out, first)):
+                    fail("launch_counter: a wave's answer changed")
+    finally:
+        _build.count = locked
+    ns = {k: statistics.median(v) for k, v in per_call.items()}
+    emit({"phase": "launch_counter", "calls": n, "ns_per_call": ns,
+          "ns_per_call_samples": per_call, "launches_per_wave": per_wave,
+          "lock_us_per_wave": (ns["locked"] - ns["unlocked"]) * per_wave
+          / 1e3,
+          "wave_ms": waves, "wave_median_ms": {
+              k: statistics.median(v) for k, v in waves.items()},
+          "card": card})
+
+
+def serve_deadline_phase(torch, rt, card: str):
+    """Deadlines on ``grid2d(512, 512)`` (1,023 levels from a corner): a
+    whole ``levels_batch`` call with a 0.2 s deadline comes back as
+    TimeoutResults, each the oracle's levels up to its depth; then a queue
+    where one request has that deadline and seven do not, the seven equal
+    to the oracle in full."""
+    import warnings
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import RequestQueue
+    side = DEADLINE_SIDE
+    g = rt.generators.grid2d(side, side)
+    oracle = memo_oracle(rt)
+    depth_max = 2 * side - 1
+    mgr = rt.GraphSessionManager()
+    sess = mgr.open_session("grid", g, max_batch=SLOTS)
+    # corners and edge midpoints: every BFS runs 767 to 1,022 levels
+    sources = [0, side - 1, g.n - side, g.n - 1, side // 2,
+               g.n - side // 2 - 1, (side // 2) * side,
+               (side // 2) * side + side - 1]
+    sess.levels_batch(sources[:2])                     # warm: allocator
+    reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")              # the harvest warns
+        t0 = time.perf_counter()
+        out = mgr.levels_batch("grid", sources, deadline_s=DEADLINE_S)
+        call_s = time.perf_counter() - t0
+        depths = [check_partial("serve_deadline_grid_512", g, r, oracle,
+                                depth_max) for r in out]
+        q = RequestQueue(mgr)
+        futs = [q.submit("grid", s, deadline_s=DEADLINE_S if i == 0
+                         else None) for i, s in enumerate(sources)]
+        t0 = time.perf_counter()
+        q.drain()
+        queue_s = time.perf_counter() - t0
+    got = [f.result(0) for f in futs]
+    queue_depth = check_partial("serve_deadline_grid_512 queue", g, got[0],
+                                oracle, depth_max)
+    check_levels("serve_deadline_grid_512 queue", g, sources[1:], got[1:],
+                 oracle)
+    counts = launch_counts()
+    require_launches(counts, "serve_deadline_grid_512", ("bvss_spmm",))
+    emit({"phase": "serve_deadline_grid_512", "n": g.n, "m": g.m,
+          "deadline_s": DEADLINE_S, "call_ms": call_s * 1e3,
+          "harvest_depths": depths, "queue_ms": queue_s * 1e3,
+          "queue_harvest_depth": queue_depth,
+          "full_levels": [int(oracle(g, s)[oracle(g, s) != INF].max())
+                          for s in sources],
+          "queue_stats": q.stats(), "stats": mgr.stats(),
+          "launches": counts, "card": card})
+    return counts
+
+
+def serve_faults_phase(torch, rt, card: str):
+    """The fault gauntlet on the hand kernels, ``rmat(16)``: for each of
+    ``corrupt_spmm_tile``, ``corrupt_push_tile`` (forced push) and
+    ``nan_sigma``, a session of its own through a manager; unverified, the
+    faulted answer differs from the oracle (the seam reaches the kernel
+    on the card); under ``verify_fraction=1.0`` the session quarantines,
+    every answer equals the oracle and a DegradedServiceWarning is
+    raised.  A clean ``FaultPlan()`` session must not quarantine.  The
+    sessions skip the ordering pass (PERF.md section 4)."""
+    import warnings
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import betweenness_ref
+    from repro_torch.serve import DegradedServiceWarning, FaultPlan
+    g = rt.generators.rmat(FAULT_SCALE)
+    oracle = memo_oracle(rt)
+    rng = np.random.default_rng(SEED + 16)
+    srcs = [int(s) for s in rng.choice(np.flatnonzero(g.out_degree > 0),
+                                       FAULT_QUERIES, replace=False)]
+    plans = {
+        "corrupt_spmm_tile": (FaultPlan(corrupt_spmm_tile=True), {},
+                              ("bvss_spmm",)),
+        "corrupt_push_tile": (FaultPlan(corrupt_push_tile=True),
+                              {"direction": "push"}, ("bvss_push",)),
+        "nan_sigma": (FaultPlan(nan_sigma=True), {}, ("bvss_spmm_w",)),
+        "clean": (FaultPlan(), {}, ("bvss_spmm",)),
+    }
+    rows, total = {}, {}
+    for name, (plan, opts, kernels) in plans.items():
+        mgr = rt.GraphSessionManager(verify_fraction=0.0)
+        sess = mgr.open_session(name, g, max_batch=SLOTS, fault_plan=plan,
+                                order=False, **opts)
+        reset_launch_counts()
+        # unverified: the fault reaches the answer (levels that differ
+        # from the oracle; non-finite betweenness scores)
+        if name == "nan_sigma":
+            diverged = int(np.sum(~np.isfinite(sess.betweenness_batch(srcs))))
+        else:
+            bad = [sess.levels(s) for s in srcs] \
+                if name == "corrupt_push_tile" else sess.levels_batch(srcs)
+            diverged = sum(not np.array_equal(lv, oracle(g, s))
+                           for s, lv in zip(srcs, bad))
+        unverified = launch_counts()
+        # verified: quarantined, correct, announced
+        mgr.verify_fraction = 1.0
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            if name == "nan_sigma":
+                bc = mgr.betweenness(name, srcs)
+                want = betweenness_ref(g, srcs)
+                err = np.abs(bc - want)
+                if not np.all(np.isfinite(bc)) or \
+                        bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
+                    fail(f"serve_faults nan_sigma: the degraded betweenness "
+                         f"differs from betweenness_ref")
+            if name == "corrupt_push_tile":
+                out = [mgr.levels(name, s) for s in srcs]
+            else:
+                out = mgr.levels_batch(name, srcs)
+        verified = launch_counts()
+        check_levels(f"serve_faults_rmat_{FAULT_SCALE} {name}", g, srcs,
+                     out, oracle)
+        warned = sum(issubclass(x.category, DegradedServiceWarning)
+                     for x in w)
+        st = mgr.stats()
+        if name == "clean":
+            if diverged or st["quarantines"] or warned:
+                fail(f"serve_faults: the clean session diverged or "
+                     f"quarantined: {diverged} {st}")
+        elif not diverged:
+            fail(f"serve_faults {name}: the unverified fault did not change "
+                 f"the answer: the seam missed the kernel")
+        elif st["quarantines"] != 1 or not warned:
+            fail(f"serve_faults {name}: not quarantined ({st}, {warned} "
+                 f"warnings)")
+        require_launches(unverified, f"serve_faults {name}", kernels)
+        if name == "corrupt_push_tile" and (
+                unverified["bvss_push_level"] or unverified["bvss_pull"]):
+            fail(f"serve_faults corrupt_push_tile: a forced push level went "
+                 f"around the seam: {unverified}")
+        counts = {k: unverified[k] + verified[k] for k in unverified}
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+        rows[name] = {"diverged": diverged, "stats": st,
+                      "degraded_warnings": warned,
+                      "quarantine_reason": mgr._sessions[name]
+                      .quarantine_reason,
+                      "unverified_launches": unverified,
+                      "verified_launches": verified}
+        del sess, mgr
+    emit({"phase": f"serve_faults_rmat_{FAULT_SCALE}", "n": g.n, "m": g.m,
+          "sources": srcs, "plans": rows, "launches": total, "card": card})
+    return total
+
+
+def launch_service_phase(torch, card: str) -> dict:
+    """``python -m repro_torch.launch.bfs --service --queue
+    --verify-fraction 1.0`` in process, on the card: it must end
+    ``VERIFIED vs oracle``."""
+    import contextlib
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import bfs as launcher
+    reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_call(launcher.main, SERVICE_ARGS)
+    counts = launch_counts()
+    lines = buf.getvalue().strip().splitlines()
+    if not lines[-1].endswith("VERIFIED vs oracle") or \
+            not lines[-2].startswith("[bfs] queue: "):
+        fail(f"launch_service: {lines}")
+    require_launches(counts, "launch_service", ("bvss_spmm",))
+    emit({"phase": "launch_service", "args": SERVICE_ARGS, "lines": lines,
+          "launches": counts, "card": card})
+    return counts
+
+
+def serve_bench_phase(torch, name: str, module, kernels: tuple,
+                      card: str) -> dict:
+    """A serving bench at its default size; its summary on one line, every
+    answer verified."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = bench_call(module.run, scale=SERVE_BENCH_SCALE, verbose=False)
+    counts = launch_counts()
+    if out["summary"]["all_verified"] is not True:
+        fail(f"{name}: not all verified: {out['summary']}")
+    require_launches(counts, name, kernels)
+    emit({"phase": name, "scale": SERVE_BENCH_SCALE,
+          "summary": out["summary"], "graphs": out["graphs"],
+          "launches": counts, "card": card})
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2004,6 +2572,28 @@ def main() -> None:
     by_phase["fig3_clustered_16"] = fig3_phase(torch, card)
     by_phase["bench_scale_rmat"] = scale_phase(torch, card)
     by_phase["bench_analytics"] = analytics_bench_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # phase 9: the hardened serving tier
+    from repro_torch.bench import bench_queue, bench_service
+    mgr, g, oracle, queries, by_phase["serve_manager_rmat_18"] = \
+        serve_manager_phase(torch, rt, rng, card)
+    by_phase["serve_queue_rmat_18"] = serve_queue_phase(
+        torch, rt, mgr, g, oracle, queries, card)
+    launch_counter_phase(torch, mgr._sessions["serve"].session, g, oracle,
+                         queries, card)
+    del mgr
+    torch.cuda.empty_cache()
+    by_phase["serve_deadline_grid_512"] = serve_deadline_phase(torch, rt,
+                                                               card)
+    by_phase[f"serve_faults_rmat_{FAULT_SCALE}"] = serve_faults_phase(
+        torch, rt, card)
+    by_phase["launch_service"] = launch_service_phase(torch, card)
+    by_phase["bench_service_serve"] = serve_bench_phase(
+        torch, "bench_service_serve", bench_service,
+        ("bvss_spmm", "bit_spmm"), card)
+    by_phase["bench_queue"] = serve_bench_phase(
+        torch, "bench_queue", bench_queue, ("bvss_spmm",), card)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",

@@ -18,6 +18,12 @@ Entry points run on the card unless the caller asks for the CPU::
     bc = sess.betweenness_batch([0, 5])            # float64 (n,)
     pr = sess.pagerank()                           # float64 (n,), sums to 1
 
+    mgr = repro_torch.GraphSessionManager(verify_fraction=1.0)
+    mgr.open_session("g", g, tenant="acme", max_batch=8)
+    mgr.levels_batch("g", [0, 5], tenant="acme", deadline_s=0.5)
+    q = repro_torch.RequestQueue(mgr)              # async, coalescing
+    fut = q.submit("g", 9, tenant="acme"); q.drain(); fut.result()
+
 Ported so far: single-source BLEST (``prepare(g).levels(src)``) with
 hand-written CUDA kernels for ``bvss_pull``, ``bvss_push`` and
 ``finalize_pack_sweep``, and wave serving (``GraphSession.levels_batch``,
@@ -31,7 +37,9 @@ comparison (the BRS, dense-pull and CSR push/pull/dirop baselines,
 multi-source baseline) and ``finalize_sweep`` (the kernel bench), and
 the analytics launcher (``python -m repro_torch.launch.analytics``) with
 the paper's Tables 1a, 1b and 4, Figure 3, the RMAT scale sweep and the
-analytics bench in ``repro_torch.bench``.
+analytics bench in ``repro_torch.bench``, and the hardened serving tier
+(``GraphSessionManager``, ``RequestQueue``, the ``FaultPlan`` seams on
+the hand-written kernels, the launcher's ``--service`` and ``--queue``).
 """
 from repro_torch.core.bfs import reference_bfs
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
@@ -41,10 +49,15 @@ from repro_torch.errors import (AdmissionError, BlestError, ConfigError,
                                 KernelBuildError, KernelFaultError,
                                 QueueFullError, StaleEpochError)
 from repro_torch.graphs import Graph, from_edges, generators
-from repro_torch.serve import GraphSession
+from repro_torch.serve import (NO_FAULTS, DegradedServiceWarning, FaultPlan,
+                               GraphSession, GraphSessionManager,
+                               RequestQueue, TenantQuota, TimeoutResult,
+                               WaveFuture, WaveScheduler, session_cost_bytes)
 
 __all__ = [
-    "GraphSession", "prepare", "PrepareOptions", "PreparedBFS",
+    "GraphSession", "GraphSessionManager", "TenantQuota", "TimeoutResult",
+    "DegradedServiceWarning", "session_cost_bytes", "RequestQueue",
+    "WaveFuture", "WaveScheduler", "FaultPlan", "NO_FAULTS", "prepare", "PrepareOptions", "PreparedBFS",
     "parents_from_levels", "reference_bfs", "Graph", "from_edges",
     "generators",
     "BlestError", "GraphValidationError", "ConfigError", "AdmissionError",

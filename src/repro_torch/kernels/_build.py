@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
@@ -134,3 +135,11 @@ def check(stem: str, err: int, what: str) -> None:
         raise KernelBuildError(
             f"{what} launch failed: CUDA error {err} "
             f"({msg_fn(err).decode()})")
+
+
+def count(entry) -> None:
+    """Add one launch to ``entry.launches``.  Under a lock: the request
+    queue's pump thread launches kernels beside the caller's thread, and
+    ``+=`` on an attribute is not atomic."""
+    with _count_lock:
+        entry.launches += 1

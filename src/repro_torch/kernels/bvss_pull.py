@@ -40,7 +40,7 @@ def bvss_pull(masks: torch.Tensor, fbytes: torch.Tensor, *, sigma: int = 8
         err = fn(masks.data_ptr(), fbytes.data_ptr(), hits.data_ptr(), B,
                  sigma, stream)
         _build.check("bvss_pull", err, "bvss_pull")
-        bvss_pull.launches += 1
+        _build.count(bvss_pull)
     return hits
 
 

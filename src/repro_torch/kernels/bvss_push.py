@@ -49,7 +49,7 @@ def bvss_push(masks: torch.Tensor, bits: torch.Tensor, *, sigma: int = 8
         err = fn(masks.data_ptr(), bits.data_ptr(), hits.data_ptr(), B,
                  sigma, stream)
         _build.check("bvss_push", err, "bvss_push")
-        bvss_push.launches += 1
+        _build.count(bvss_push)
     return hits
 
 
@@ -109,7 +109,7 @@ def bvss_push_level(F: torch.Tensor, vss_start: torch.Tensor,
                  lvl, sigma, None if levels is None else levels.data_ptr(),
                  None if marks is None else marks.data_ptr(), stream)
         _build.check("bvss_push", err, "bvss_push_level")
-        bvss_push_level.launches += 1
+        _build.count(bvss_push_level)
     return out
 
 

@@ -68,7 +68,7 @@ def finalize_pack_sweep(levels: torch.Tensor, lvl: int, *, sigma: int,
         err = fn(levels.data_ptr(), marks_ptr, out_ptr, fwords.data_ptr(),
                  act.data_ptr(), N, n_fwords, n_sets, sigma, int(lvl), stream)
         _build.check("frontier_finalize", err, "finalize_pack_sweep")
-        finalize_pack_sweep.launches += 1
+        _build.count(finalize_pack_sweep)
     return lv_out, fwords, act
 
 
@@ -99,7 +99,7 @@ def finalize_sweep(marks: torch.Tensor, levels: torch.Tensor, lvl: int
         err = fn(marks.data_ptr(), levels.data_ptr(), lv_out.data_ptr(),
                  new.data_ptr(), N, int(lvl), vec, stream)
         _build.check("frontier_finalize", err, "finalize_sweep")
-        finalize_sweep.launches += 1
+        _build.count(finalize_sweep)
     return lv_out, new
 
 

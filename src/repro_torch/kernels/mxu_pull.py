@@ -81,7 +81,7 @@ def bit_spmm(a_packed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         err = fn(a_packed.data_ptr(), x.data_ptr(), y.data_ptr(), R, W, C, S,
                  vec, stream)
         _build.check("bit_spmm", err, "bit_spmm")
-        bit_spmm.launches += 1
+        _build.count(bit_spmm)
     return y
 
 
@@ -116,7 +116,7 @@ def bvss_spmm(masks: torch.Tensor, fbytes: torch.Tensor, *, sigma: int = 8
         err = fn(masks.data_ptr(), fbytes.data_ptr(), out.data_ptr(), B, S,
                  sigma, stream)
         _build.check("bvss_spmm", err, "bvss_spmm")
-        bvss_spmm.launches += 1
+        _build.count(bvss_spmm)
     return out
 
 
@@ -162,7 +162,7 @@ def bvss_spmm_w(masks: torch.Tensor, xvals: torch.Tensor, *,
         err = fn(masks.data_ptr(), xvals.data_ptr(), out.data_ptr(), B, S,
                  sigma, stream)
         _build.check("bvss_spmm_w", err, "bvss_spmm_w")
-        bvss_spmm_w.launches += 1
+        _build.count(bvss_spmm_w)
     return out
 
 
@@ -196,7 +196,7 @@ def bvss_spmm_t(masks: torch.Tensor, hvals: torch.Tensor, *,
         err = fn(masks.data_ptr(), hvals.data_ptr(), out.data_ptr(), B, S,
                  sigma, stream)
         _build.check("bvss_spmm_t", err, "bvss_spmm_t")
-        bvss_spmm_t.launches += 1
+        _build.count(bvss_spmm_t)
     return out
 
 
@@ -234,7 +234,7 @@ def bvss_spmm_minplus(masks: torch.Tensor, wvals: torch.Tensor,
         err = fn(masks.data_ptr(), wvals.data_ptr(), xvals.data_ptr(),
                  out.data_ptr(), B, S, sigma, int(S % 4 == 0), stream)
         _build.check("bvss_spmm_minplus", err, "bvss_spmm_minplus")
-        bvss_spmm_minplus.launches += 1
+        _build.count(bvss_spmm_minplus)
     return out
 
 

@@ -11,10 +11,19 @@ ordering (JaccardWithWindows+shingle vs RCM), build the BVSS, run the BFS
 engine of the chosen Table-2 variant, verify against the host oracle.  All
 preparation goes through :func:`repro_torch.core.policy.prepare`.
 
+``--service`` instead serves the queries through the hardened
+:class:`~repro_torch.serve.GraphSessionManager` (batched multi-source
+waves over the slot pool of ``--max-batch`` columns, ``--deadline-s``,
+``--verify-fraction``), or with ``--queue`` through the async
+:class:`~repro_torch.serve.RequestQueue`, and reports wave against
+sequential timing::
+
+    PYTHONPATH=src python -m repro_torch.launch.bfs --graph road --scale 10 \
+        --engine blest_full --sources 8 --service --queue \
+        --verify-fraction 1.0 --device cpu
+
 The engines run on the CUDA card unless ``--device cpu`` asks for the CPU
-(the kernels' PyTorch twins).  The reference's ``--service`` mode and its
-``--max-batch``, ``--queue``, ``--deadline-s`` and ``--verify-fraction``
-knobs need the robust serving tier, and ``--devices N > 1`` the mesh: each
+(the kernels' PyTorch twins).  ``--devices N > 1`` needs the mesh and
 raises :class:`~repro_torch.errors.ConfigError` naming its slice.
 """
 from __future__ import annotations
@@ -24,7 +33,8 @@ import time
 
 import numpy as np
 
-from repro_torch import PrepareOptions, prepare
+from repro_torch import (GraphSessionManager, PrepareOptions, RequestQueue,
+                         TimeoutResult, prepare)
 from repro_torch.core import reference_bfs
 from repro_torch.core.ordering import social_like_report
 from repro_torch.errors import ConfigError, KernelFaultError
@@ -58,20 +68,65 @@ ENGINE_VARIANTS = {
     "dirop": dict(engine="dirop", order=False),
 }
 
-#: the reference's flags that wait for a later slice: flag -> (default,
-#: the slice that brings it)
-_UNPORTED = {
-    "service": (False, "the robust serving tier (GraphSessionManager, "
-                       "ROADMAP.md queue 1 item 7)"),
-    "max_batch": (4, "--service, with the robust serving tier (ROADMAP.md "
-                     "queue 1 item 7)"),
-    "queue": (False, "the async RequestQueue (ROADMAP.md queue 1 item 7)"),
-    "deadline_s": (None, "the robust serving tier's deadlines (ROADMAP.md "
-                         "queue 1 item 7)"),
-    "verify_fraction": (0.0, "the robust serving tier's verify mode "
-                             "(ROADMAP.md queue 1 item 7)"),
-    "devices": (1, "the mesh slice (ROADMAP.md queue 1 item 11)"),
-}
+def run_service(g, args) -> None:
+    """--service: hardened wave-batched serving through the multi-tenant
+    GraphSessionManager (admission, deadlines, verify-mode sampling)."""
+    variant = ENGINE_VARIANTS[args.engine]
+    mgr = GraphSessionManager(verify_fraction=args.verify_fraction)
+    sess = mgr.open_session(
+        "cli", g, max_batch=args.max_batch,
+        options=PrepareOptions(w=512, seed=args.seed,
+                               order=variant["order"],
+                               engine=variant["engine"], device=args.device))
+    print(f"[bfs] session up: ordering={sess.ordering} "
+          f"engine={sess.engine_name} "
+          f"compression={sess.bvss.compression_ratio():.3f} "
+          f"preprocess={sess.preprocess_s:.2f}s "
+          f"cost={mgr.bytes_used() / 1e6:.1f}MB "
+          f"verify_fraction={args.verify_fraction}")
+    rng = np.random.default_rng(args.seed)
+    queries = [int(q) for q in rng.integers(0, g.n, args.sources)]
+    sess.levels(queries[0])                      # warm both paths
+    sess.levels_batch(queries[: min(2, len(queries))])
+    if args.queue:
+        # async path (DESIGN §2.10): non-blocking submits coalesce into
+        # shared waves; futures resolve as each column converges
+        q = RequestQueue(mgr)
+        t0 = time.time()
+        futs = [q.submit("cli", s, deadline_s=args.deadline_s)
+                for s in queries]
+        q.drain()
+        lvs = [f.result(0) for f in futs]
+        t_wave = time.time() - t0
+        qs = q.stats()
+        print(f"[bfs] queue: {qs['completed']} completed over "
+              f"{qs['waves']} waves, {qs['coalesced']} coalesced "
+              f"mid-flight, {qs['timeouts']} deadline harvests")
+    else:
+        t0 = time.time()
+        lvs = mgr.levels_batch("cli", queries, deadline_s=args.deadline_s)
+        t_wave = time.time() - t0
+    t0 = time.time()
+    seq = [sess.levels(q) for q in queries]
+    t_seq = time.time() - t0
+    n_partial = sum(isinstance(lv, TimeoutResult) for lv in lvs)
+    if args.verify:
+        for q, lv, lv_seq in zip(queries, lvs, seq):
+            ref = reference_bfs(g, q)
+            if isinstance(lv, TimeoutResult):
+                continue             # partial by deadline, not comparable
+            if not (lv == ref).all():
+                raise KernelFaultError(f"wave mismatch from source {q}")
+            if not (lv_seq == ref).all():
+                raise KernelFaultError(f"seq mismatch from source {q}")
+    st = mgr.stats()
+    print(f"[bfs] service: {len(queries)} queries, "
+          f"wave={t_wave * 1e3:.1f}ms "
+          f"sequential={t_seq * 1e3:.1f}ms "
+          f"speedup={t_seq / max(t_wave, 1e-9):.2f}x "
+          f"(max_batch={args.max_batch}, partial={n_partial}, "
+          f"verified={st['verified']}, quarantines={st['quarantines']})"
+          + ("; VERIFIED vs oracle" if args.verify else ""))
 
 
 def main(argv=None):
@@ -91,30 +146,42 @@ def main(argv=None):
                     help="run the engines on the card (default) or on the "
                          "CPU through the kernels' PyTorch twins")
     ap.add_argument("--service", action="store_true",
-                    help="not ported yet: raises ConfigError")
+                    help="serve the sources as one batched wave through "
+                         "GraphSessionManager instead of sequential BFS "
+                         "runs")
     ap.add_argument("--max-batch", type=int, default=4,
-                    help="not ported yet (--service): raises ConfigError")
+                    help="wave slot-pool width for --service")
     ap.add_argument("--queue", action="store_true",
-                    help="not ported yet: raises ConfigError")
+                    help="--service via the async RequestQueue: "
+                         "non-blocking submits, futures, mid-flight "
+                         "wave coalescing (DESIGN §2.10)")
     ap.add_argument("--deadline-s", type=float, default=None,
-                    help="not ported yet: raises ConfigError")
+                    help="--service per-call deadline: queries exceeding "
+                         "it return partial TimeoutResults instead of "
+                         "blocking the wave")
     ap.add_argument("--verify-fraction", type=float, default=0.0,
-                    help="not ported yet: raises ConfigError")
+                    help="--service verify-mode: fraction of wave results "
+                         "cross-checked against the host oracle (failing "
+                         "sessions are quarantined and re-served on the "
+                         "reference path)")
     ap.add_argument("--devices", type=int, default=1,
                     help="more than 1 is not ported yet: raises "
                          "ConfigError")
     args = ap.parse_args(argv)
-    for flag, (default, slice_) in _UNPORTED.items():
-        if getattr(args, flag) != default:
-            raise ConfigError(
-                f"--{flag.replace('_', '-')} is not ported to PyTorch yet: "
-                f"it comes with {slice_}")
+    if args.devices != 1:
+        raise ConfigError(
+            "--devices is not ported to PyTorch yet: it comes with the mesh "
+            "slice (ROADMAP.md queue 1 item 11)")
 
     g = build_graph(args.graph, args.scale, args.seed)
     rep = social_like_report(g)
     print(f"[bfs] graph={args.graph} n={g.n} m={g.m} "
           f"social_like={rep.is_social} (top1={rep.top1_share:.2f} "
           f"slope={rep.ll_slope:.2f}) device={args.device}")
+
+    if args.service:
+        run_service(g, args)
+        return
 
     variant = ENGINE_VARIANTS[args.engine]
     t0 = time.time()

@@ -30,10 +30,14 @@ against the edge-weight plane) and ``pagerank()`` (``bvss_spmm_w``).
 unweighted session lazily defaults to unit weights, so ``sssp`` gives hop
 counts.
 
+``fault_plan=`` (a :class:`~repro_torch.serve.faults.FaultPlan`) bakes
+fault wrappers into the session's engines at the documented seams (DESIGN
+§2.7): the single-source push seam, the wave pools' bit-SpMM and the
+Brandes σ channel.
+
 Not ported yet, each raising :class:`~repro_torch.errors.ConfigError`
 that names its ROADMAP.md slice: ``update_edges`` (queue 1 item 9), and
-the ``mesh`` (item 11), ``fault_plan`` (item 7) and ``autotune`` (item 9)
-constructor options.
+the ``mesh`` (item 11) and ``autotune`` (item 9) constructor options.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
 from repro_torch.errors import ConfigError, check_source, check_sources
 from repro_torch.graphs import Graph
 from repro_torch.kernels.ref import normalize_labels
+from repro_torch.serve.faults import NO_FAULTS, FaultPlan
 
 
 def _alias_warning(old: str, new: str) -> None:
@@ -98,15 +103,11 @@ class GraphSession:
                  direction: str = "auto", autotune: bool = False,
                  max_steps: int | None = None, mesh=None,
                  mesh_axis: str = "data", weights=None,
-                 fault_plan=None):
+                 fault_plan: FaultPlan | None = None):
         t0 = time.time()
         if mesh is not None:
             raise _not_ported("a mesh-sharded session",
                               "the mesh slice (ROADMAP.md queue 1 item 11)")
-        if fault_plan is not None:
-            raise _not_ported("fault injection (fault_plan)",
-                              "the robust serving slice (ROADMAP.md queue 1 "
-                              "item 7)")
         if autotune:
             raise _not_ported("autotune", "the autotuning slice (ROADMAP.md "
                               "queue 1 item 9)")
@@ -122,6 +123,15 @@ class GraphSession:
             raise ConfigError(
                 "GraphSession takes EITHER options=PrepareOptions(...) or "
                 "the per-knob keywords, not both")
+        # fault seams (DESIGN §2.7): a FaultPlan's wrappers go into every
+        # engine this session builds, the single-source engine's push seam
+        # included, so they must exist BEFORE prepare(); the default plan
+        # injects nothing
+        self.fault_plan = fault_plan if fault_plan is not None else NO_FAULTS
+        self._seams = self.fault_plan.engine_overrides(
+            use_kernel=options.use_kernels)
+        if self._seams.get("push_impl") is not None:
+            options = options.replace(push_impl=self._seams["push_impl"])
         self.options = options
         self.prepared: PreparedBFS = prepare(g, options=options)
         self.max_batch = int(max_batch)
@@ -135,7 +145,7 @@ class GraphSession:
             BlestProblem.build(self.prepared.bvss, self.prepared.device)
         self._ms = make_ms_engine(self._problem, self.max_batch,
                                   use_kernel=self._use_kernel,
-                                  direction=self._direction)
+                                  direction=self._direction, **self._seams)
         # analytics problems/engines, built on first use and cached
         self._analytics_cache: dict = {}
         self.preprocess_s = time.time() - t0
@@ -298,7 +308,7 @@ class GraphSession:
         """Wave slot pool over the symmetrised problem (flood-fill)."""
         return self._cached("sym_ms", lambda: make_ms_engine(
             self._sym_problem(), self.max_batch,
-            use_kernel=self._use_kernel))
+            use_kernel=self._use_kernel, **self._seams))
 
     def _sym_sss(self):
         """Single-source engine on the symmetrised problem (the
@@ -377,7 +387,8 @@ class GraphSession:
         """Cached Brandes forward + backward fn on the session's own
         problem (one per distinct width)."""
         return self._cached(("bc_fn", width), lambda: make_betweenness(
-            self._problem, width, use_kernel=self._use_kernel))
+            self._problem, width, use_kernel=self._use_kernel,
+            spmm_w_impl=self._seams.get("spmm_w_impl")))
 
     def betweenness_batch(self, sources: Sequence[int]) -> np.ndarray:
         """Partial Brandes betweenness Σ_{s∈sources} δ_s(v) on the

@@ -19,6 +19,7 @@ from repro.graphs import from_edges as j_from_edges
 from repro.graphs import generators as jgen
 from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def small_suite(gen, from_edges):

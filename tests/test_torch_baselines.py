@@ -36,10 +36,12 @@ from repro_torch.graphs import generators as tgen
 from repro_torch.graphs import to_dense_bits
 from repro_torch.kernels import ref as tref
 
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from benchmarks.bench_service import (  # noqa: E402
     make_dense_multi_source_bfs as j_make_dense_multi_source_bfs)
+from torch_one_thread import one_torch_thread  # noqa: E402, F401
 
 INF = np.iinfo(np.int32).max
 

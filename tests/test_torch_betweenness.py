@@ -35,6 +35,7 @@ from repro_torch.errors import ConfigError
 from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
 from repro_torch.kernels.ref import betweenness_ref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 INF = np.iinfo(np.int32).max
 

@@ -15,6 +15,7 @@ from repro_torch.core.bfs import make_engine
 from repro_torch.errors import ConfigError, GraphValidationError
 from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 INF = np.iinfo(np.int32).max
 

@@ -19,6 +19,7 @@ import torch
 import repro_torch
 import repro_torch.kernels as tk
 from repro_torch.kernels import ref as tref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGMAS = (1, 2, 4, 8, 16, 32)
 INF = np.int32(np.iinfo(np.int32).max)
@@ -535,3 +536,91 @@ def test_cuda_scale_sweep_and_fig3(cuda_device):
         [f"fig3/w={1 << k}" for k in range(3, 10)]
     counts = tk.launch_counts()
     assert counts["bvss_pull"] > 0 and counts["finalize_pack_sweep"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan,opts,kernel", [
+    ("corrupt_spmm_tile", {}, "bvss_spmm"),
+    ("corrupt_push_tile", {"direction": "push"}, "bvss_push"),
+    ("nan_sigma", {}, "bvss_spmm_w"),
+], ids=["corrupt-tile", "corrupt-push", "nan-sigma"])
+def test_cuda_fault_gauntlet(cuda_device, plan, opts, kernel):
+    """Each fault plan on the card: unverified, the seam around the hand
+    kernel changes the answer; under full verification the session
+    quarantines and every answer equals the oracle."""
+    import warnings
+    from repro_torch.kernels.ref import betweenness_ref
+    from repro_torch.serve import (DegradedServiceWarning, FaultPlan,
+                                   GraphSessionManager)
+    g = repro_torch.generators.rmat(10, 8, seed=2)
+    srcs = [0, 5, 19, 64]
+    mgr = GraphSessionManager(verify_fraction=0.0)
+    sess = mgr.open_session("s", g, max_batch=4,
+                            fault_plan=FaultPlan(**{plan: True}), **opts)
+    tk.reset_launch_counts()
+    if plan == "nan_sigma":
+        assert not np.isfinite(sess.betweenness_batch(srcs)).all()
+    else:
+        bad = [sess.levels(s) for s in srcs] if plan == "corrupt_push_tile" \
+            else sess.levels_batch(srcs)
+        assert any(not np.array_equal(lv, repro_torch.reference_bfs(g, s))
+                   for s, lv in zip(srcs, bad))
+    counts = tk.launch_counts()
+    assert counts[kernel] > 0, counts
+    if plan == "corrupt_push_tile":
+        assert counts["bvss_push_level"] == 0, counts
+    mgr.verify_fraction = 1.0
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        if plan == "nan_sigma":
+            np.testing.assert_allclose(mgr.betweenness("s", srcs),
+                                       betweenness_ref(g, srcs),
+                                       rtol=1e-4, atol=1e-4)
+        # singletons take the single-source engine (the push seam); the
+        # wave pool carries the bit-SpMM seam
+        out = [mgr.levels("s", s) for s in srcs] \
+            if plan == "corrupt_push_tile" else mgr.levels_batch("s", srcs)
+    for s, lv in zip(srcs, out):
+        np.testing.assert_array_equal(lv, repro_torch.reference_bfs(g, s))
+    assert mgr.stats()["quarantines"] == 1
+    assert any(issubclass(x.category, DegradedServiceWarning) for x in w)
+
+
+@pytest.mark.cuda
+def test_cuda_queue_pump_equals_oracle(cuda_device):
+    """The ``start()`` pump launches the kernels from its own thread while
+    two threads submit: every future equals the oracle, and the launch
+    count is the engine's level count (no update lost)."""
+    import threading
+    from repro_torch.serve import GraphSessionManager, RequestQueue
+    g = repro_torch.generators.rmat(11, 8, seed=3)
+    mgr = GraphSessionManager(verify_fraction=1.0)
+    sess = mgr.open_session("g", g, max_batch=8)
+    q = RequestQueue(mgr)
+    futs = {}
+
+    def client(lo):
+        for s in range(lo, lo + 12):
+            futs[s] = q.submit("g", s)
+
+    before = dict(sess._ms.stats)
+    tk.reset_launch_counts()
+    q.start(poll_s=0.001)
+    try:
+        threads = [threading.Thread(target=client, args=(lo,))
+                   for lo in (0, 100)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60.0)
+            assert not th.is_alive()
+        for s, f in futs.items():
+            np.testing.assert_array_equal(f.result(60.0),
+                                          repro_torch.reference_bfs(g, s))
+    finally:
+        q.stop()
+    levels = sum(sess._ms.stats[k] - before[k]
+                 for k in ("pull_levels", "push_levels"))
+    assert tk.launch_counts()["bvss_spmm"] == levels > 0
+    assert mgr.stats()["quarantines"] == 0
+    assert mgr.stats()["verified"] == 24

@@ -32,6 +32,7 @@ from repro_torch.kernels import (bvss_spmm_minplus, bvss_spmm_minplus_local,
                                  bvss_spmm_w_local)
 from repro_torch.kernels.ref import (bvss_spmm_minplus_ref, bvss_spmm_t_ref,
                                      bvss_spmm_w_ref)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SHAPES = [(1, 1), (5, 3), (37, 9), (130, 8)]
 

@@ -17,6 +17,7 @@ from repro.graphs import generators as jgen
 from repro_torch.errors import ConfigError, GraphValidationError
 from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 INF = np.iinfo(np.int32).max
 
@@ -216,7 +217,6 @@ def test_unported_verbs_raise(social_pair, call, slice_name):
 
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(mesh=object()), "mesh slice"),
-    (dict(fault_plan=object()), "robust serving slice"),
     (dict(autotune=True), "autotuning slice"),
 ])
 def test_unported_options_raise(kw, slice_name):
@@ -224,6 +224,29 @@ def test_unported_options_raise(kw, slice_name):
     with pytest.raises(ConfigError, match=slice_name):
         repro_torch.GraphSession(
             g, options=repro_torch.PrepareOptions(device="cpu"), **kw)
+
+
+@pytest.mark.parametrize("plan", [None, "no_faults", "empty"])
+def test_fault_plan_session_equals_plain_session(social_pair, plan):
+    """A plan that injects nothing (``FaultPlan()``, ``NO_FAULTS``) adds no
+    seam: the session serves what a session with no plan serves, on every
+    path a plan could touch."""
+    from repro_torch.serve import NO_FAULTS, FaultPlan
+    fault_plan = {None: None, "no_faults": NO_FAULTS,
+                  "empty": FaultPlan()}[plan]
+    _, plain = social_pair
+    ts = repro_torch.GraphSession(
+        T_FAM["rmat"], max_batch=3, fault_plan=fault_plan,
+        options=repro_torch.PrepareOptions(device="cpu", w=256))
+    assert ts._seams == {} and not ts.fault_plan.injects
+    assert ts.options.push_impl is None
+    queries = [0, 7, 100, 3, 55]
+    assert_same(ts.levels_batch(queries), plain.levels_batch(queries))
+    for q in queries[:2]:
+        np.testing.assert_array_equal(ts.levels(q), plain.levels(q))
+    np.testing.assert_array_equal(ts.betweenness_batch(queries[:3]),
+                                  plain.betweenness_batch(queries[:3]))
+    np.testing.assert_array_equal(ts.components(), plain.components())
 
 
 def test_build_problem_is_single_device():

@@ -10,6 +10,7 @@ from repro.graphs import generators as jgen
 from repro_torch.core import bvss as tbvss
 from repro_torch.core import ordering as tord
 from repro_torch.graphs import generators as tgen
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGMAS = (1, 2, 4, 8, 16, 32)
 

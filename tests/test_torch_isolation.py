@@ -22,6 +22,7 @@ import torch
 import repro_torch
 from repro_torch.errors import ConfigError, KernelBuildError
 from repro_torch.kernels import _build, ops
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro|benchmarks)\b(?!_)|"

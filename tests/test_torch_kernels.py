@@ -17,6 +17,7 @@ import repro_torch.core.bfs as tbfs
 import repro_torch.kernels as tk
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import ref as tref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIGMAS = (1, 2, 4, 8, 16, 32)
 INF = np.int32(np.iinfo(np.int32).max)

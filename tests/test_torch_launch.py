@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from repro.launch import bfs as jlaunch
-from repro_torch.bench import bench_service, kernel_bench, table2_bfs
+from repro_torch.bench import (bench_queue, bench_service, kernel_bench,
+                               table2_bfs)
 from repro_torch.errors import ConfigError
 from repro_torch.launch import bfs as tlaunch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_engine_variants_match_reference():
@@ -43,14 +45,36 @@ def test_cli_verifies_every_variant_on_cpu(variant, capsys):
     assert "device=cpu" in out[0]
 
 
-@pytest.mark.parametrize("flag", [["--service"], ["--max-batch", "8"],
-                                  ["--queue"], ["--deadline-s", "1.5"],
-                                  ["--verify-fraction", "0.5"],
-                                  ["--devices", "2"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(ConfigError, match="not ported"):
         tlaunch.main(["--graph", "road", "--scale", "6", "--device", "cpu",
                       *flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--service"], ["--service", "--max-batch", "8"],
+    ["--service", "--queue"], ["--service", "--deadline-s", "3600"],
+    ["--service", "--verify-fraction", "1.0"],
+    ["--service", "--max-batch", "8", "--queue", "--verify-fraction",
+     "1.0"]], ids=["service", "max-batch", "queue", "deadline-s",
+                   "verify-fraction", "all"])
+def test_service_flags_verify_on_cpu(flags, capsys):
+    """The serving tier's five flags run to ``VERIFIED vs oracle``; the
+    books they print equal the reference launcher's."""
+    argv = ["--graph", "road", "--scale", "8", "--engine", "blest_full",
+            "--sources", "6", *flags]
+    tlaunch.main([*argv, "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith("[bfs] service: 6 queries, ")
+    assert out[-1].endswith("VERIFIED vs oracle"), out[-1]
+    jlaunch.main(argv)
+    ref = capsys.readouterr().out.strip().splitlines()
+    # the same books: partial, verified and quarantine counts (and the
+    # queue's waves and coalescing), not the times
+    assert out[-1].split("(")[-1] == ref[-1].split("(")[-1]
+    if "--queue" in flags:
+        assert out[-2] == ref[-2] and out[-2].startswith("[bfs] queue: ")
 
 
 def test_cli_runs_on_the_card_by_default(monkeypatch):
@@ -88,6 +112,52 @@ def test_service_bench_multi_source_section():
         assert ms["n_sources"] == 4
         assert ms["dense_adjacency_bytes"] == go["n"] * (
             (go["n"] + 31) // 32) * 4
+
+
+def _reference_suite(name):
+    """The reference bench's JSON section ``name`` (``BENCH_pr10.json``)."""
+    import json
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    return json.loads((root / "BENCH_pr10.json").read_text())[name]
+
+
+def _same_keys(out, ref):
+    assert set(out["summary"]) == set(ref["summary"])
+    assert set(out["graphs"]) == set(ref["graphs"])
+    for gname, go in out["graphs"].items():
+        rg = ref["graphs"][gname]
+        assert set(go) == set(rg), gname
+        for sec, val in go.items():
+            if isinstance(val, dict):
+                assert set(val) == set(rg[sec]), (gname, sec)
+
+
+def test_service_bench_serve_and_hardened_sections(tmp_path):
+    """All three sections, verified, with the reference bench's keys, and
+    its JSON written."""
+    path = tmp_path / "service.json"
+    out = bench_service.run(scale=6, n_queries=4, device="cpu",
+                            json_path=str(path), verbose=False)
+    _same_keys(out, _reference_suite("service"))
+    assert out["summary"]["all_verified"] is True
+    for go in out["graphs"].values():
+        assert go["serve"]["verified"] and go["hardened"]["verified"]
+        assert go["serve"]["max_batch"] == 4
+    import json
+    assert json.loads(path.read_text())["summary"] == out["summary"]
+
+
+def test_queue_bench_runs_verified(tmp_path):
+    path = tmp_path / "queue.json"
+    out = bench_queue.run(scale=6, n_requests=6, max_batch=4, device="cpu",
+                          json_path=str(path), verbose=False)
+    _same_keys(out, _reference_suite("queue"))
+    assert out["device"] == "cpu"
+    assert out["summary"]["all_verified"] is True
+    assert out["summary"]["total_coalesced"] > 0
+    import json
+    assert json.loads(path.read_text())["summary"] == out["summary"]
 
 
 def test_kernel_bench_rows():

@@ -18,18 +18,7 @@ from repro.launch import analytics as janalytics
 from repro.launch import bfs as jlaunch
 from repro_torch.errors import ConfigError
 from repro_torch.launch import analytics as tanalytics
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these cases: their many small torch ops
-    slow down by two orders of magnitude when the thread pools of parallel
-    test workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SUFFIX = {"components": "; VERIFIED vs scipy",
           "eccentricity": "; VERIFIED vs scipy",

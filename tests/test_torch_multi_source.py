@@ -28,6 +28,7 @@ from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
 from repro_torch.kernels import bvss_spmm
 from repro_torch.kernels.ref import bvss_pull_ref, bvss_spmm_ref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 INF = np.iinfo(np.int32).max
 

@@ -35,6 +35,7 @@ from repro_torch.bench import (bench_analytics, bench_scale, common,
 from repro_torch.core import build_bvss, make_engine
 from repro_torch.core.ordering import jaccard_windows, shingle_order
 from repro_torch.graphs import generators as gen
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # the smoke script, for the rows it holds the card machine's host to
@@ -42,17 +43,6 @@ _spec = importlib.util.spec_from_file_location("chip_smoke",
                                                ROOT / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these cases: their many small torch ops
-    slow down by two orders of magnitude when the thread pools of parallel
-    test workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 TABLES = {"table1a": (j1a, table1a_compression, "n"),

@@ -27,6 +27,7 @@ from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
 from repro_torch.graphs import src_of_edges
 from repro_torch.kernels import ref as tref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 INF = np.int32(np.iinfo(np.int32).max)
 ISOLATED = 40                    # vertices with no edge, appended to a grid

@@ -9,6 +9,7 @@ The port's PageRank power iteration is held against the reference's
 NetworkX oracle."""
 import numpy as np
 import pytest
+import torch
 
 import repro
 from repro.analytics import make_pagerank as j_make_pagerank
@@ -30,6 +31,7 @@ from repro_torch.errors import ConfigError
 from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
 from repro_torch.kernels.ref import pagerank_ref, sssp_ref
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 INF = np.iinfo(np.int32).max
 
