@@ -89,7 +89,7 @@ Phases (any failure exits non-zero before the result line):
    ``python -m repro_torch.launch.bfs`` in process for every variant on a
    small road graph, each ending ``VERIFIED vs oracle``;
 8. the analytics launcher ``python -m repro_torch.launch.analytics`` in
-   process on rmat(16), every verb of its ``WHAT`` (all but ``extremes``
+   process on rmat(14), every verb of its ``WHAT`` (all but ``extremes``
    ending ``VERIFIED``; ``launch_analytics``); the paper's host Tables
    1a, 1b and 4 at the reference's sizes, their derived columns equal to
    the JAX package's (``PAPER_TABLE_DERIVED``; ``paper_tables_host``);
@@ -125,7 +125,27 @@ Phases (any failure exits non-zero before the result line):
    the launcher's ``--service --queue --verify-fraction 1.0`` on ``road``
    scale 16 (``launch_service``); and ``bench_service`` and
    ``bench_queue`` at their default size (``bench_service_serve``,
-   ``bench_queue``).
+   ``bench_queue``);
+10. autotuning and streaming edge updates, each part right after the
+   phase whose graph it reuses: ``prepare(p.graph, order=False,
+   engine=p.engine_name, autotune=True)`` on phase 3's ordered grid and
+   phase 4's ``rmat(18)`` (``autotune_grid``, ``autotune_rmat_18``: the
+   TileConfig, ``tune``'s seconds and ``bvss_pull``/``bvss_push``
+   launches, the 4 sources' levels equal to the oracle, ms per BFS and push
+   levels against the defaults', and a second prepare of the class with no
+   tuning run, one cache hit and no launch); ``update_edges`` on phase 4's
+   weighted session (``update_edges_rmat_18``: 256 inserts with dyadic
+   weights and 256 deletes on the patched path, 64 reweights, one insert
+   that grows a slice set's VSS count on the rebuilt path; after each swap
+   ``levels`` of 4 sources, a wave of 24 through 8 slots, a betweenness
+   cohort of 8 and ``sssp`` against the oracles of the mutated graph; the
+   epoch-0 ``PreparedBFS``'s masks and answers unchanged, and a wave whose
+   hook updates the session mid-flight answering on its own epoch); phase
+   5's ``rmat(16)`` with ``staleness_budget=1`` (``update_reprepare_
+   rmat_16``, the reprepared path); phase 9's manager, verified, an update
+   then a queued drain (``update_serving_rmat_18``); and ``bench_hybrid``
+   at scale 18, the tuned hybrid against the pull-only engine, every graph
+   verified in all three directions (``bench_hybrid``).
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -1673,7 +1693,9 @@ def cli_phase(torch, card: str) -> dict:
 # phase 8: the analytics launcher, the paper's other tables, Figure 3, the
 # RMAT scale sweep and the analytics bench
 # ---------------------------------------------------------------------------
-ANALYTICS_ARGS = ["--graph", "rmat", "--scale", "16", "--sources", "8",
+# cut from rmat(16), where extremes() alone took 74.6 s (PERF.md), to make
+# room for phase 10 within the script's time limit
+ANALYTICS_ARGS = ["--graph", "rmat", "--scale", "14", "--sources", "8",
                   "--max-batch", "8", "--verify"]
 FIG3_SCALE = 14                  # clustered(256, 64); cut from 16 (PERF.md)
 SCALE_SWEEP = (14, 16, 18)       # the RMAT scale sweep's scales
@@ -1691,7 +1713,7 @@ def bench_call(fn, *args, **kwargs):
 
 def analytics_cli_phase(torch, card: str) -> dict:
     """``python -m repro_torch.launch.analytics`` in process, on the card
-    (its default device), every verb of ``WHAT`` on rmat(16): each checked
+    (its default device), every verb of ``WHAT`` on rmat(14): each checked
     verb must end in its ``VERIFIED`` suffix, through the four tiles."""
     import contextlib
     import io
@@ -2375,6 +2397,440 @@ def serve_bench_phase(torch, name: str, module, kernels: tuple,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: autotuning and streaming edge updates
+# ---------------------------------------------------------------------------
+HYBRID_SCALE = 18                # bench_hybrid's suite: n = 262,144
+HYBRID_REPS = 2                  # timed sweeps an engine and graph
+PATCH_EDGES = 256                # inserts, and deletes, of the patched update
+REWEIGHTS = 64                   # existing edges of the reweight
+
+
+def ms_per_bfs(rows: list) -> float:
+    return statistics.mean(r["bfs_ms"] for r in rows)
+
+
+def autotune_phase(torch, rt, name: str, p, g, sources, oracle, card: str
+                   ) -> tuple[dict, dict]:
+    """``prepare(p.graph, order=False, engine=p.engine_name,
+    autotune=True)`` on an ordered preparation of an earlier phase: the
+    TileConfig, the seconds ``tune`` took and its ``bvss_pull`` and
+    ``bvss_push`` launches; the levels of the same sources (internal ids
+    of the same ordering) equal to the oracle, ms per BFS and push levels
+    beside the default knobs' (``p``'s engine, run again on the same
+    sources right before the tuned one); then a second prepare of the class,
+    which must time nothing: no tuning run, one cache hit, no launch.
+    Returns the launches of the tuned BFSs and of ``tune``."""
+    from repro_torch.core import autotune, policy
+    from repro_torch.core.bfs import queue_widths
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    autotune.clear_cache()          # this phase times its own tuning
+    real_tune, spent = policy.tune, []
+
+    def timed_tune(*args, **kwargs):
+        t0 = time.perf_counter()
+        cfg = real_tune(*args, **kwargs)
+        spent.append(time.perf_counter() - t0)
+        return cfg
+
+    before = dict(autotune.stats)
+    reset_launch_counts()
+    policy.tune = timed_tune        # prepare's tune, timed alone
+    try:
+        t0 = time.perf_counter()
+        pt = rt.prepare(p.graph, order=False, engine=p.engine_name,
+                        autotune=True)
+        prepare_s = time.perf_counter() - t0
+    finally:
+        policy.tune = real_tune
+    tune_counts = launch_counts()
+    cfg = pt.tile_config
+    if cfg is None or cfg.source != "tuned" or len(spent) != 1 or \
+            autotune.stats["tune_runs"] != before["tune_runs"] + 1:
+        fail(f"{name}: prepare(autotune=True) did not tune once: {cfg}, "
+             f"{autotune.stats}")
+    require_launches(tune_counts, f"{name}: tune", ("bvss_pull",
+                                                    "bvss_push"))
+
+    def caller_levels(s):
+        return pt.levels(int(p.perm[s]))[p.perm]
+
+    reset_launch_counts()
+    default_rows = run_sources(torch, g, p.levels, sources, oracle)
+    default_counts = launch_counts()
+    reset_launch_counts()
+    rows = run_sources(torch, g, caller_levels, sources, oracle)
+    counts = launch_counts()
+    require_launches(counts, name, ("bvss_pull", "finalize_pack_sweep"))
+    require_push_levels(counts, name)
+
+    # the same class again: no tuning run, one cache hit, no launch
+    before = dict(autotune.stats)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    again = rt.prepare(p.graph, order=False, engine=p.engine_name,
+                       autotune=True)
+    again_s = time.perf_counter() - t0
+    again_counts = launch_counts()
+    if again.tile_config.source != "cached" or \
+            autotune.stats["tune_runs"] != before["tune_runs"] or \
+            autotune.stats["cache_hits"] != before["cache_hits"] + 1 or \
+            again_counts["bvss_pull"] or again_counts["bvss_push"]:
+        fail(f"{name}: the second prepare of the class re-tuned: "
+             f"{again.tile_config}, {autotune.stats}, {again_counts}")
+    emit({"phase": name, "n": g.n, "num_vss": p.bvss.num_vss,
+          "max_vss_per_set": p.bvss.max_vss_per_set,
+          "tile_config": {"pull_widths": list(cfg.pull_widths),
+                          "push_cap": cfg.push_cap, "alpha": cfg.alpha,
+                          "source": cfg.source},
+          "default_widths": list(queue_widths(
+              p.bvss.num_vss, 2)),
+          "tune_s": spent[0], "prepare_s": prepare_s,
+          "tune_launches": {k: tune_counts[k]
+                            for k in ("bvss_pull", "bvss_push")},
+          "tuned_ms_per_bfs": ms_per_bfs(rows),
+          "default_ms_per_bfs": ms_per_bfs(default_rows),
+          "tuned_push_levels": counts["bvss_push_level"],
+          "default_push_levels": default_counts["bvss_push_level"],
+          "tuned_pull_levels": counts["bvss_pull"],
+          "default_pull_levels": default_counts["bvss_pull"],
+          "sources": rows, "second_prepare_s": again_s,
+          "second_prepare_launches": {k: again_counts[k]
+                                      for k in ("bvss_pull", "bvss_push")},
+          "autotune_stats": dict(autotune.stats), "launches": counts,
+          "card": card})
+    return counts, tune_counts
+
+
+def patch_safe_batch(p, rng, n_ins: int, n_del: int):
+    """Caller-id edges the patched path takes: inserts of absent edges
+    beside an existing edge, in its slice (a new bit of an existing slice,
+    so no slice set gains a row), and deletes of present edges whose slice
+    keeps another bit (at most one a slice, so no set loses a row)."""
+    from repro_torch.graphs import src_of_edges
+    g, sigma = p.graph, p.bvss.sigma
+    n = g.n
+    src = src_of_edges(g).astype(np.int64)
+    dst = g.indices.astype(np.int64)
+    keys = src * n + dst                                  # ascending
+
+    def present(k):
+        pos = np.minimum(np.searchsorted(keys, k), len(keys) - 1)
+        return keys[pos] == k
+
+    order = rng.permutation(len(keys))
+    cand = order[:8 * n_ins]
+    a2 = (src[cand] // sigma) * sigma + rng.integers(0, sigma, len(cand))
+    b2 = dst[cand]
+    ok = (a2 < n) & (a2 != b2) & ~present(a2 * n + b2)
+    k_ins = a2[ok] * n + b2[ok]
+    _, first = np.unique(k_ins, return_index=True)
+    k_ins = k_ins[np.sort(first)][:n_ins]
+    cand = order[8 * n_ins:8 * n_ins + 64 * n_del]
+    base = (src[cand] // sigma) * sigma
+    other = np.zeros(len(cand), dtype=bool)
+    for bit in range(sigma):
+        a3 = base + bit
+        other |= (a3 != src[cand]) & (a3 < n) & present(a3 * n + dst[cand])
+    slice_key = (src[cand] // sigma) * n + dst[cand]
+    _, first = np.unique(slice_key, return_index=True)
+    keep = np.zeros(len(cand), dtype=bool)
+    keep[first] = True
+    k_del = keys[cand[keep & other]][:n_del]
+    if len(k_ins) < n_ins or len(k_del) < n_del:
+        fail(f"found {len(k_ins)} inserts and {len(k_del)} deletes for a "
+             f"patch, wanted {n_ins} and {n_del}")
+    inv = p.inv
+
+    def caller(k):
+        return [(int(inv[a]), int(inv[b])) for a, b in zip(k // n, k % n)]
+
+    return caller(k_ins), caller(k_del)
+
+
+def caller_view(p):
+    """The prepared graph in caller ids and its weights in the caller
+    CSR's edge order (ascending caller keys; one sort for both)."""
+    from repro_torch.graphs import Graph, src_of_edges
+    g, n = p.graph, p.graph.n
+    keys = p.inv[src_of_edges(g)] * n + p.inv[g.indices.astype(np.int64)]
+    order = np.argsort(keys, kind="stable")
+    keys = keys[order]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(keys // n, minlength=n), out=indptr[1:])
+    gc = Graph(n, indptr, (keys % n).astype(np.int32))
+    return gc, None if p.weights is None else p.weights[order]
+
+
+def check_epoch(torch, rt, name: str, sess, sources, queries, fsrcs,
+                card: str) -> dict:
+    """After an epoch swap: ``levels`` of ``sources``, a wave of
+    ``queries`` through the slots, a betweenness cohort of ``fsrcs`` and
+    ``sssp`` from ``fsrcs[0]``, each against the host oracles of the
+    mutated caller graph at PERF.md §2's tolerances."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import betweenness_ref, sssp_ref
+    t0 = time.perf_counter()
+    gc, wc = caller_view(sess.prepared)
+    oracle = memo_oracle(rt)
+    view_s = time.perf_counter() - t0
+    reset_launch_counts()
+    rows = run_sources(torch, gc, sess.levels, sources, oracle)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lvs = sess.levels_batch(queries)
+    wave_s = time.perf_counter() - t0
+    check_levels(name, gc, queries, lvs, oracle)
+    t0 = time.perf_counter()
+    bc = sess.betweenness_batch(fsrcs)
+    bc_s = time.perf_counter() - t0
+    want = betweenness_ref(gc, fsrcs)
+    err = np.abs(bc - want)
+    if not np.all(np.isfinite(bc)) or \
+            bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
+        fail(f"{name}: betweenness differs from betweenness_ref (max abs "
+             f"err {float(err.max())})")
+    t0 = time.perf_counter()
+    dist = sess.sssp(fsrcs[0])
+    sssp_s = time.perf_counter() - t0
+    if not np.array_equal(dist, sssp_ref(gc, [fsrcs[0]], wc)[0]):
+        fail(f"{name}: sssp differs from Dijkstra on the mutated graph")
+    counts = launch_counts()
+    require_launches(counts, name, ("bvss_pull", "finalize_pack_sweep",
+                                    "bvss_spmm", "bvss_spmm_w",
+                                    "bvss_spmm_t", "bvss_spmm_minplus"))
+    return {"levels_ms_per_bfs": ms_per_bfs(rows),
+            "wave_ms": wave_s * 1e3, "betweenness_ms": bc_s * 1e3,
+            "betweenness_max_abs_err": float(err.max()),
+            "sssp_ms": sssp_s * 1e3, "caller_view_s": view_s,
+            "m": int(gc.m), "launches": counts}
+
+
+def update_edges_phase(torch, rt, sess, g, sources, queries, fsrcs,
+                       oracle, card: str) -> dict:
+    """Streaming edge updates on the weighted ``rmat(18)`` session, in
+    caller ids, each swap held to the oracles of the mutated graph
+    (:func:`check_epoch`): (a) ``PATCH_EDGES`` inserts of absent edges
+    with dyadic weights and as many deletes (the patched path; wall
+    seconds against the session's ``preprocess_s``, and the memory peak
+    over the update); (b) ``REWEIGHTS`` reweights of existing edges; (c)
+    one insert from a slice set with no slices, whose VSS count grows (the
+    rebuilt path).  Epoch isolation: the epoch-0 ``PreparedBFS`` keeps its
+    device masks and its answers, and a wave whose hook updates the
+    session after its first harvest gives every other request the old
+    graph's answer."""
+    rng = np.random.default_rng(SEED + 10)
+    p0 = sess.prepared
+    masks0 = p0.problem.dev.masks.clone()
+    checksum0 = int(p0.problem.dev.masks.to(torch.int64).sum())
+    total: dict = {}
+    steps = []
+
+    def swap(tag, path, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = sess.update_edges(**kw)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        if rep is None or rep.path != path or rep.epoch != sess.epoch:
+            fail(f"update_edges_rmat_18 ({tag}): expected the {path} path, "
+                 f"got {rep}")
+        check = check_epoch(torch, rt, f"update_edges_rmat_18 ({tag})",
+                            sess, sources, queries, fsrcs, card)
+        for k, v in check.pop("launches").items():
+            total[k] = total.get(k, 0) + v
+        steps.append({"update": tag, "path": rep.path, "epoch": rep.epoch,
+                      "sets_touched": rep.sets_touched,
+                      "vss_rows_rewritten": rep.vss_rows_rewritten,
+                      "n_inserted": rep.n_inserted,
+                      "n_deleted": rep.n_deleted,
+                      "n_reweighted": rep.n_reweighted,
+                      "stale_edges": rep.stale_edges, "reason": rep.reason,
+                      "update_s": update_s,
+                      "update_over_preprocess": update_s / sess.preprocess_s,
+                      "max_memory_allocated_update": peak, **check})
+
+    def dyadic(k):
+        return (rng.integers(1, 128, k) / 32.0).astype(np.float32).tolist()
+
+    ins, dels = patch_safe_batch(sess.prepared, rng, PATCH_EDGES,
+                                 PATCH_EDGES)
+    swap("patch", "patched", inserts=ins, deletes=dels,
+         insert_weights=dyadic(len(ins)))
+    gc, _ = caller_view(sess.prepared)
+    pick = rng.choice(gc.m, REWEIGHTS, replace=False)
+    from repro_torch.graphs import src_of_edges
+    rew = [(int(a), int(b)) for a, b in zip(src_of_edges(gc)[pick],
+                                            gc.indices[pick])]
+    swap("reweight", "patched", inserts=rew, insert_weights=dyadic(len(rew)))
+    b = sess.prepared.bvss
+    empty = np.flatnonzero(np.diff(b.real_ptrs) == 0)
+    empty = empty[empty * b.sigma < b.n]
+    if not len(empty):
+        fail("update_edges_rmat_18: no slice set without slices to grow")
+    s_int = int(empty[0]) * b.sigma
+    grow = (int(sess.inv[s_int]), int(sess.inv[(s_int + b.sigma) % b.n]))
+    swap("grow", "rebuilt", inserts=[grow], insert_weights=dyadic(1))
+
+    # epoch isolation: the epoch-0 state is untouched and answers as before
+    if not torch.equal(p0.problem.dev.masks, masks0) or \
+            int(p0.problem.dev.masks.to(torch.int64).sum()) != checksum0:
+        fail("update_edges_rmat_18: the epoch-0 device masks changed")
+    check_levels("update_edges_rmat_18 (epoch 0)", g, sources[:2],
+                 [p0.levels(s) for s in sources[:2]], oracle)
+    # a wave that updates the session from its hook keeps its own epoch:
+    # the first query with an out-edge runs a level, then is harvested
+    g_before, _ = caller_view(sess.prepared)
+    before = memo_oracle(rt)
+    target = next(i for i, q in enumerate(queries)
+                  if g_before.out_degree[q] > 0)
+    mid_ins, _ = patch_safe_batch(sess.prepared, rng, 8, 0)
+    hooked = []
+
+    def on_harvested(i, lv):
+        hooked.append(sess.update_edges(inserts=mid_ins,
+                                        insert_weights=dyadic(8)))
+
+    t0 = time.perf_counter()
+    got = sess.levels_batch(
+        queries, should_harvest=lambda i: i == target and not hooked,
+        on_harvested=on_harvested)
+    mid_s = time.perf_counter() - t0
+    if len(hooked) != 1 or hooked[0].path != "patched" or \
+            got[target] is not None:
+        fail(f"update_edges_rmat_18: the mid-wave update did not run once "
+             f"on the patched path: {hooked}")
+    rest = [i for i in range(len(queries)) if i != target]
+    check_levels("update_edges_rmat_18 (mid-wave)", g_before,
+                 [queries[i] for i in rest], [got[i] for i in rest], before)
+    g_after, _ = caller_view(sess.prepared)
+    check_levels("update_edges_rmat_18 (after the mid-wave update)",
+                 g_after, sources[:1], [sess.levels(sources[0])],
+                 memo_oracle(rt))
+    emit({"phase": "update_edges_rmat_18", "n": g.n, "m0": g.m,
+          "preprocess_s": sess.preprocess_s, "steps": steps,
+          "epoch0_mask_checksum": checksum0, "epoch0_unchanged": True,
+          "mid_wave": {"epoch": sess.epoch, "wave_ms": mid_s * 1e3,
+                       "old_epoch_answers": len(queries) - 1},
+          "sources": len(sources), "wave_queries": len(queries),
+          "cohort": len(fsrcs),
+          "tolerance": "levels and SSSP (dyadic weights) exact; "
+                       "betweenness rtol 1e-4, atol 1e-4",
+          "launches": total, "card": card})
+    return total
+
+
+def update_reprepare_phase(torch, rt, sess, g, card: str) -> dict:
+    """``staleness_budget=1`` on the ``rmat(16)`` session: two inserts
+    spend it, so the update re-runs the whole pipeline (Jaccard ordering
+    included) on the mutated graph; levels equal to the oracle."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(SEED + 16)
+    ins, _ = patch_safe_batch(sess.prepared, rng, 2, 0)
+    t0 = time.perf_counter()
+    rep = sess.update_edges(inserts=ins, staleness_budget=1)
+    update_s = time.perf_counter() - t0
+    if rep is None or rep.path != "reprepared" or sess.epoch != 1:
+        fail(f"update_reprepare_rmat_16: expected the reprepared path, got "
+             f"{rep}")
+    gc, _ = caller_view(sess.prepared)
+    sources = [int(ins[0][0])] + [int(s) for s in rng.choice(g.n, 3,
+                                                            replace=False)]
+    reset_launch_counts()
+    rows = run_sources(torch, gc, sess.levels, sources, memo_oracle(rt))
+    counts = launch_counts()
+    require_launches(counts, "update_reprepare_rmat_16",
+                     ("bvss_pull", "finalize_pack_sweep"))
+    emit({"phase": "update_reprepare_rmat_16", "n": g.n, "m": int(gc.m),
+          "path": rep.path, "reason": rep.reason,
+          "stale_edges": rep.stale_edges, "update_s": update_s,
+          "ordering": sess.ordering, "sources": rows, "launches": counts,
+          "card": card})
+    return counts
+
+
+def update_serving_phase(torch, rt, mgr, card: str) -> dict:
+    """Phase 9's manager, verification on: ``mgr.update_edges`` on the
+    ``rmat(18)`` session (16 inserts, 16 deletes), then a queued drain of
+    SLOTS requests: no quarantine, every future the oracle's on the new
+    graph, the event book's ``update-edges`` entry."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import RequestQueue
+    rng = np.random.default_rng(SEED + 9)
+    rec = mgr._sessions["serve"]
+    sess = rec.session
+    mgr.verify_fraction = 1.0
+    before = mgr.stats()
+    ins, dels = patch_safe_batch(sess.prepared, rng, 16, 16)
+    t0 = time.perf_counter()
+    rep = mgr.update_edges("serve", inserts=ins, deletes=dels,
+                           tenant="acme")
+    update_s = time.perf_counter() - t0
+    event = mgr.events[-1]
+    want_event = {"kind": "update-edges", "name": "serve",
+                  "tenant": "acme", "path": rep.path, "epoch": rep.epoch,
+                  "n_inserted": len(ins), "n_deleted": len(dels)}
+    if rep.path != "patched" or event != want_event:
+        fail(f"update_serving_rmat_18: {rep}, event {event}")
+    gc, _ = caller_view(sess.prepared)
+    queries = [int(ins[0][0])] + [int(s) for s in rng.choice(
+        gc.n, SLOTS - 1, replace=False)]
+    q = RequestQueue(mgr)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [q.submit("serve", s, tenant="acme") for s in queries]
+    q.drain()
+    drain_s = time.perf_counter() - t0
+    counts = launch_counts()
+    require_launches(counts, "update_serving_rmat_18", ("bvss_spmm",))
+    check_levels("update_serving_rmat_18", gc, queries,
+                 [f.result(0) for f in futs], memo_oracle(rt))
+    st = mgr.stats()
+    if st["quarantines"] != before["quarantines"] or \
+            st["verified"] - before["verified"] != len(queries):
+        fail(f"update_serving_rmat_18: {st} after {before}")
+    emit({"phase": "update_serving_rmat_18", "path": rep.path,
+          "epoch": rep.epoch, "update_s": update_s,
+          "queries": len(queries), "drain_ms": drain_s * 1e3,
+          "queue": q.stats(), "event": event,
+          "verified": st["verified"] - before["verified"],
+          "quarantines": st["quarantines"], "launches": counts,
+          "card": card})
+    return counts
+
+
+def bench_hybrid_phase(torch, card: str) -> dict:
+    """``repro_torch.bench.bench_hybrid`` at scale HYBRID_SCALE on the
+    card: per graph the pull and tuned hybrid ms per BFS, the geomean and
+    ``all_verified`` (every graph oracle-exact in all three directions)."""
+    from repro_torch.bench import bench_hybrid
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = bench_hybrid.run(scale=HYBRID_SCALE, reps=HYBRID_REPS,
+                           verbose=False)
+    counts = launch_counts()
+    require_launches(counts, "bench_hybrid",
+                     ("bvss_pull", "bvss_push_level",
+                      "finalize_pack_sweep"))
+    if not out["summary"]["all_verified"]:
+        fail(f"bench_hybrid: not all verified: {out['graphs']}")
+    emit({"phase": "bench_hybrid", "scale": HYBRID_SCALE,
+          "graphs": {k: {"n": v["n"], "levels": v["levels"],
+                         "num_vss": v["num_vss"],
+                         "base_widths": v["base_widths"],
+                         "tuned": v["tuned"],
+                         "pull_ms": v["pull_sec"] * 1e3,
+                         "hybrid_ms": v["hybrid_sec"] * 1e3,
+                         "speedup": v["speedup_hybrid_vs_pull"],
+                         "timed": v["timed"]}
+                     for k, v in out["graphs"].items()},
+          "summary": out["summary"], "launches": counts, "card": card})
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2489,6 +2945,10 @@ def main() -> None:
                                 max_levels=WAVE_PROFILE_LEVELS)
     profile(torch, lambda: bfs(internal), "wave_grid2d_2048", card,
             levels_cap=WAVE_PROFILE_LEVELS)
+    # phase 10 on this graph: autotuning against the default knobs
+    by_phase["autotune_grid"], by_phase["autotune_grid_tune"] = \
+        autotune_phase(torch, rt, "autotune_grid", p, g, sources, oracle,
+                       card)
     del sess, p, bfs
     torch.cuda.empty_cache()
 
@@ -2532,6 +2992,12 @@ def main() -> None:
     # the Table-2 matrix, reusing this session's ordered preparation
     by_phase["table2_rmat_18"] = table2_phase(torch, rt, "table2_rmat_18", g,
                                               card, rng, ordered=p)
+    # phase 10 on this graph: autotuning, then streaming edge updates
+    by_phase["autotune_rmat_18"], by_phase["autotune_rmat_18_tune"] = \
+        autotune_phase(torch, rt, "autotune_rmat_18", p, g, sources,
+                       oracle, card)
+    by_phase["update_edges_rmat_18"] = update_edges_phase(
+        torch, rt, sess, g, sources, queries, fsrcs, oracle, card)
 
     del sess, p, bfs
     torch.cuda.empty_cache()
@@ -2549,6 +3015,9 @@ def main() -> None:
         card, "sssp_unit_rmat_16", None)
     by_phase["dense_rmat_16"], timed["bit_spmm"] = dense_phase(
         torch, rt, sess, g, rng, card)
+    # phase 10 on this graph: the staleness budget spent, a re-prepare
+    by_phase["update_reprepare_rmat_16"] = update_reprepare_phase(
+        torch, rt, sess, g, card)
     del sess
     torch.cuda.empty_cache()
 
@@ -2582,6 +3051,9 @@ def main() -> None:
         torch, rt, mgr, g, oracle, queries, card)
     launch_counter_phase(torch, mgr._sessions["serve"].session, g, oracle,
                          queries, card)
+    # phase 10 on this manager: an update, then queued serving
+    by_phase["update_serving_rmat_18"] = update_serving_phase(torch, rt, mgr,
+                                                              card)
     del mgr
     torch.cuda.empty_cache()
     by_phase["serve_deadline_grid_512"] = serve_deadline_phase(torch, rt,
@@ -2594,6 +3066,9 @@ def main() -> None:
         ("bvss_spmm", "bit_spmm"), card)
     by_phase["bench_queue"] = serve_bench_phase(
         torch, "bench_queue", bench_queue, ("bvss_spmm",), card)
+
+    # phase 10's last part: the hybrid bench on its own graphs
+    by_phase["bench_hybrid"] = bench_hybrid_phase(torch, card)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",

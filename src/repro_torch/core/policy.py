@@ -8,7 +8,10 @@ The paper's pipeline makes two static decisions per graph:
 
 ``prepare(graph)`` runs the whole static pipeline on the host (NumPy, the
 same arrays as the reference) and returns a ready engine on the device:
-the card unless the options say ``device="cpu"``.
+the card unless the options say ``device="cpu"``.  ``autotune=True``
+measures the hybrid's ladder and push cap for the device first
+(``core/autotune.py``); streaming edge updates evolve the result through
+:func:`repro_torch.core.bvss_delta.apply_edge_updates` (DESIGN §2.10).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.autotune import TileConfig, tune
 from repro_torch.core.bfs import BlestProblem, make_engine
 from repro_torch.core.bvss import (BVSS, build_bvss, build_weight_plane,
                                    resolve_device, weight_plane_to_device)
@@ -51,6 +55,7 @@ class PrepareOptions:
     use_kernels: bool = True              # kernel entry points vs twins
     buckets: int = 2                      # queue-width ladder graduations
     direction: str = "auto"               # push/pull hybrid mode
+    autotune: bool = False                # measure hybrid knobs per device
     push_impl: Callable | None = None     # push-kernel seam
     device: str | None = None             # None = "cuda"; "cpu" on request
     weights: np.ndarray | None = None     # per-edge weights of the INPUT g
@@ -78,6 +83,21 @@ class PreparedBFS:
     # and their device weight plane, when prepared with weights
     weights: np.ndarray | None = None
     wplane: torch.Tensor | None = None
+    # winning hybrid knobs when prepared with autotune=True (DESIGN §2.8);
+    # None = defaults were used.  ``tile_config.source == "cached"`` means
+    # this prepare() re-used an earlier measurement (nothing timed)
+    tile_config: TileConfig | None = None
+    # epoch version of the prepared state (DESIGN §2.10): bumped by every
+    # apply_edge_updates, which builds the next epoch's device tensors anew
+    # and never writes the old ones, so in-flight waves finish on the
+    # epoch they were built against
+    epoch: int = 0
+    # cumulative edges patched since the last FULL build — the staleness
+    # ledger apply_edge_updates charges its budget against
+    stale_edges: int = 0
+    # the UpdateReport of the apply_edge_updates call that produced this
+    # epoch (None on a fresh preparation)
+    last_update: "object | None" = None
 
     def levels(self, src: int) -> np.ndarray:
         """BFS levels in the caller's (original) vertex ids."""
@@ -105,13 +125,19 @@ BVSS_ENGINES = ("brs", "blest", "blest_lazy")
 
 def build_problem(g_ord: Graph, *, sigma: int = 8, mesh=None,
                   bvss: BVSS | None = None,
+                  options: PrepareOptions | None = None,
                   device: "str | torch.device | None" = None
                   ) -> BlestProblem:
     """Build the device problem for an (already ordered) graph — the one
     dispatch every problem-building caller (``prepare``, the serving
-    tier's symmetrised problem) routes through.  Single-device only: a
-    ``mesh`` is a :class:`~repro_torch.errors.ConfigError` (the mesh
-    paths are ROADMAP.md queue 1 item 11)."""
+    tier's symmetrised problem) routes through.  ``options`` supplies
+    ``sigma`` and ``device`` in one value (an explicitly passed keyword
+    wins).  Single-device only: a ``mesh`` is a
+    :class:`~repro_torch.errors.ConfigError` (the mesh paths are
+    ROADMAP.md queue 1 item 11)."""
+    if options is not None:
+        sigma = options.sigma if sigma == 8 else sigma
+        device = options.device if device is None else device
     if mesh is not None:
         raise ConfigError(
             "mesh-sharded problems are not ported to PyTorch yet: they come "
@@ -162,15 +188,21 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
         if engine_name in BVSS_ENGINES else None
     wplane = None if w_ord is None else weight_plane_to_device(
         build_weight_plane(g_ord, w_ord, sigma=o.sigma), device)
+    tile_config: TileConfig | None = None
+    tuned_kwargs: dict = {}
+    if o.autotune and problem is not None:
+        tile_config = tune(problem, use_kernels=o.use_kernels)
+        tuned_kwargs = tile_config.engine_kwargs()
     fn = make_engine(g_ord, engine_name, bvss=bvss, problem=problem,
                      device=device, use_kernels=o.use_kernels,
                      buckets=o.buckets, direction=o.direction,
-                     push_impl=o.push_impl)
+                     push_impl=o.push_impl, **tuned_kwargs)
     return PreparedBFS(graph=g_ord, perm=perm, inv=inv, ordering=kind,
                        engine_name=engine_name, bvss=bvss, problem=problem,
                        device=device,
                        update_divergence=bvss.update_divergence(),
-                       options=o, _fn=fn, weights=w_ord, wplane=wplane)
+                       options=o, _fn=fn, weights=w_ord, wplane=wplane,
+                       tile_config=tile_config)
 
 
 def parents_from_levels(g: Graph, levels: np.ndarray) -> np.ndarray:

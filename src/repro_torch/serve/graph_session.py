@@ -33,11 +33,16 @@ counts.
 ``fault_plan=`` (a :class:`~repro_torch.serve.faults.FaultPlan`) bakes
 fault wrappers into the session's engines at the documented seams (DESIGN
 §2.7): the single-source push seam, the wave pools' bit-SpMM and the
-Brandes σ channel.
+Brandes σ channel.  ``autotune=True`` measures the hybrid's ladder and
+push cap for the device (``core/autotune.py``).
 
-Not ported yet, each raising :class:`~repro_torch.errors.ConfigError`
-that names its ROADMAP.md slice: ``update_edges`` (queue 1 item 9), and
-the ``mesh`` (item 11) and ``autotune`` (item 9) constructor options.
+``update_edges`` applies a streaming edge-update batch (DESIGN §2.10,
+``core/bvss_delta.py``) and swaps the session to the next epoch; waves in
+flight finish on the epoch they started with.
+
+Not ported yet: the ``mesh`` constructor option, which raises
+:class:`~repro_torch.errors.ConfigError` naming its ROADMAP.md slice
+(queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ from repro_torch.analytics import (ExtremesReport, betweenness_centrality,
                                    pagerank_scores, sssp_distances)
 from repro_torch.core.bfs import BlestProblem, make_blest_bfs
 from repro_torch.core.bvss import build_weight_plane, weight_plane_to_device
+from repro_torch.core.bvss_delta import apply_edge_updates
 from repro_torch.core.multi_source import (drive_wave, make_ms_engine,
                                            make_multi_source_bfs)
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
@@ -73,11 +79,6 @@ def _alias_warning(old: str, new: str) -> None:
         f"singular verbs take src, batched verbs take sources, sampling "
         f"verbs take k with keyword-only seed)",
         DeprecationWarning, stacklevel=3)
-
-
-def _not_ported(what: str, where: str) -> ConfigError:
-    return ConfigError(f"{what} is not ported to PyTorch yet: it comes with "
-                       f"{where}")
 
 
 class GraphSession:
@@ -106,20 +107,18 @@ class GraphSession:
                  fault_plan: FaultPlan | None = None):
         t0 = time.time()
         if mesh is not None:
-            raise _not_ported("a mesh-sharded session",
-                              "the mesh slice (ROADMAP.md queue 1 item 11)")
-        if autotune:
-            raise _not_ported("autotune", "the autotuning slice (ROADMAP.md "
-                              "queue 1 item 9)")
+            raise ConfigError(
+                "a mesh-sharded session is not ported to PyTorch yet: it "
+                "comes with the mesh slice (ROADMAP.md queue 1 item 11)")
         if options is None:
             options = PrepareOptions(
                 sigma=sigma, w=w, seed=seed, lazy_threshold=lazy_threshold,
                 order=order, engine=engine, use_kernels=use_kernel,
-                direction=direction, weights=weights)
+                direction=direction, autotune=autotune, weights=weights)
         elif weights is not None or \
                 (sigma, w, seed, lazy_threshold, order, engine, use_kernel,
-                 direction, mesh_axis) != \
-                (8, 512, 0, None, True, None, True, "auto", "data"):
+                 direction, autotune, mesh_axis) != \
+                (8, 512, 0, None, True, None, True, "auto", False, "data"):
             raise ConfigError(
                 "GraphSession takes EITHER options=PrepareOptions(...) or "
                 "the per-knob keywords, not both")
@@ -138,6 +137,12 @@ class GraphSession:
         self._use_kernel = options.use_kernels
         self._direction = options.direction
         self.max_steps = max_steps
+        self._bind_prepared()
+        self.preprocess_s = time.time() - t0
+
+    def _bind_prepared(self) -> None:
+        """(Re)build everything derived from ``self.prepared`` — called at
+        construction and after every :meth:`update_edges` epoch swap."""
         # a CSR/dense engine override prepares no device BVSS, but the wave
         # pool needs one: build it session-local, on the prepared device
         self._problem: BlestProblem = self.prepared.problem \
@@ -146,9 +151,33 @@ class GraphSession:
         self._ms = make_ms_engine(self._problem, self.max_batch,
                                   use_kernel=self._use_kernel,
                                   direction=self._direction, **self._seams)
-        # analytics problems/engines, built on first use and cached
+        # analytics problems/engines (the symmetrised problem included),
+        # built on first use and cached
         self._analytics_cache: dict = {}
-        self.preprocess_s = time.time() - t0
+
+    def update_edges(self, inserts=(), deletes=(), *, insert_weights=None,
+                     expected_epoch: int | None = None,
+                     staleness_budget: int | None = None):
+        """Apply a streaming edge-update batch (caller ids) and swap the
+        session to the next epoch (DESIGN §2.10); returns the
+        :class:`~repro_torch.core.bvss_delta.UpdateReport`, or ``None`` for
+        an effective no-op.
+
+        The swap is atomic from the session's point of view: a wave in
+        flight keeps the engine and permutation it started with, whose
+        device tensors the update never writes, and finishes on the old
+        epoch; queries issued after this returns see the new one.  The
+        derived engines — the wave pool, the cached analytics problems and
+        engines — are rebuilt against the new epoch."""
+        after = apply_edge_updates(
+            self.prepared, inserts, deletes, insert_weights=insert_weights,
+            expected_epoch=expected_epoch,
+            staleness_budget=staleness_budget)
+        if after is self.prepared:      # effective no-op: same epoch
+            return None
+        self.prepared = after
+        self._bind_prepared()
+        return after.last_update
 
     # ------------------------------------------------------------------
     # prepared-state passthrough
@@ -176,6 +205,11 @@ class GraphSession:
     @property
     def engine_name(self) -> str:
         return self.prepared.engine_name
+
+    @property
+    def epoch(self) -> int:
+        """Edge-update epoch of the prepared state (DESIGN §2.10)."""
+        return self.prepared.epoch
 
     # ------------------------------------------------------------------
     # queries
@@ -494,13 +528,3 @@ class GraphSession:
                 use_kernel=self._use_kernel, damping=damping, tol=tol,
                 max_iter=max_iter))
         return pagerank_scores(pagerank_fn=fn)[self.perm]
-
-    # ------------------------------------------------------------------
-    # verbs of later slices
-    # ------------------------------------------------------------------
-    def update_edges(self, inserts=(), deletes=(), *, insert_weights=None,
-                     expected_epoch: int | None = None,
-                     staleness_budget: int | None = None):
-        """Streaming edge updates (not ported yet: raises)."""
-        raise _not_ported("update_edges", "the incremental maintenance "
-                          "slice (ROADMAP.md queue 1 item 9)")

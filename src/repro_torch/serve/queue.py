@@ -40,7 +40,10 @@ The queue is thread-safe: ``submit`` may race ``drain`` (or the
 on the draining thread.  On the card that thread launches the kernels on
 its current stream (the pump's is the default stream), and each wave
 first synchronises the session's device, so state another thread prepared
-on any stream is complete before the wave reads it.
+on any stream is complete before the wave reads it.  Each wave and its
+verification hold the manager's serving lock, so an edge update
+(:meth:`GraphSessionManager.update_edges`) from another thread lands
+between waves, never inside one.
 """
 from __future__ import annotations
 
@@ -369,6 +372,14 @@ class WaveScheduler:
             return self._reject_all(e)
         if rec.quarantined:
             return self._drain_degraded(rec)
+        # an epoch swap (manager.update_edges) waits for the whole wave and
+        # its verification, so both run on one epoch
+        with mgr._serve_lock:
+            return self._wave(rec)
+
+    def _wave(self, rec) -> int:
+        q = self.queue
+        mgr = q.manager
         sess = rec.session
         perm = sess.perm
         S = sess.max_batch

@@ -35,6 +35,14 @@ robustness layer a single
   verbs carry a finite guard: NaN-poisoned σ channels degrade to
   ``betweenness_ref`` / ``closeness_ref`` the same way.
 
+* **Streaming edge updates.**  ``update_edges`` swaps a session to its
+  next epoch (DESIGN §2.10) and refreshes the manager's oracle graph and
+  the session's byte cost with it.  One re-entrant lock serialises the
+  swap with serving: a wave of ``levels_batch`` or of the
+  :class:`~repro_torch.serve.queue.RequestQueue`'s pump thread, with its
+  verification, runs whole on one epoch, so verify mode never holds an
+  old epoch's answer against the new graph.
+
 Every admission decision, eviction, timeout, quarantine and degradation
 is appended to ``manager.events`` (structured dicts) and aggregated by
 ``manager.stats()``.
@@ -42,6 +50,7 @@ is appended to ``manager.events`` (structured dicts) and aggregated by
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
 from collections import OrderedDict
@@ -50,10 +59,9 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from repro_torch.core.bfs import INF, reference_bfs
-from repro_torch.errors import (AdmissionError, ConfigError,
-                                DeadlineExceeded, KernelFaultError,
-                                check_sources)
-from repro_torch.graphs import Graph
+from repro_torch.errors import (AdmissionError, DeadlineExceeded,
+                                KernelFaultError, check_sources)
+from repro_torch.graphs import Graph, from_edges, src_of_edges
 from repro_torch.kernels.ref import betweenness_ref, closeness_ref
 from repro_torch.serve.graph_session import GraphSession
 
@@ -151,6 +159,9 @@ class GraphSessionManager:
         self._sessions: OrderedDict[str, _SessionRecord] = OrderedDict()
         self._quotas: dict[str, TenantQuota] = {}
         self.events: list[dict[str, Any]] = []
+        # held by an epoch swap and around every wave and its verification
+        # (re-entrant: a queue wave verifies through verify_wave)
+        self._serve_lock = threading.RLock()
 
     # ------------------------------------------------------------------
     # bookkeeping
@@ -257,14 +268,34 @@ class GraphSessionManager:
                      tenant: str = "default", insert_weights=None,
                      expected_epoch: int | None = None,
                      staleness_budget: int | None = None):
-        """Streaming edge updates (DESIGN §2.10): not ported yet.  Raises
-        :class:`~repro_torch.errors.ConfigError` after the usual session
-        lookup, so an unknown name is still an ``AdmissionError``."""
-        self._get(name, tenant)
-        raise ConfigError(
-            "GraphSessionManager.update_edges is not ported to PyTorch yet: "
-            "it comes with the incremental maintenance slice (ROADMAP.md "
-            "queue 1 item 9)")
+        """Apply a streaming edge-update batch to session ``name`` and
+        swap it to the next epoch; returns the
+        :class:`~repro_torch.core.bvss_delta.UpdateReport` (``None`` for an
+        effective no-op).  The manager's oracle copy of the graph and the
+        session's byte cost follow the update, so verify-mode sampling
+        and the LRU budget stay truthful about the mutated graph.  The
+        swap waits for a wave in flight on another thread (the queue's
+        pump) to finish and be verified on the old epoch."""
+        rec = self._get(name, tenant)
+        with self._serve_lock:
+            report = rec.session.update_edges(
+                inserts, deletes, insert_weights=insert_weights,
+                expected_epoch=expected_epoch,
+                staleness_budget=staleness_budget)
+            if report is None:
+                return None
+            # refresh the ORIGINAL-id oracle graph from the mutated session
+            p = rec.session.prepared
+            src_o = p.inv[src_of_edges(p.graph).astype(np.int64)]
+            dst_o = p.inv[p.graph.indices.astype(np.int64)]
+            rec.graph = from_edges(p.graph.n, src_o, dst_o, dedup=True,
+                                   drop_loops=False)
+            rec.cost_bytes = session_cost_bytes(rec.session)
+        self._event("update-edges", name=name, tenant=tenant,
+                    path=report.path, epoch=report.epoch,
+                    n_inserted=report.n_inserted,
+                    n_deleted=report.n_deleted)
+        return report
 
     # ------------------------------------------------------------------
     # serving
@@ -317,27 +348,28 @@ class GraphSessionManager:
         rec.served += len(srcs)
 
         partials: dict[int, np.ndarray] = {}
-        if deadline_s is None:
-            outs = rec.session.levels_batch(srcs)
-        else:
-            t0 = self._clock()
+        with self._serve_lock:       # one epoch for the wave and its verify
+            if deadline_s is None:
+                outs = rec.session.levels_batch(srcs)
+            else:
+                t0 = self._clock()
 
-            def should_harvest(i: int) -> bool:
-                return self._clock() - t0 > deadline_s
+                def should_harvest(i: int) -> bool:
+                    return self._clock() - t0 > deadline_s
 
-            def on_harvested(i: int, lv: np.ndarray) -> None:
-                partials[i] = lv
+                def on_harvested(i: int, lv: np.ndarray) -> None:
+                    partials[i] = lv
 
-            outs = rec.session.levels_batch(
-                srcs, should_harvest=should_harvest,
-                on_harvested=on_harvested)
+                outs = rec.session.levels_batch(
+                    srcs, should_harvest=should_harvest,
+                    on_harvested=on_harvested)
 
-        # verify-mode sampling on the COMPLETED results
-        try:
-            self._verify(rec, srcs, outs)
-        except KernelFaultError as e:
-            self._quarantine(rec, str(e))
-            return self._serve_reference(rec, srcs)
+            # verify-mode sampling on the COMPLETED results
+            try:
+                self._verify(rec, srcs, outs)
+            except KernelFaultError as e:
+                self._quarantine(rec, str(e))
+                return self._serve_reference(rec, srcs)
 
         results: list[np.ndarray | TimeoutResult] = []
         for i, (s, lv) in enumerate(zip(srcs, outs)):

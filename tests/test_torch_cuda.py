@@ -624,3 +624,79 @@ def test_cuda_queue_pump_equals_oracle(cuda_device):
     assert tk.launch_counts()["bvss_spmm"] == levels > 0
     assert mgr.stats()["quarantines"] == 0
     assert mgr.stats()["verified"] == 24
+
+
+@pytest.mark.cuda
+def test_cuda_patched_epoch_equals_oracle(cuda_device):
+    """``apply_edge_updates`` on the card: the patched epoch's levels equal
+    the oracle of the mutated graph through the hand kernels, and the old
+    epoch's device masks keep their contents and its old answers."""
+    from repro_torch.graphs import from_edges, src_of_edges
+    g = repro_torch.generators.rmat(12, 8, seed=2)
+    p = repro_torch.prepare(g)
+
+    def caller_graph(prep):
+        return from_edges(g.n, prep.inv[src_of_edges(prep.graph)],
+                          prep.inv[prep.graph.indices])
+
+    # inserts beside an existing edge's slice bit (no new row) and one
+    # delete a slice of two or more bits (no row lost): the patched path
+    rng = np.random.default_rng(3)
+    src, dst = src_of_edges(p.graph), p.graph.indices.astype(np.int64)
+    have = set(zip(src.tolist(), dst.tolist()))
+    slice_bits = {}
+    for a, b in have:
+        slice_bits[(a // 8, b)] = slice_bits.get((a // 8, b), 0) + 1
+    ins, dels, used = set(), set(), set()
+    for i in rng.permutation(len(src)):
+        a, b = int(src[i]), int(dst[i])
+        a2 = (a // 8) * 8 + int(rng.integers(8))
+        if len(ins) < 32 and a2 < g.n and a2 != b and (a2, b) not in have:
+            ins.add((a2, b))
+        elif len(dels) < 16 and slice_bits[(a // 8, b)] >= 2 and \
+                (a // 8, b) not in used:
+            dels.add((a, b))
+            used.add((a // 8, b))
+    ins = [(int(p.inv[a]), int(p.inv[b])) for a, b in sorted(ins - dels)]
+    dels = [(int(p.inv[a]), int(p.inv[b])) for a, b in sorted(dels)]
+    old_masks = p.problem.dev.masks.clone()
+    old_want = [repro_torch.reference_bfs(g, s) for s in (0, 7)]
+    p2 = repro_torch.apply_edge_updates(p, inserts=ins, deletes=dels)
+    assert p2.last_update.path == "patched" and p2.epoch == 1
+    assert p2.problem.dev.masks.device.type == "cuda"
+    assert p2.problem.dev.masks.data_ptr() != p.problem.dev.masks.data_ptr()
+    g2 = caller_graph(p2)
+    tk.reset_launch_counts()
+    for s in (0, 7, g.n // 2):
+        np.testing.assert_array_equal(p2.levels(s),
+                                      repro_torch.reference_bfs(g2, s))
+    counts = tk.launch_counts()
+    assert counts["bvss_pull"] > 0 and counts["finalize_pack_sweep"] > 0
+    assert torch.equal(p.problem.dev.masks, old_masks)
+    for s, want in zip((0, 7), old_want):
+        np.testing.assert_array_equal(p.levels(s), want)
+
+
+@pytest.mark.cuda
+def test_cuda_autotune_cached_class_makes_no_launches(cuda_device):
+    """``prepare(autotune=True)`` times the hand kernels once a class; a
+    second prepare of the class times nothing and launches nothing."""
+    from repro_torch.core import autotune
+    autotune.clear_cache()
+    g = repro_torch.generators.grid2d(64, 64)
+    tk.reset_launch_counts()
+    p1 = repro_torch.prepare(g, autotune=True)
+    counts = tk.launch_counts()
+    assert p1.tile_config.source == "tuned"
+    assert counts["bvss_pull"] == counts["bvss_push"] == 6, counts
+    runs, hits = autotune.stats["tune_runs"], autotune.stats["cache_hits"]
+    tk.reset_launch_counts()
+    p2 = repro_torch.prepare(g, autotune=True)
+    assert p2.tile_config.source == "cached"
+    assert autotune.stats["tune_runs"] == runs
+    assert autotune.stats["cache_hits"] == hits + 1
+    assert tk.launch_counts()["bvss_pull"] == 0
+    assert tk.launch_counts()["bvss_push"] == 0
+    np.testing.assert_array_equal(p2.levels(0),
+                                  repro_torch.reference_bfs(g, 0))
+    autotune.clear_cache()

@@ -3,8 +3,10 @@ on the CPU: ``levels_batch`` bit for bit through the slot pool with
 mid-flight refills, duplicate and isolated sources, every direction and
 the harvest hooks; the singleton path; the caller-id contract of the
 closeness verbs; the float-channel verbs (betweenness, SSSP, PageRank)
-and the ``weights=`` option, in caller ids; and the verbs and options of
-later slices, which raise :class:`ConfigError`."""
+and the ``weights=`` option, in caller ids; ``update_edges`` (the reports,
+the next epoch's answers, a wave that updates mid-flight, components
+after a merge) and ``autotune=True``; and the ``mesh`` option of a later
+slice, which raises :class:`ConfigError`."""
 import warnings
 
 import numpy as np
@@ -206,18 +208,161 @@ def test_verbs_tuple_matches_reference():
     assert repro_torch.GraphSession.VERBS == repro.GraphSession.VERBS
 
 
-@pytest.mark.parametrize("call,slice_name", [
-    (lambda s: s.update_edges([(0, 1)]), "incremental maintenance slice"),
-])
-def test_unported_verbs_raise(social_pair, call, slice_name):
-    _, ts = social_pair
-    with pytest.raises(ConfigError, match=slice_name):
-        call(ts)
+def caller_edges(sess):
+    """The session's edges in caller ids, as a set of pairs."""
+    from repro_torch.graphs import src_of_edges
+    g = sess.prepared.graph
+    return set(zip(sess.inv[src_of_edges(g)].tolist(),
+                   sess.inv[g.indices].tolist()))
+
+
+def caller_graph(sess):
+    src, dst = map(np.array, zip(*sorted(caller_edges(sess))))
+    return t_from_edges(sess.n, src, dst)
+
+
+def test_update_edges_matches_reference(weighted_pair):
+    """Inserts, deletes and reweights in caller ids through both sessions:
+    the same reports and epochs, then the same levels, waves, SSSP and
+    betweenness on the new epoch, equal to the oracles of the mutated
+    graph; a no-op returns None; a stale ``expected_epoch`` raises."""
+    from repro.kernels.ref import betweenness_ref, sssp_ref
+    _, _, w = weighted_pair
+    js = repro.GraphSession(J_FAM["rmat"], max_batch=3,
+                            options=repro.PrepareOptions(
+                                w=256, weights=w, use_kernels=False))
+    ts = repro_torch.GraphSession(
+        T_FAM["rmat"], max_batch=3,
+        options=repro_torch.PrepareOptions(device="cpu", w=256, weights=w))
+    rng = np.random.default_rng(12)
+    have = sorted(caller_edges(ts))
+    dels = [have[i] for i in rng.choice(len(have), 4, replace=False)]
+    ins = [(int(a), int(b)) for a, b in rng.integers(0, ts.n, (12, 2))
+           if a != b and (int(a), int(b)) not in set(have)][:6]
+    rew = [e for e in have if e not in dels][:2]
+    wts = [0.5, 1.25, 3.0, 0.75, 2.0, 1.5, 4.0, 0.25][:len(ins) + 2]
+    kw = dict(inserts=ins + rew, deletes=dels, insert_weights=wts)
+    rep, jrep = ts.update_edges(**kw), js.update_edges(**kw)
+    import dataclasses
+    assert dataclasses.asdict(rep) == dataclasses.asdict(jrep)
+    assert rep.n_reweighted == 2 and ts.epoch == js.epoch == 1
+    g_now = caller_graph(ts)
+    jg_now = j_from_edges(ts.n, *map(np.array, zip(*sorted(
+        caller_edges(ts)))))
+    queries = [3, 17, 100, 255, 5]
+    got = ts.levels_batch(queries)
+    assert_same(got, js.levels_batch(queries))
+    for q, lv in zip(queries, got):
+        np.testing.assert_array_equal(lv, repro_torch.reference_bfs(g_now,
+                                                                    q))
+    # the weights in caller CSR order: sorted by caller (src, dst) key
+    w_now = ts.prepared.weights[np.argsort(
+        ts.inv[src_of(ts)] * ts.n + ts.inv[ts.prepared.graph.indices],
+        kind="stable")]
+    d = ts.sssp_batch(queries[:3])
+    np.testing.assert_array_equal(d, js.sssp_batch(queries[:3]))
+    np.testing.assert_array_equal(d, sssp_ref(jg_now, queries[:3], w_now))
+    bc = ts.betweenness_batch(queries[:3])
+    np.testing.assert_allclose(bc, betweenness_ref(jg_now, queries[:3]),
+                               rtol=1e-4, atol=1e-4)
+    assert ts.update_edges(inserts=[ins[0]], insert_weights=[0.5]) \
+        is not None                                  # a reweight
+    assert ts.update_edges() is None and ts.epoch == 2
+    from repro_torch.errors import StaleEpochError
+    with pytest.raises(StaleEpochError):
+        ts.update_edges(deletes=[rew[0]], expected_epoch=1)
+
+
+def src_of(sess):
+    from repro_torch.graphs import src_of_edges
+    return src_of_edges(sess.prepared.graph)
+
+
+def test_update_edges_mid_wave_keeps_the_old_epoch():
+    """A wave whose hook updates the session after its first harvest
+    finishes on the epoch it started with, in both packages: every other
+    request gets the old graph's answer; the next wave sees the new one."""
+    queries = [0, 3, 77, 100, 5, 9]
+    out = {}
+    for pkg, fam in ((repro, J_FAM), (repro_torch, T_FAM)):
+        opts = dict(w=256)
+        opts.update(use_kernels=False) if pkg is repro else \
+            opts.update(device="cpu")
+        sess = pkg.GraphSession(fam["rmat"], max_batch=3,
+                                options=pkg.PrepareOptions(**opts))
+        lv0 = sess.levels(0)
+        far = int(np.argmax(lv0 == INF))
+        reports = []
+
+        def on_harvested(i, lv, sess=sess, far=far):
+            reports.append(sess.update_edges(inserts=[(0, far)]))
+
+        got = sess.levels_batch(queries,
+                                should_harvest=lambda i: i == 0 and
+                                not reports, on_harvested=on_harvested)
+        assert len(reports) == 1 and reports[0].epoch == sess.epoch == 1
+        assert got[0] is None
+        for q, lv in zip(queries[1:], got[1:]):
+            np.testing.assert_array_equal(
+                lv, repro_torch.reference_bfs(T_FAM["rmat"], q))
+        assert sess.levels_batch([0, 3])[0][far] == 1
+        out[pkg.__name__] = got
+    assert_same(out["repro_torch"], out["repro"])
+
+
+def test_components_after_merging_update():
+    """components() after an update that merges two components: the
+    symmetrised problem behind it is rebuilt for the new epoch."""
+    js, ts = session_pair("disconnected", use_kernels=False)
+    before = ts.components()
+    np.testing.assert_array_equal(before, js.components())
+    assert before[3] != before[10]
+    rep = ts.update_edges(inserts=[(3, 10)])
+    js.update_edges(inserts=[(3, 10)])
+    after = ts.components()
+    np.testing.assert_array_equal(after, js.components())
+    assert after[3] == after[10] == after[1] == after[11]
+    assert after.max() == before.max() - 1 and rep.epoch == 1
+
+
+def test_autotune_session_matches_reference(monkeypatch):
+    """GraphSession(autotune=True): under one fake timer both packages tune
+    the same knobs into the session's engine, and serve the same levels."""
+    import repro.core.autotune as jat
+    import repro_torch.core.autotune as tat
+
+    def fake(fn, args, reps):
+        return 1e-5 + 1e-8 * int(args[0].shape[0])
+
+    monkeypatch.setattr(jat, "_time_call", fake)
+    monkeypatch.setattr(tat, "_time_call", fake)
+    jat.clear_cache()
+    tat.clear_cache()
+    try:
+        js = repro.GraphSession(J_FAM["grid"], max_batch=3, autotune=True,
+                                use_kernel=False)
+        ts = repro_torch.GraphSession(
+            T_FAM["grid"], max_batch=3,
+            options=repro_torch.PrepareOptions(device="cpu", autotune=True))
+        jc, tc = js.prepared.tile_config, ts.prepared.tile_config
+        assert (tc.pull_widths, tc.push_cap, tc.source) == \
+            (jc.pull_widths, jc.push_cap, jc.source) == \
+            (tc.pull_widths, 128, "tuned")
+        queries = [0, 7, 100, 300]
+        assert_same(ts.levels_batch(queries), js.levels_batch(queries))
+        np.testing.assert_array_equal(ts.levels(5), js.levels(5))
+        # the tuned knobs survive an epoch swap
+        ts.update_edges(inserts=[(0, 300)])
+        assert ts.prepared.tile_config == tc
+        np.testing.assert_array_equal(
+            ts.levels(0), repro_torch.reference_bfs(caller_graph(ts), 0))
+    finally:
+        jat.clear_cache()
+        tat.clear_cache()
 
 
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(mesh=object()), "mesh slice"),
-    (dict(autotune=True), "autotuning slice"),
 ])
 def test_unported_options_raise(kw, slice_name):
     g = tgen.path(4)
@@ -256,6 +401,11 @@ def test_build_problem_is_single_device():
         build_problem(g, mesh=object(), device="cpu")
     p = build_problem(g, sigma=4, device="cpu")
     assert p.sigma == 4 and p.device.type == "cpu" and p.n == g.n
+    # the options value supplies sigma and device; an explicit keyword wins
+    opts = repro_torch.PrepareOptions(sigma=4, device="cpu")
+    p = build_problem(g, options=opts)
+    assert p.sigma == 4 and p.device.type == "cpu"
+    assert build_problem(g, sigma=2, options=opts).sigma == 2
 
 
 def test_options_and_keywords_are_exclusive():

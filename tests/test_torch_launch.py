@@ -169,3 +169,26 @@ def test_kernel_bench_rows():
                      "kernel/finalize_sweep[twin]",
                      "kernel/finalize_pack_sweep_lazy[cpu]",
                      "kernel/finalize_pack_sweep_lazy[twin]"]
+
+
+def test_hybrid_bench_runs_verified(tmp_path):
+    """The hybrid bench at a small scale on the CPU: every graph verified
+    in all three direction modes, the reference bench's keys
+    (``BENCH_pr7.json``'s ``hybrid`` section), one tuning run a class."""
+    import json
+    from pathlib import Path
+    from repro_torch.bench import bench_hybrid
+    from repro_torch.core import autotune
+    autotune.clear_cache()
+    path = tmp_path / "hybrid.json"
+    out = bench_hybrid.run(scale=8, n_sources=2, reps=1, device="cpu",
+                           json_path=str(path), verbose=False)
+    ref = json.loads((Path(__file__).resolve().parents[1]
+                      / "BENCH_pr7.json").read_text())["hybrid"]
+    _same_keys(out, ref)
+    assert out["summary"]["all_verified"] is True
+    for go in out["graphs"].values():
+        assert go["speedup_hybrid_vs_pull"] > 0
+        assert go["tuned"]["source"] in ("tuned", "cached")
+    assert json.loads(path.read_text())["summary"] == out["summary"]
+    autotune.clear_cache()

@@ -11,9 +11,9 @@ graph through ``repro.serve`` (its Pallas kernels in interpret mode) and
 through ``repro_torch.serve`` with ``PrepareOptions(device="cpu")``.  Where
 both queues are drained the same way, the port's futures, ``stats()`` and
 events equal the reference's exactly (a case that depends on time runs on
-an injected clock).  Edge updates come with a later slice, so the
-reference's post-update-epoch case becomes a check that the update names
-it.  A stress case drives the pump with more submitting threads than
+an injected clock).  An edge update between drains serves the new epoch,
+as in the reference; one from another thread waits for the pump's wave.
+A stress case drives the pump with more submitting threads than
 cores under a shortened switch interval.
 """
 import os
@@ -28,7 +28,7 @@ import repro
 import repro_torch
 from repro.graphs import generators as jgen
 from repro_torch.core import reference_bfs
-from repro_torch.errors import ConfigError, QueueFullError
+from repro_torch.errors import QueueFullError
 from repro_torch.graphs import generators as gen
 from repro_torch.kernels import _build
 from repro_torch.serve import (FaultPlan, GraphSessionManager, RequestQueue,
@@ -454,21 +454,88 @@ def test_stats_and_events_schema(graphs):
 
 
 # ---------------------------------------------------------------------------
-# epoch interplay: edge updates come with a later slice
+# epoch interplay: updates between waves keep serving current answers
 # ---------------------------------------------------------------------------
 def test_queue_serves_post_update_epoch(graphs, refs):
-    """The reference swaps the prepared epoch between drains; the port's
-    update names the slice that brings it, and the queue keeps serving
-    the current epoch."""
-    mgr = _mgr(graphs)
-    q = RequestQueue(mgr)
-    f0 = q.submit("g", 0)
-    q.drain()
+    """An edge update between drains swaps the prepared epoch; queued
+    queries after the swap see the NEW graph — in both packages, with
+    every answer verified and the same books."""
+    p = Pair(graphs, verify_fraction=1.0)
+    src = 0
+    f0, jf0 = p.submit("g", src)
+    p.drain()
     lv_before = f0.result(0)
+    np.testing.assert_array_equal(lv_before, refs[src])
+    assert_same_result(lv_before, jf0.result(0))
+
+    # add an edge from src to an unreached vertex
     far = int(np.argmax(lv_before == INF))
     assert lv_before[far] == INF
-    with pytest.raises(ConfigError, match="queue 1 item 9"):
-        mgr.update_edges("g", inserts=[(0, far)])
-    f1 = q.submit("g", 0)
-    q.drain()
-    np.testing.assert_array_equal(f1.result(0), refs[0])
+    report = p.tm.update_edges("g", inserts=[(src, far)])
+    jreport = p.jm.update_edges("g", inserts=[(src, far)])
+    assert report is not None and report.epoch == jreport.epoch == 1
+
+    f1, jf1 = p.submit("g", src)
+    p.drain()
+    lv_after = f1.result(0)
+    assert lv_after[far] == 1            # the new edge is live
+    assert_same_result(lv_after, jf1.result(0))
+    assert p.tm.stats()["quarantines"] == 0
+    p.assert_books_equal()
+
+
+def test_update_waits_for_the_pump_wave(graphs):
+    """Edge updates from the main thread while more submitting threads
+    than cores feed the pump, under a shortened switch interval: each
+    update lands between waves (the manager's serving lock), so verify
+    mode never holds one epoch's answer against another epoch's graph —
+    no quarantine, and every future is the oracle's answer on some
+    epoch."""
+    from repro_torch import from_edges, src_of_edges
+    mgr = _mgr(graphs, verify_fraction=1.0, max_batch=2)
+    sess = mgr._sessions["g"].session
+    q = RequestQueue(mgr)
+
+    def caller_graph():
+        p = sess.prepared
+        return from_edges(p.graph.n, p.inv[src_of_edges(p.graph)],
+                          p.inv[p.graph.indices])
+
+    epochs = [caller_graph()]
+    rng = np.random.default_rng(8)
+    n_threads = 2 * (os.cpu_count() or 2) + 2
+    futs: list = []
+    lock = threading.Lock()
+
+    def client(k):
+        fs = [q.submit("g", (k * 11 + i) % sess.n) for i in range(3)]
+        with lock:
+            futs.extend(fs)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    q.start(poll_s=0.0005)
+    try:
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(n_threads)]
+        for th in threads:
+            th.start()
+        for _ in range(3):
+            a, b = rng.integers(0, sess.n, 2)
+            while a == b or b in epochs[-1].neighbours(int(a)):
+                a, b = rng.integers(0, sess.n, 2)
+            mgr.update_edges("g", inserts=[(int(a), int(b))])
+            epochs.append(caller_graph())
+        for th in threads:
+            th.join(60.0)
+            assert not th.is_alive()
+        for f in futs:
+            lv = f.result(60.0)
+            assert any(np.array_equal(lv, reference_bfs(g, f.source))
+                       for g in epochs), f.source
+    finally:
+        q.stop()
+        sys.setswitchinterval(interval)
+    assert len(futs) == 3 * n_threads
+    assert mgr.stats()["quarantines"] == 0
+    assert sess.epoch == len(epochs) - 1 == 3

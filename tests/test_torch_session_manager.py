@@ -452,13 +452,35 @@ def test_centrality_through_manager_matches_reference(graphs):
     p.assert_books_equal()
 
 
-def test_update_edges_names_its_slice(graphs):
-    p = Pair(graphs)
-    p.open("g")
-    with pytest.raises(ConfigError, match="queue 1 item 9"):
-        p.t.update_edges("g", inserts=[(0, 1)])
-    with pytest.raises(AdmissionError):
-        p.t.update_edges("nope", inserts=[(0, 1)])
+def test_update_edges_matches_reference(graphs):
+    """An update through both managers: the same report, events (the
+    ``update-edges`` entry with the reference's fields), ``stats()`` and
+    byte cost; the verify oracle follows the mutated graph, so verified
+    queries on the new epoch pass; a no-op returns None and logs nothing;
+    an unknown name is still an AdmissionError."""
+    p = Pair(graphs, verify_fraction=1.0)
+    p.open("g", max_batch=3)
+    lv0, _ = p.both("levels", "g", 0)
+    far = int(np.argmax(lv0 == INF))
+    a, b = 5, next(d for d in range(p.tg.n)
+                   if d != 5 and d not in p.tg.neighbours(5))
+    rep, jrep = p.both("update_edges", "g", inserts=[(0, far), (a, b)],
+                       deletes=[(0, int(p.tg.neighbours(0)[0]))])
+    import dataclasses
+    assert dataclasses.asdict(rep) == dataclasses.asdict(jrep)
+    assert p.t.events[-1] == {"kind": "update-edges", "name": "g",
+                              "tenant": "default", "path": rep.path,
+                              "epoch": 1, "n_inserted": 2, "n_deleted": 1}
+    p.assert_books_equal()
+    got, want = p.both("levels_batch", "g", [0, 5, 9, 77])
+    assert_same_levels(got, want)
+    assert got[0][far] == 1
+    assert p.t.stats()["quarantines"] == 0
+    assert p.t.stats()["verified"] == 5
+    assert p.both("update_edges", "g") == (None, None)
+    p.assert_books_equal()
+    assert p.refuse("update_edges", "nope", inserts=[(0, 1)]) == \
+        "unknown-session"
 
 
 def test_mesh_session_names_its_slice(graphs):
