@@ -145,7 +145,26 @@ Phases (any failure exits non-zero before the result line):
    rmat_16``, the reprepared path); phase 9's manager, verified, an update
    then a queued drain (``update_serving_rmat_18``); and ``bench_hybrid``
    at scale 18, the tuned hybrid against the pull-only engine, every graph
-   verified in all three directions (``bench_hybrid``).
+   verified in all three directions (``bench_hybrid``);
+11. the mesh-native BFS on ``torch.distributed`` at world size 1 (one
+   NCCL rank: a card holds one, so multi-card NCCL is not exercised),
+   each part right after the phase whose ordered graph it reuses:
+   ``prepare(p.graph, order=False, mesh=bfs_mesh(1))`` on phase 3's grid
+   and phase 4's ``rmat(18)``, the 1-D eager engine for the phase's
+   sources and the lazy one (the grid: for two, as phase 3's lazy), the
+   sharded BRS and the 2-D ``bfs_mesh2d(1, 1)`` engine for the first
+   source (on the grid cut at PROFILE_LEVELS levels), each equal to the
+   oracle with its kernels launched on the shard (2-D: ``bvss_pull``
+   alone), ms per BFS beside the single-device phase's, the comm
+   ledger's bytes a level and the device-to-host synchronisations a
+   level (CUDA's sync debug mode, one extra run, on the grid cut at
+   MESH_PROFILE_LEVELS levels); the grid's sharded and single-device
+   eager BFSs profiled over MESH_PROFILE_LEVELS levels, device and host
+   (``mesh_grid2d_2048``, ``profile_mesh_grid2d_2048_single`` and
+   ``_mesh``, ``mesh_rmat_18``); then
+   ``python -m repro_torch.launch.bfs --devices 1`` in a child process
+   ending ``VERIFIED vs oracle`` and ``--devices 2`` raising
+   ``ConfigError`` on one card (``mesh_launch_cli``).
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -1224,7 +1243,7 @@ def session_phase(torch, rt, name: str, g, sources, card: str, oracle,
           "max_vss_per_set": p.bvss.max_vss_per_set,
           "prepare_s": sess.preprocess_s, "sources": rows,
           "launches": counts, "card": card})
-    return sess, counts
+    return sess, counts, rows
 
 
 def wave_phase(torch, sess, name: str, g, sources, card: str, oracle
@@ -2831,6 +2850,225 @@ def bench_hybrid_phase(torch, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh-native BFS on torch.distributed, at world size 1
+# ---------------------------------------------------------------------------
+MESH_LAZY_GRID_SOURCES = 2       # the grid's lazy sources, as phase 3's lazy
+MESH_PROFILE_LEVELS = 256        # the grid's profiled and sync-counted levels
+MESH_LAUNCH_ARGS = ["--graph", "road", "--scale", str(CLI_SCALE),
+                    "--engine", "blest_full", "--sources", "2"]
+
+
+def mesh_init(torch):
+    """One NCCL rank on this card: the process group (a TCP store on
+    127.0.0.1) and the 1-D ``(1,)`` and 2-D ``(1, 1)`` meshes over it.
+    One card holds one NCCL rank, so the mesh runs at world size 1 here;
+    two ranks on one card are refused by NCCL, and gloo has no CUDA
+    all-gather."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import bfs_mesh, bfs_mesh2d
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    return bfs_mesh(1), bfs_mesh2d(1, 1)
+
+
+def host_profile(torch, run, top: int = 12) -> list:
+    """Where one ``run()``'s host time goes: cProfile after a warm run,
+    the ``top`` functions by their own time (tottime, ms) and calls."""
+    import cProfile
+    import pstats
+    run()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [{"fn": f"{Path(f).name}:{line}({fn})", "calls": v[1],
+             "tottime_ms": v[2] * 1e3, "cumtime_ms": v[3] * 1e3}
+            for (f, line, fn), v in rows]
+
+
+def mesh_runs(torch, g, p, levels_fn, sources, oracle, cap=None,
+              count_fn=None, count_cap=None) -> tuple[list, dict]:
+    """Run ``levels_fn(internal src)`` for each source (mapped through the
+    phase's ordering ``p.perm``), equal to the oracle (cut at ``cap``
+    levels when given); per source the ms per BFS, the levels run and the
+    comm ledger's bytes, each also per level.  Then the first source once
+    more through ``count_fn`` (default ``levels_fn``; cut at
+    ``count_cap``) under CUDA's sync debug mode, which warns at every
+    device-to-host synchronisation: its count, a level (not timed: the
+    warnings cost host time)."""
+    import warnings
+
+    from repro_torch.distributed import comm_ledger
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    def run(s, fn=levels_fn, cap=cap):
+        want = oracle(g, s)
+        if cap is not None:
+            want = np.where(want <= cap, want, INF)
+        lv = fn(int(p.perm[s]))[p.perm]
+        if not np.array_equal(lv, want):
+            fail(f"mesh levels from source {s} differ from the oracle at "
+                 f"{int(np.count_nonzero(lv != want))} vertices")
+        levels_run = int(want[want != INF].max()) + 1
+        return levels_run if cap is None else min(levels_run, cap)
+
+    rows = []
+    reset_launch_counts()
+    for s in sources:
+        torch.cuda.synchronize()
+        with comm_ledger() as events:
+            t0 = time.perf_counter()
+            levels_run = run(s)
+            dt = time.perf_counter() - t0
+        comm = sum(nb for _, nb in events)
+        rows.append({"src": int(s), "bfs_ms": dt * 1e3,
+                     "levels_run": levels_run, "comm_bytes": comm,
+                     "comm_bytes_per_level": comm / levels_run,
+                     "comm_events": len(events)})
+    counts = launch_counts()
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            levels_run = run(sources[0], count_fn or levels_fn,
+                             count_cap if count_fn else cap)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n_syncs = sum("synchroniz" in str(w.message) for w in syncs)
+    rows[0].update(host_syncs=n_syncs, host_syncs_levels=levels_run,
+                   host_syncs_per_level=n_syncs / levels_run)
+    return rows, counts
+
+
+def mesh_phase(torch, rt, name: str, g, p, sources, oracle, single: dict,
+               meshes, card: str, *, lazy_sources: int, cap: int | None
+               ) -> dict:
+    """The mesh-native path on the phase's ordered graph ``p.graph``
+    (``prepare(order=False, mesh=)``, no second ordering pass): the 1-D
+    ``(1,)`` mesh's eager and lazy engines for the sources, then the 2-D
+    ``(1, 1)`` engine and the sharded BRS for the first source (cut at
+    ``cap`` levels when given).  Each run equals the oracle, launches its
+    hand kernels on the shard, and is reported beside the single-device
+    ms per BFS of the same sources (``single``: phase -> rows)."""
+    from repro_torch.core.bfs import make_blest_bfs, make_brs_bfs
+    mesh1, mesh2 = meshes
+    counts: dict = {}
+
+    def med(rows: list) -> float:
+        return statistics.median(r["bfs_ms"] for r in rows)
+
+    t0 = time.perf_counter()
+    pm = rt.prepare(p.graph, order=False, mesh=mesh1)
+    prep1_s = time.perf_counter() - t0
+    if pm.engine_name != p.engine_name:
+        fail(f"{name}: the mesh chose {pm.engine_name}, one device "
+             f"{p.engine_name}")
+    pb = pm.problem
+    if cap is not None:
+        # where a sharded level's time goes: device (torch.profiler) and
+        # host (cProfile), sharded and single-device in the same window
+        for tag, prob in (("single", p.problem), ("mesh", pb)):
+            bfs = make_blest_bfs(prob, lazy=False,
+                                 max_levels=MESH_PROFILE_LEVELS)
+            src = int(p.perm[sources[0]])
+            profile(torch, lambda: bfs(src), f"{name}_{tag}", card,
+                    levels_cap=MESH_PROFILE_LEVELS,
+                    host_top=host_profile(torch, lambda: bfs(src)))
+        del bfs
+    runs = {}
+    for tag, lazy, srcs in (("eager", False, sources),
+                            ("lazy", True, sources[:lazy_sources])):
+        fn = make_blest_bfs(pb, lazy=lazy)
+        count = None if cap is None else make_blest_bfs(
+            pb, lazy=lazy, max_levels=MESH_PROFILE_LEVELS)
+        rows, c = mesh_runs(torch, g, p, lambda s: fn(s).cpu().numpy(),
+                            srcs, oracle, count_fn=None if count is None
+                            else (lambda s: count(s).cpu().numpy()),
+                            count_cap=MESH_PROFILE_LEVELS)
+        require_launches(c, f"{name} {tag}", ("bvss_pull",
+                                               "finalize_pack_sweep"))
+        require_push_levels(c, f"{name} {tag}")
+        counts[tag] = c
+        runs[tag] = {"sources": rows, "launches": c,
+                     "median_ms": med(rows),
+                     "single_device_median_ms": med(single[tag])
+                     if single.get(tag) else None}
+        runs[tag]["sharded_over_single"] = (
+            runs[tag]["median_ms"] / runs[tag]["single_device_median_ms"]
+            if single.get(tag) else None)
+    brs = make_brs_bfs(pb, max_levels=cap)
+    rows, c = mesh_runs(torch, g, p, lambda s: brs(s).cpu().numpy(),
+                        sources[:1], oracle, cap)
+    require_launches(c, f"{name} brs", ("bvss_pull", "finalize_pack_sweep"))
+    counts["brs"] = c
+    runs["brs"] = {"sources": rows, "launches": c}
+    del brs, fn, count, pm, pb
+    torch.cuda.empty_cache()
+    # the 2-D partition's problem alone (the policy's global BVSS is the
+    # 1-D preparation's)
+    t0 = time.perf_counter()
+    pb2 = rt.build_problem(p.graph, mesh=mesh2)
+    prep2_s = time.perf_counter() - t0
+    fn2 = make_blest_bfs(pb2, lazy=False, max_levels=cap)
+    rows, c = mesh_runs(torch, g, p, lambda s: fn2(s).cpu().numpy(),
+                        sources[:1], oracle, cap)
+    require_launches(c, f"{name} 2-D", ("bvss_pull",))
+    if c["finalize_pack_sweep"] or c["bvss_push_level"] or c["bvss_push"]:
+        fail(f"{name} 2-D launched more than bvss_pull: {c}")
+    counts["2d"] = c
+    runs["2d"] = {"sources": rows, "launches": c}
+    del fn2, pb2
+    torch.cuda.empty_cache()
+    total = {k: sum(cc[k] for cc in counts.values()) for k in counts["eager"]}
+    emit({"phase": name, "n": g.n, "m": g.m, "world_size": 1,
+          "meshes": ["(1,) data", "(1, 1) data x col"],
+          "prepare_1d_s": prep1_s, "build_problem_2d_s": prep2_s,
+          "levels_cap_2d_brs": cap, **runs, "launches": total,
+          "card": card})
+    return total
+
+
+def mesh_launch_phase(torch, card: str) -> None:
+    """``python -m repro_torch.launch.bfs --devices 1`` in a child process
+    (it spawns its own rank and NCCL group), ending ``VERIFIED vs
+    oracle``; and ``--devices 2`` raising ConfigError on a one-card
+    machine before any process starts."""
+    from repro_torch.errors import ConfigError
+    from repro_torch.launch import bfs as launcher
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.bfs", *MESH_LAUNCH_ARGS,
+         "--devices", "1"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env={**__import__("os").environ,
+                          "PYTHONPATH": str(ROOT / "src")})
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines or \
+            not lines[-1].endswith("VERIFIED vs oracle") or \
+            not any(ln.startswith("[bfs] sharded: 1 shards") for ln in lines):
+        fail(f"launcher --devices 1 (rc {out.returncode}): {out.stdout}\n"
+             f"{out.stderr[-3000:]}")
+    refused = None
+    if torch.cuda.device_count() == 1:
+        try:
+            launcher.main([*MESH_LAUNCH_ARGS, "--devices", "2"])
+        except ConfigError as e:
+            refused = str(e)
+        if refused is None:
+            fail("launcher --devices 2 did not raise ConfigError on one card")
+    emit({"phase": "mesh_launch_cli", "lines": lines,
+          "devices_2_on_one_card": refused, "card": card})
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2871,7 +3109,7 @@ def main() -> None:
     g = rt.generators.grid2d(2048, 2048)
     sources = [0] + [int(s) for s in rng.choice(g.n, 3, replace=False)]
     oracle = memo_oracle(rt)
-    sess, main_counts = session_phase(
+    sess, main_counts, main_rows = session_phase(
         torch, rt, "main_path_grid2d_2048", g, sources, card, oracle,
         ("bvss_pull", "bvss_push_level", "finalize_pack_sweep"))
     by_phase["grid2d_2048"] = main_counts
@@ -2908,6 +3146,7 @@ def main() -> None:
     rows = run_sources(
         torch, g, lambda s: lazy(int(p.perm[s])).cpu().numpy()[p.perm],
         sources[:2], oracle)
+    lazy_rows = rows
     by_phase["lazy_grid2d_2048"] = launch_counts()
     require_launches(by_phase["lazy_grid2d_2048"], "the lazy engine",
                      ("finalize_pack_sweep", "bvss_push_level"))
@@ -2949,6 +3188,12 @@ def main() -> None:
     by_phase["autotune_grid"], by_phase["autotune_grid_tune"] = \
         autotune_phase(torch, rt, "autotune_grid", p, g, sources, oracle,
                        card)
+    # phase 11 on this graph: the mesh-native BFS at world size 1
+    meshes = mesh_init(torch)
+    by_phase["mesh_grid2d_2048"] = mesh_phase(
+        torch, rt, "mesh_grid2d_2048", g, p, sources, oracle,
+        {"eager": main_rows, "lazy": lazy_rows}, meshes, card,
+        lazy_sources=MESH_LAZY_GRID_SOURCES, cap=PROFILE_LEVELS)
     del sess, p, bfs
     torch.cuda.empty_cache()
 
@@ -2958,7 +3203,7 @@ def main() -> None:
     oracle = memo_oracle(rt)
     wrng = np.random.default_rng(SEED)
     weights = (wrng.integers(1, 128, g.m) / 32.0).astype(np.float32)
-    sess, by_phase["rmat_18"] = session_phase(
+    sess, by_phase["rmat_18"], main_rows = session_phase(
         torch, rt, "main_path_rmat_18", g, sources, card, oracle,
         ("bvss_pull", "finalize_pack_sweep"), weights=weights)
     p = sess.prepared
@@ -2996,6 +3241,16 @@ def main() -> None:
     by_phase["autotune_rmat_18"], by_phase["autotune_rmat_18_tune"] = \
         autotune_phase(torch, rt, "autotune_rmat_18", p, g, sources,
                        oracle, card)
+    # phase 11 on this graph, then the launcher's --devices; the NCCL
+    # group ends here
+    by_phase["mesh_rmat_18"] = mesh_phase(
+        torch, rt, "mesh_rmat_18", g, p, sources, oracle,
+        {"eager": main_rows}, meshes, card, lazy_sources=len(sources),
+        cap=None)
+    mesh_launch_phase(torch, card)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    del meshes
     by_phase["update_edges_rmat_18"] = update_edges_phase(
         torch, rt, sess, g, sources, queries, fsrcs, oracle, card)
 

@@ -49,8 +49,11 @@ hand-written ``bvss_pull`` and ``bvss_push``) and streaming edge updates
 (``apply_edge_updates``, ``GraphSession.update_edges``,
 ``GraphSessionManager.update_edges``; the patched, rebuilt and
 reprepared paths) with the reference's hybrid bench
-(``repro_torch.bench.bench_hybrid``).  The package exports every name of
-the reference's façade (``tests/api_surface.txt``).
+(``repro_torch.bench.bench_hybrid``), and the mesh-native single-source
+BFS on ``torch.distributed`` (``prepare(g, mesh=...)`` over a 1-D or 2-D
+``DeviceMesh`` from ``repro_torch.distributed``, one process per rank;
+the launcher's ``--devices``).  The package exports every name of the
+reference's façade (``tests/api_surface.txt``).
 """
 from repro_torch.core.bfs import reference_bfs
 from repro_torch.core.bvss_delta import UpdateReport, apply_edge_updates

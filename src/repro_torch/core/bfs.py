@@ -32,6 +32,13 @@ the level's scalars back once per level, and the host picks the width and
 the direction from those scalars with the reference's exact tests.  Each
 kernel is then launched at the width the host picked.
 
+A problem built over a mesh (:meth:`BlestProblem.build_sharded`,
+:meth:`BlestProblem.build_sharded_2d`) runs the reference's mesh-native
+engines (DESIGN §2.4) SPMD: every rank runs the same level loop on its own
+shard's rows, exchanges the frontier words through ``torch.distributed``
+and all-reduces the continuation test, which rides in the level's one
+host copy; the engine returns the whole global level array on every rank.
+
 Device words are ``torch.int32`` holding uint32 bit patterns; every right
 shift is followed by a mask, so sign extension never leaks.  Scatter
 indices that must be dropped (the reference's ``mode="drop"``) go to one
@@ -45,9 +52,18 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.bvss import (BVSS, BVSSDevice, build_bvss,
-                                   resolve_device, to_device)
-from repro_torch.core.level_pipeline import LevelPipeline, run_levels
+from repro_torch.core.bvss import (BVSS, BVSSDevice, ShardedBVSS,
+                                   ShardedBVSS2D, ShardedBVSSDevice,
+                                   build_bvss, resolve_device,
+                                   shard_to_device, shard_to_device_2d,
+                                   to_device)
+from repro_torch.core.level_pipeline import (LevelPipeline, global_any,
+                                             run_levels)
+from repro_torch.distributed.bfs_dist import frontier_all_gather
+from repro_torch.distributed.collectives import (all_gather_tiled,
+                                                 axis_size,
+                                                 butterfly_frontier_exchange,
+                                                 butterfly_or_allreduce)
 from repro_torch.errors import ConfigError, GraphValidationError
 from repro_torch.graphs import Graph, src_of_edges, to_dense_bits
 from repro_torch.kernels import (bvss_push_level, finalize_pack_sweep,
@@ -93,6 +109,12 @@ def _pack_bits(bits: torch.Tensor, n_words: int) -> torch.Tensor:
     return pack_words(bits.reshape(n_words * 32))
 
 
+def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """int32 (n_words,) -> bool (n_words*32,): inverse of :func:`_pack_bits`."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, None] >> shifts[None, :]) & 1).reshape(-1) != 0
+
+
 #: the plain PyTorch pull (the twin path, ``use_kernels=False``)
 pull_vss_twin = bvss_pull_ref
 
@@ -132,14 +154,31 @@ class BlestProblem:
     n_sets: int       # slice sets (columns)
     num_vss: int
     n_fwords: int     # packed frontier words
-    dev: BVSSDevice
+    dev: BVSSDevice | ShardedBVSSDevice
     # static push expansion factor: every pushing vertex enqueues at most
     # this many VSSs of its own slice set (DESIGN §2.8)
     max_vss_per_set: int = 1
+    # mesh-native row partition (DESIGN §2.4); mesh=None = single-device.
+    # ``dev`` then holds this rank's own shard only
+    mesh: object | None = None
+    axis: str = "data"
+    n_shards: int = 1
+    rows_per_shard: int = 0
+    # 2-D row × column partition (DESIGN §2.4): col_axis=None = 1-D.
+    # Column block j owns, inside every row block, the cols_per_block
+    # sources [i·rps + j·cpb, i·rps + (j+1)·cpb) — the butterfly exchange
+    # moves one rps/cols/32-word segment per rank per level.
+    col_axis: str | None = None
+    n_col_shards: int = 1
+    cols_per_block: int = 0
 
     @property
     def device(self) -> torch.device:
         return self.dev.masks.device
+
+    @property
+    def is_2d(self) -> bool:
+        return self.col_axis is not None
 
     @staticmethod
     def build(bvss: BVSS, device: "str | torch.device | None" = None
@@ -149,6 +188,51 @@ class BlestProblem:
                             n_fwords=bvss.n_frontier_words,
                             dev=to_device(bvss, device),
                             max_vss_per_set=bvss.max_vss_per_set)
+
+    @staticmethod
+    def build_sharded(sb: ShardedBVSS, mesh, axis: str = "data",
+                      device: "str | torch.device | None" = None
+                      ) -> "BlestProblem":
+        """Row-sharded problem: ``dev`` holds this rank's shard of ``sb``
+        on the rank's device; the engines run the level loop on every rank
+        of ``mesh``'s ``axis``."""
+        if axis_size(mesh, axis) != sb.n_shards:
+            raise ValueError(
+                f"mesh axis {axis!r} has {axis_size(mesh, axis)} ranks but "
+                f"the BVSS is built for {sb.n_shards} shards")
+        return BlestProblem(n=sb.n, sigma=sb.sigma, n_sets=sb.n_sets,
+                            num_vss=sb.num_vss_pad,
+                            n_fwords=sb.n_frontier_words,
+                            dev=shard_to_device(sb, mesh, axis,
+                                                device=device),
+                            mesh=mesh, axis=axis, n_shards=sb.n_shards,
+                            rows_per_shard=sb.rows_per_shard,
+                            max_vss_per_set=sb.max_vss_per_set)
+
+    @staticmethod
+    def build_sharded_2d(sb: ShardedBVSS2D, mesh,
+                         device: "str | torch.device | None" = None
+                         ) -> "BlestProblem":
+        """2-D row × column problem: rank (i, j) of the mesh owns BVSS
+        block i·cols + j.  ``n_sets``/``n_fwords`` become the per-rank
+        LOCAL column-block quantities — the engines never materialise a
+        global frontier."""
+        row_axis, col_axis = mesh.mesh_dim_names
+        shape = tuple(mesh.shape)
+        if shape != (sb.rows, sb.cols):
+            raise ConfigError(
+                f"mesh shape {shape} does not match the 2-D BVSS built "
+                f"for ({sb.rows}, {sb.cols}) blocks")
+        return BlestProblem(n=sb.n, sigma=sb.sigma,
+                            n_sets=sb.n_sets_local,
+                            num_vss=sb.num_vss_pad,
+                            n_fwords=sb.n_frontier_words_local,
+                            dev=shard_to_device_2d(sb, mesh, device=device),
+                            mesh=mesh, axis=row_axis, n_shards=sb.rows,
+                            rows_per_shard=sb.rows_per_shard,
+                            col_axis=col_axis, n_col_shards=sb.cols,
+                            cols_per_block=sb.cols_per_block,
+                            max_vss_per_set=sb.max_vss_per_set)
 
 
 PullFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
@@ -328,7 +412,13 @@ def _make_hybrid_step(dev: BVSSDevice, pull: PullFn, push: PushFn | None,
     the host: push iff the frontier fits the cap, the frontier is small
     against the unvisited remainder (the Beamer-α guard), and push's static
     cost undercuts the pull width the ladder would select.  When push's
-    static cost cannot beat even the full pull width, auto is pure pull."""
+    static cost cannot beat even the full pull width, auto is pure pull.
+
+    ``n_rows`` is the scatter extent: the global ``n`` single-device, the
+    shard's ``rows_per_shard`` under a mesh (row ids are local there —
+    while the frontier words, and hence the push's frontier vertices, are
+    GLOBAL replicas, so every shard expands the same vertices into its own
+    local VSS ids and both branches stay free of collectives)."""
     if direction not in DIRECTIONS:
         raise ConfigError(
             f"direction must be one of {DIRECTIONS}, got {direction!r}")
@@ -477,6 +567,17 @@ def make_blest_bfs(problem: BlestProblem, *, lazy: bool,
         push = bvss_push_ref
     fin_impl = finalize_pack_sweep if use_kernels else finalize_pack_ref
 
+    if p.mesh is not None:
+        if p.is_2d:
+            return _make_blest_bfs_sharded_2d(p, pull=pull, widths=widths,
+                                              qcap=qcap, max_lv=max_lv,
+                                              direction=direction)
+        return _make_blest_bfs_sharded(p, lazy=lazy, pull=pull, push=push,
+                                       fin_impl=fin_impl, widths=widths,
+                                       qcap=qcap, max_lv=max_lv,
+                                       direction=direction, push_cap=cap,
+                                       alpha=alpha)
+
     dev = p.dev
     device = p.device
     popcount = _make_popcount(device)
@@ -533,6 +634,212 @@ def make_blest_bfs(problem: BlestProblem, *, lazy: bool,
 
 
 # ---------------------------------------------------------------------------
+# mesh-native engines (DESIGN §2.4)
+# ---------------------------------------------------------------------------
+def _local_levels0(src: int, first_row: int, rps: int,
+                   device: torch.device) -> torch.Tensor:
+    """A shard's initial ``(rps + 1,)`` levels: 0 at the source when this
+    shard's rows ``[first_row, first_row + rps)`` hold it, else all INF
+    (slot ``rps`` is the dummy row sink)."""
+    levels = torch.full((rps + 1,), INF, dtype=torch.int32, device=device)
+    if first_row <= src < first_row + rps:
+        levels[src - first_row] = 0
+    return levels
+
+
+def _gather_levels(levels: torch.Tensor, mesh, axis: str, n: int
+                   ) -> torch.Tensor:
+    """Every shard's local levels along ``axis``, in shard order: the
+    global ``(n,)`` level array, on every rank (the engines' answer; not a
+    level's traffic, so the ledger does not record it)."""
+    return all_gather_tiled(levels, mesh.get_group(axis))[:n]
+
+
+def _make_blest_bfs_sharded(p: BlestProblem, *, lazy: bool, pull: PullFn,
+                            push: PushFn | None, fin_impl: Callable,
+                            widths: list[int], qcap: int, max_lv: int,
+                            direction: str, push_cap: int, alpha: float
+                            ) -> Callable[[int], torch.Tensor]:
+    """The mesh-native BLEST engine (DESIGN §2.4), one rank's part.  Per
+    level, each rank runs the same hybrid step as the single-device engine
+    on its local rows (``bvss_pull`` or ``bvss_push_level``, the scatter,
+    ``finalize_pack_sweep`` over its ``rps`` rows), all-gathers the
+    per-shard frontier words into the global frontier, and all-reduces the
+    convergence test (:func:`~repro_torch.core.level_pipeline.global_any`),
+    whose result rides in the level's one host copy.
+
+    Push levels need NO extra collective (DESIGN §2.8): the push walks the
+    gathered global frontier replica every rank already holds and expands
+    it through the rank's own vertex → local-VSS map.  The host's
+    direction choice may even differ across ranks (per-shard VSS counts
+    differ), because both branches are free of collectives."""
+    mesh, axis = p.mesh, p.axis
+    groups = (mesh.get_group(axis),)
+    sigma, n = p.sigma, p.n
+    rps = p.rows_per_shard
+    lwords = rps // 32
+    first_row = mesh.get_local_rank(axis) * rps
+    dev = p.dev
+    device = p.device
+    all_sets = torch.arange(p.n_sets, dtype=torch.int32, device=device)
+    popcount = _make_popcount(device)
+    compact = make_compactor(dev, p.num_vss, qcap)
+    step = _make_hybrid_step(dev, pull, push, sigma, rps, widths, lazy=lazy,
+                             direction=direction, num_vss=p.num_vss,
+                             n_fwords=p.n_fwords, dummy_vertex=n,
+                             R=p.max_vss_per_set, push_cap=push_cap,
+                             alpha=alpha)
+
+    def sync(count: torch.Tensor, F: torch.Tensor
+             ) -> tuple[int, int, bool]:
+        """The level's one device-to-host copy: (live local VSS count,
+        popcount of the global F, whether any shard has work)."""
+        live = global_any(count > 0, groups)
+        c, f, g = torch.stack([count, popcount(F),
+                               live.to(count.dtype)]).tolist()
+        return int(c), int(f), bool(g)
+
+    def finalize(state: _BlestState, lvl: int) -> _BlestState:
+        # local fused sweep over THIS shard's rows; its local set flags
+        # are meaningless (sets are global) and discarded
+        if lazy:
+            lv_loc, fw_loc, _ = fin_impl(
+                state.levels[:rps], lvl, sigma=sigma, n_fwords=lwords,
+                n_sets=rps // sigma, marks=state.marks[:rps])
+            state.levels[:rps].copy_(lv_loc)
+        else:
+            _, fw_loc, _ = fin_impl(state.levels[:rps], lvl, sigma=sigma,
+                                    n_fwords=lwords, n_sets=rps // sigma)
+        # the one cross-rank term: σ-bit frontier words, all-gathered
+        F = frontier_all_gather(fw_loc, mesh, axis)      # (n_fwords,)
+        Q, count = compact(_frontier_bytes(F, all_sets, sigma) != 0)
+        count, fcount, live = sync(count, F)
+        return state._replace(F=F, Q=Q, count=count, fcount=fcount,
+                              unvisited=state.unvisited - fcount,
+                              cont=live)
+
+    pipe = LevelPipeline(step=step, finalize=finalize,
+                         active=lambda s: s.cont)
+
+    def bfs(src: int) -> torch.Tensor:
+        src = int(src)
+        levels = _local_levels0(src, first_row, rps, device)
+        F = torch.zeros((p.n_fwords,), dtype=torch.int32, device=device)
+        F[src // 32] = _i32(1 << (src % 32))
+        set0 = torch.zeros((p.n_sets,), dtype=torch.bool, device=device)
+        set0[src // sigma] = True
+        Q, count = compact(set0)
+        count, fcount, live = sync(count, F)
+        marks0 = torch.zeros((rps + 1 if lazy else 1,), dtype=torch.uint8,
+                             device=device)
+        state = _BlestState(levels, F, Q, count, marks0, n - 1, fcount, live)
+        state, _ = run_levels(pipe, state, max_levels=max_lv)
+        return _gather_levels(state.levels[:rps], mesh, axis, n)
+
+    return bfs
+
+
+def _make_blest_bfs_sharded_2d(p: BlestProblem, *, pull: PullFn,
+                               widths: list[int], qcap: int, max_lv: int,
+                               direction: str
+                               ) -> Callable[[int], torch.Tensor]:
+    """The 2-D (row × column) mesh-native BLEST engine (DESIGN §2.4), one
+    rank's part.
+
+    Rank (i, j) pulls its ROW block of vertices from its COLUMN block of
+    frontier words, so per level it runs the same bucketed pull as the 1-D
+    engine over ``1/cols`` of the frontier, then two butterfly collectives
+    replace the flat all-gather: an OR all-reduce of the packed partial hit
+    words over the COLUMN axis (every column block saw a different frontier
+    slice, so hits are partial), and a segment all-gather of the fresh
+    frontier words over the ROW axis (rank (i, j) contributes row block
+    i's j-th word segment, receiving its full column block).  Convergence
+    is one all-reduce over BOTH axes.
+
+    The 2-D partition is pull-only: hits are accumulated as marks and
+    reduced BEFORE levels update (a partial eager store would commit local
+    hits that another column block already discovered at an earlier level
+    — wrong), which makes the eager and lazy variants one mark-based body;
+    the level update after the OR is plain glue, so ``bvss_pull`` is the
+    one kernel.  Forced ``direction="push"`` is a :class:`ConfigError`
+    (the push walks GLOBAL frontier replicas that no 2-D rank holds)."""
+    if direction == "push":
+        raise ConfigError(
+            "the 2-D row × column partition is pull-only (DESIGN §2.4); "
+            "direction='push' needs the global frontier replica only the "
+            "1-D partition holds — use a 1-D mesh or direction='pull'")
+    mesh, rax, cax = p.mesh, p.axis, p.col_axis
+    groups = (mesh.get_group(cax), mesh.get_group(rax))
+    sigma, n = p.sigma, p.n
+    rps = p.rows_per_shard
+    lwords = rps // 32
+    cpb = p.cols_per_block
+    wpc = lwords // p.n_col_shards       # words per column segment
+    ncw = p.n_fwords                     # per-rank column-block words
+    i, j = mesh.get_local_rank(rax), mesh.get_local_rank(cax)
+    dev = p.dev
+    device = p.device
+    all_sets = torch.arange(p.n_sets, dtype=torch.int32, device=device)
+    compact = make_compactor(dev, p.num_vss, qcap)
+
+    def sync(count: torch.Tensor) -> tuple[int, bool]:
+        """The level's one device-to-host copy: (live local VSS count,
+        whether any rank has work)."""
+        live = global_any(count > 0, groups)
+        c, g = torch.stack([count, live.to(count.dtype)]).tolist()
+        return int(c), bool(g)
+
+    def step(state: _BlestState, lvl: int) -> _BlestState:
+        def pull_marks(width: int) -> torch.Tensor:
+            ids = state.Q[:width]
+            fbytes = _frontier_bytes(state.F, dev.virtual_to_real[ids],
+                                     sigma)
+            hits = pull(dev.masks[ids], fbytes, sigma)
+            rows = dev.row_ids[ids].reshape(-1).to(torch.int64)
+            marks = state.marks.zero_()
+            marks.index_fill_(0, torch.where(hits.reshape(-1), rows, rps), 1)
+            return marks
+        return state._replace(marks=select_width(widths, state.count,
+                                                 pull_marks))
+
+    def finalize(state: _BlestState, lvl: int) -> _BlestState:
+        # partial hits -> full row-block hits (butterfly OR over cols)
+        hw = butterfly_or_allreduce(
+            _pack_bits(state.marks[:rps] > 0, lwords), mesh, cax)
+        newly = _unpack_bits(hw) & (state.levels[:rps] == INF)
+        state.levels[:rps].masked_fill_(newly, lvl)
+        # fresh frontier: this row block's j-th word segment, exchanged
+        # along the row axis into the full column block
+        seg = _pack_bits(newly, lwords)[j * wpc:(j + 1) * wpc]
+        F = butterfly_frontier_exchange(seg, mesh, rax)      # (ncw,)
+        Q, count = compact(_frontier_bytes(F, all_sets, sigma) != 0)
+        count, live = sync(count)
+        return state._replace(F=F, Q=Q, count=count, cont=live)
+
+    pipe = LevelPipeline(step=step, finalize=finalize,
+                         active=lambda s: s.cont)
+
+    def bfs(src: int) -> torch.Tensor:
+        src = int(src)
+        levels = _local_levels0(src, i * rps, rps, device)
+        # the source's frontier bit lives only in its own column block
+        F = torch.zeros((ncw,), dtype=torch.int32, device=device)
+        off = src % rps
+        if off // cpb == j:
+            c = (src // rps) * cpb + (off - j * cpb)
+            F[c // 32] = _i32(1 << (c % 32))
+        Q, count = compact(_frontier_bytes(F, all_sets, sigma) != 0)
+        count, live = sync(count)
+        marks0 = torch.zeros((rps + 1,), dtype=torch.uint8, device=device)
+        state = _BlestState(levels, F, Q, count, marks0, n - 1, 0, live)
+        state, _ = run_levels(pipe, state, max_levels=max_lv)
+        # column-replicated row blocks: gather along the row axis
+        return _gather_levels(state.levels[:rps], mesh, rax, n)
+
+    return bfs
+
+
+# ---------------------------------------------------------------------------
 # BRS baseline (BerryBees-like): frontier-oblivious slice-set sweep
 # ---------------------------------------------------------------------------
 class _BrsState(NamedTuple):
@@ -560,6 +867,13 @@ def make_brs_bfs(problem: BlestProblem, *, use_kernels: bool = True,
     max_lv = max_levels if max_levels is not None else n + 1
     pull = pull_vss_kernel if use_kernels else pull_vss_twin
     fin_impl = finalize_pack_sweep if use_kernels else finalize_pack_ref
+    if p.mesh is not None:
+        if p.is_2d:
+            raise ConfigError(
+                "the BRS baseline has no 2-D partition path — prepare with "
+                "a 1-D mesh or the blest/blest_lazy engines")
+        return _make_brs_bfs_sharded(p, pull=pull, fin_impl=fin_impl,
+                                     max_lv=max_lv)
     dev = p.dev
     device = p.device
     masks = dev.masks[:p.num_vss]
@@ -591,6 +905,55 @@ def make_brs_bfs(problem: BlestProblem, *, use_kernels: bool = True,
         state, _ = run_levels(pipe, _BrsState(levels, marks, F, True),
                               max_levels=max_lv)
         return state.levels
+
+    return bfs
+
+
+def _make_brs_bfs_sharded(p: BlestProblem, *, pull: PullFn,
+                          fin_impl: Callable, max_lv: int
+                          ) -> Callable[[int], torch.Tensor]:
+    """Mesh-native BRS, one rank's part: the frontier-oblivious sweep
+    visits every VSS of the rank's SHARD each level (paper drawback #2
+    doesn't shrink under a mesh — that is the point of the baseline);
+    only the frontier words cross ranks, and the convergence test."""
+    mesh, axis = p.mesh, p.axis
+    groups = (mesh.get_group(axis),)
+    sigma, n = p.sigma, p.n
+    rps = p.rows_per_shard
+    lwords = rps // 32
+    first_row = mesh.get_local_rank(axis) * rps
+    dev = p.dev
+    device = p.device
+    masks = dev.masks[:p.num_vss]
+    sets = dev.virtual_to_real[:p.num_vss]
+    rows = dev.row_ids[:p.num_vss].reshape(-1).to(torch.int64)
+
+    def step(s: _BrsState, lvl: int) -> _BrsState:
+        hits = pull(masks, _frontier_bytes(s.F, sets, sigma), sigma)
+        s.marks.zero_().index_fill_(
+            0, torch.where(hits.reshape(-1), rows, rps), 1)
+        return s
+
+    def finalize(s: _BrsState, lvl: int) -> _BrsState:
+        levels, fw_loc, set_active = fin_impl(
+            s.levels, lvl, sigma=sigma, n_fwords=lwords,
+            n_sets=rps // sigma, marks=s.marks[:rps])
+        F = frontier_all_gather(fw_loc, mesh, axis)
+        live = bool(global_any(set_active.any(), groups))
+        return _BrsState(levels, s.marks, F, live)
+
+    pipe = LevelPipeline(step=step, finalize=finalize,
+                         active=lambda s: s.cont)
+
+    def bfs(src: int) -> torch.Tensor:
+        src = int(src)
+        levels = _local_levels0(src, first_row, rps, device)[:rps]
+        F = torch.zeros((p.n_fwords,), dtype=torch.int32, device=device)
+        F[src // 32] = _i32(1 << (src % 32))
+        marks = torch.zeros((rps + 1,), dtype=torch.uint8, device=device)
+        state, _ = run_levels(pipe, _BrsState(levels, marks, F, True),
+                              max_levels=max_lv)
+        return _gather_levels(state.levels, mesh, axis, n)
 
     return bfs
 
@@ -761,6 +1124,11 @@ def make_engine(g: Graph, engine: str, *, sigma: int = 8,
         problem = BlestProblem.build(b, device)
     if engine == "multi_source":
         from repro_torch.core.multi_source import make_multi_source_bfs
+        if problem.mesh is not None:
+            raise ConfigError(
+                "the multi-source engine on a mesh-sharded problem is not "
+                "ported to PyTorch yet: it comes with the sharded waves "
+                "(ROADMAP.md queue 1 item 11c)")
         if n_sources is None:
             raise ValueError("multi_source engine needs n_sources")
         return make_multi_source_bfs(g, n_sources, problem=problem,

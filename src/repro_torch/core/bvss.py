@@ -1,8 +1,11 @@
 """Binarised Virtual Slice Sets (BVSS) — the paper's core data structure (§3).
 
-The single-device half of ``repro/core/bvss.py``: host construction is the
-same vectorised NumPy (byte-equal arrays), and :func:`to_device` hands the
-arrays to PyTorch on an explicit device.  Layout (σ = slice width in bits,
+The port of ``repro/core/bvss.py``: host construction is the same
+vectorised NumPy (byte-equal arrays), and :func:`to_device` hands the
+arrays to PyTorch on an explicit device.  The mesh-native build path
+(DESIGN §2.4) partitions the same arrays by rows (:func:`build_sharded_bvss`)
+or by rows and columns (:func:`build_sharded_bvss_2d`), and
+:func:`shard_to_device` hands one rank its own block.  Layout (σ = slice width in bits,
 LANES = 32 words per VSS row-group, slices_per_word = 32 // σ,
 τ = LANES * slices_per_word):
 
@@ -28,8 +31,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.bfs_dist import mesh_rank_device
 from repro_torch.errors import ConfigError, GraphValidationError
-from repro_torch.graphs import Graph
+from repro_torch.graphs import Graph, from_edges, src_of_edges
 
 LANES = 32  # 32-bit words per VSS row-group (paper: WARP_SIZE)
 
@@ -349,14 +353,363 @@ def build_weight_plane(g: Graph, weights: np.ndarray,
     return plane
 
 
+def build_sharded_weight_plane(g: Graph, weights: np.ndarray,
+                               sb: "ShardedBVSS") -> np.ndarray:
+    """Row-sharded twin of :func:`build_weight_plane`: one weight plane per
+    shard of ``sb``, built over the same destination-range subgraphs
+    :func:`build_sharded_bvss` committed (so slice placement matches the
+    sharded masks bit for bit), padded to the common VSS count with +inf.
+    Returns (D, num_vss_pad, 32//σ, LANES, σ) float32."""
+    n = g.n
+    sigma = sb.sigma
+    spw = sb.slices_per_word
+    src = src_of_edges(g).astype(np.int64)
+    dst = g.indices.astype(np.int64)
+    w = np.asarray(weights, dtype=np.float32)
+    D, rps = sb.n_shards, sb.rows_per_shard
+    plane = np.full((D, sb.num_vss_pad, spw, LANES, sigma), np.inf,
+                    dtype=np.float32)
+    for d in range(D):
+        lo, hi = d * rps, min((d + 1) * rps, n)
+        keep = (dst >= lo) & (dst < hi)
+        if not keep.any():
+            continue
+        # from_edges(dedup=True) emits edges in ascending (src·n + dst)
+        # key order — reduce the kept weights into that order (min merges
+        # parallel edges exactly like the mask OR does)
+        key = src[keep] * n + (dst[keep] - lo)
+        uk, inv = np.unique(key, return_inverse=True)
+        wsub = np.full(len(uk), np.inf, dtype=np.float32)
+        np.minimum.at(wsub, inv, w[keep])
+        sub = from_edges(n, src[keep], dst[keep] - lo,
+                         dedup=True, drop_loops=False)
+        pd = build_weight_plane(sub, wsub, sigma=sigma)
+        plane[d, :pd.shape[0]] = pd
+    return plane
+
+
 def weight_plane_to_device(plane: np.ndarray,
-                           device: "str | torch.device | None" = None
-                           ) -> torch.Tensor:
+                           device: "str | torch.device | None" = None, *,
+                           mesh=None, axis: str = "data") -> torch.Tensor:
     """Commit a weight plane to ``device`` (default: the card) as a
     ``(num_vss + 1, 32/σ, LANES, σ)`` float32 tensor.  The appended last
     row is all +inf: it mirrors the all-zero dummy mask row of
-    :func:`to_device`, so padded queue entries relax nothing."""
+    :func:`to_device`, so padded queue entries relax nothing.
+
+    A sharded plane ``(D, num_vss_pad, 32/σ, LANES, σ)``
+    (:func:`build_sharded_weight_plane`) takes the ``mesh``: this rank
+    keeps only its own shard (``axis``'s local rank), with the +inf row
+    appended, on its own device, the weight twin of
+    :func:`shard_to_device`."""
+    if plane.ndim == 5:
+        if mesh is None:
+            raise ConfigError("a sharded weight plane needs the mesh that "
+                              "says which shard this rank keeps")
+        dev = mesh_rank_device(mesh, device)
+        plane = plane[mesh.get_local_rank(axis)]
+    else:
+        dev = resolve_device(device)
     full = np.concatenate(
         [plane, np.full((1,) + plane.shape[1:], np.inf, np.float32)], axis=0)
-    return torch.from_numpy(np.ascontiguousarray(full)).to(
-        resolve_device(device))
+    return torch.from_numpy(np.ascontiguousarray(full)).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded BVSS (mesh-native build path, DESIGN §2.4)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardedBVSS:
+    """Row-partitioned BVSS: shard d owns destination rows
+    [d·rows_per_shard, (d+1)·rows_per_shard), i.e. the slices that pull INTO
+    its vertex range.  Row ids are LOCAL (dummy = rows_per_shard); slice-set
+    ids stay GLOBAL, because columns (frontier bits) are global — the σ-bit
+    frontier words are the one all-gathered array.  All shards are padded to
+    a common VSS count so one program serves every shard."""
+
+    n: int                       # global vertex count
+    m: int                       # global edge count
+    sigma: int
+    n_shards: int
+    rows_per_shard: int          # 32-aligned so row blocks = frontier words
+    num_vss_pad: int             # per-shard VSS count (padded to common max)
+    n_sets: int                  # GLOBAL slice sets (columns)
+    masks: np.ndarray            # (D, num_vss_pad, LANES) uint32
+    row_ids: np.ndarray          # (D, num_vss_pad, spw, LANES) int32 LOCAL
+    virtual_to_real: np.ndarray  # (D, num_vss_pad) int32 GLOBAL set ids
+    vss_start: np.ndarray        # (D, n + 1) int32 GLOBAL vertex -> LOCAL
+    vss_end: np.ndarray          #   VSS range [start, end) of the shard's
+                                 #   slice sets for the vertex's own set;
+                                 #   dummy vertex n maps to the empty range
+    max_vss_per_set: int         # static push expansion factor (max shard)
+
+    @property
+    def slices_per_word(self) -> int:
+        return 32 // self.sigma
+
+    @property
+    def n_frontier_words(self) -> int:
+        """Gathered (global) frontier length in uint32 words: the all-gather
+        of every shard's rows_per_shard//32 local words.  Covers n_sets·σ
+        bits because rows_per_shard·D ≥ n rounded up to 32."""
+        return self.n_shards * (self.rows_per_shard // 32)
+
+
+def build_sharded_bvss(g: Graph, n_shards: "int | tuple[int, int]",
+                       sigma: int = 8) -> "ShardedBVSS | ShardedBVSS2D":
+    """Row-partition ``g`` into ``n_shards`` rectangular (local rows ×
+    global columns) BVSS blocks.
+
+    Each shard's block is built by :func:`build_bvss` over the subgraph of
+    edges whose DESTINATION lands in the shard's row range, destinations
+    relabelled locally and sources (columns / frontier ids) kept global.
+
+    A ``(rows, cols)`` tuple selects the 2-D row × column partition
+    instead (:func:`build_sharded_bvss_2d`): device (i, j) owns the slices
+    pulling its row block from its column block of frontier words."""
+    if isinstance(n_shards, tuple):
+        rows, cols = n_shards
+        return build_sharded_bvss_2d(g, rows, cols, sigma=sigma)
+    n = g.n
+    rows_per_shard = -(-n // n_shards)
+    rows_per_shard = ((rows_per_shard + 31) // 32) * 32  # align frontier words
+    spw = 32 // sigma
+    src = src_of_edges(g)
+    dst = g.indices.astype(np.int64)
+    per_shard = []
+    for d in range(n_shards):
+        lo, hi = d * rows_per_shard, min((d + 1) * rows_per_shard, n)
+        keep = (dst >= lo) & (dst < hi)
+        # drop_loops=False: local dst ids numerically colliding with global
+        # src ids are NOT self loops
+        sub = from_edges(n, src[keep], dst[keep] - lo,
+                         dedup=True, drop_loops=False)
+        per_shard.append(build_bvss(sub, sigma=sigma))
+    num_vss_pad = max(max(b.num_vss for b in per_shard), 1)
+    D = n_shards
+    masks = np.zeros((D, num_vss_pad, LANES), np.uint32)
+    row_ids = np.full((D, num_vss_pad, spw, LANES), rows_per_shard, np.int32)
+    # pad VSS entries keep set id 0: their masks are all-zero, so a level
+    # whose frontier touches set 0 enqueues them as exact no-op pulls
+    v2r = np.zeros((D, num_vss_pad), np.int32)
+    # per-shard GLOBAL vertex -> LOCAL VSS range: columns are global in
+    # every shard block, so each per-shard real_ptrs spans all n_sets and
+    # the map mirrors to_device's vss_of_vertex_start/end per shard
+    vss_start = np.zeros((D, n + 1), np.int32)
+    vss_end = np.zeros((D, n + 1), np.int32)
+    verts = np.arange(n, dtype=np.int64)
+    sets = verts // sigma
+    for d, b in enumerate(per_shard):
+        vss_start[d, :n] = b.real_ptrs[sets]
+        vss_end[d, :n] = b.real_ptrs[sets + 1]
+        if b.num_vss == 0:
+            continue
+        masks[d, :b.num_vss] = b.masks
+        rid = b.row_ids.copy()
+        rid[rid == b.n] = rows_per_shard           # dummy -> local dummy
+        row_ids[d, :b.num_vss] = np.minimum(rid, rows_per_shard)
+        v2r[d, :b.num_vss] = b.virtual_to_real
+    return ShardedBVSS(n=n, m=g.m, sigma=sigma, n_shards=D,
+                       rows_per_shard=rows_per_shard,
+                       num_vss_pad=num_vss_pad,
+                       n_sets=(n + sigma - 1) // sigma,
+                       masks=masks, row_ids=row_ids, virtual_to_real=v2r,
+                       vss_start=vss_start, vss_end=vss_end,
+                       max_vss_per_set=max(
+                           max(b.max_vss_per_set for b in per_shard), 1))
+
+
+# ---------------------------------------------------------------------------
+# 2-D (row × column) sharded BVSS (butterfly partition, DESIGN §2.4)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardedBVSS2D:
+    """2-D partitioned BVSS: device (i, j) of a ``rows × cols`` mesh owns
+    the slices pulling its ROW block of destinations from its COLUMN block
+    of frontier words.
+
+    The column partition INTERLEAVES inside row blocks: column block j
+    owns, within every row block i, the sources
+    ``[i·rps + j·cpb, i·rps + (j+1)·cpb)`` where ``cpb = rps / cols``.
+    That makes a row block's fresh frontier words split into ``cols``
+    contiguous word segments (``rps`` is aligned to ``32·cols``), so the
+    per-level exchange along the row axis moves exactly one segment per
+    device — per-device volume shrinks by ``cols`` vs the flat 1-D gather.
+    Source ids are relabelled to the column block's LOCAL space
+    ``local(v) = (v // rps)·cpb + (v mod rps) − j·cpb`` of size
+    ``rows · cpb``; destination rows are LOCAL to the row block (dummy =
+    ``rps``).  Blocks stack row-major (block d = i·cols + j) and are
+    padded to a common VSS count so one program serves all of them.
+    ``rows >= cols`` is required so the local column space covers a row
+    block (``rows·cpb >= rps``) — checked at build."""
+
+    n: int
+    m: int
+    sigma: int
+    rows: int
+    cols: int
+    rows_per_shard: int          # aligned to 32·cols
+    cols_per_block: int          # cpb = rows_per_shard // cols
+    num_vss_pad: int             # per-block VSS count (padded to common max)
+    n_sets_local: int            # LOCAL slice sets = rows·cpb / sigma
+    masks: np.ndarray            # (rows·cols, num_vss_pad, LANES) uint32
+    row_ids: np.ndarray          # (rows·cols, num_vss_pad, spw, LANES) LOCAL
+    virtual_to_real: np.ndarray  # (rows·cols, num_vss_pad) LOCAL set ids
+    max_vss_per_set: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.rows * self.cols
+
+    @property
+    def slices_per_word(self) -> int:
+        return 32 // self.sigma
+
+    @property
+    def n_frontier_words_local(self) -> int:
+        """Per-device frontier words: the device's full COLUMN block,
+        ``rows`` segments of ``words_per_colseg`` words each."""
+        return self.rows * self.cols_per_block // 32
+
+    @property
+    def words_per_colseg(self) -> int:
+        """Words one row block contributes to one column block per level —
+        the unit the butterfly exchange moves."""
+        return self.cols_per_block // 32
+
+
+def build_sharded_bvss_2d(g: Graph, rows: int, cols: int, sigma: int = 8
+                          ) -> ShardedBVSS2D:
+    """Partition ``g`` into ``rows × cols`` BVSS blocks (see
+    :class:`ShardedBVSS2D` for the ownership contract)."""
+    if rows < 1 or cols < 1:
+        raise ConfigError(f"2-D shard shape ({rows}, {cols}) must be "
+                          f"positive")
+    if rows < cols:
+        raise ConfigError(
+            f"2-D BVSS partition needs rows >= cols, got ({rows}, {cols})"
+            f" — the interleaved column blocks must cover a row block")
+    n = g.n
+    rps = -(-n // rows)
+    align = 32 * cols  # column segments land on frontier-word boundaries
+    rps = ((rps + align - 1) // align) * align
+    cpb = rps // cols
+    n_loc = rows * cpb              # local column (source) space per block
+    spw = 32 // sigma
+    src = src_of_edges(g).astype(np.int64)
+    dst = g.indices.astype(np.int64)
+    soff = src % rps                # offset of each source in its row block
+    sblk = src // rps               # row block each source lives in
+    per_block: list[BVSS] = []
+    for i in range(rows):
+        lo, hi = i * rps, min((i + 1) * rps, n)
+        in_row = (dst >= lo) & (dst < hi)
+        for j in range(cols):
+            keep = in_row & (soff // cpb == j)
+            lsrc = sblk[keep] * cpb + (soff[keep] - j * cpb)
+            # drop_loops=False: relabelled ids colliding are not self loops
+            sub = from_edges(n_loc, lsrc, dst[keep] - lo,
+                             dedup=True, drop_loops=False)
+            per_block.append(build_bvss(sub, sigma=sigma))
+    num_vss_pad = max(max(b.num_vss for b in per_block), 1)
+    D = rows * cols
+    masks = np.zeros((D, num_vss_pad, LANES), np.uint32)
+    row_ids = np.full((D, num_vss_pad, spw, LANES), rps, np.int32)
+    # pad VSS entries keep set id 0: all-zero masks -> exact no-op pulls
+    v2r = np.zeros((D, num_vss_pad), np.int32)
+    for d, b in enumerate(per_block):
+        if b.num_vss == 0:
+            continue
+        masks[d, :b.num_vss] = b.masks
+        rid = b.row_ids.copy()
+        rid[rid == b.n] = rps                      # dummy -> local dummy
+        row_ids[d, :b.num_vss] = np.minimum(rid, rps)
+        v2r[d, :b.num_vss] = b.virtual_to_real
+    return ShardedBVSS2D(n=n, m=g.m, sigma=sigma, rows=rows, cols=cols,
+                         rows_per_shard=rps, cols_per_block=cpb,
+                         num_vss_pad=num_vss_pad,
+                         n_sets_local=n_loc // sigma,
+                         masks=masks, row_ids=row_ids, virtual_to_real=v2r,
+                         max_vss_per_set=max(
+                             max(b.max_vss_per_set for b in per_block), 1))
+
+
+class ShardedBVSSDevice(NamedTuple):
+    """One rank's block of a :class:`ShardedBVSS` (or
+    :class:`ShardedBVSS2D`) on the rank's device: the same (masks, row_ids,
+    virtual_to_real, vss_of_vertex_start/end) surface the single-device
+    engines read from :class:`BVSSDevice`.  One all-zero dummy VSS (index
+    ``num_vss_pad``) is appended, its rows mapped to the local dummy level
+    slot ``rows_per_shard``.  The reference stacks every shard on a leading
+    axis and lets ``shard_map`` strip it; a rank here holds only its own."""
+
+    masks: torch.Tensor            # (num_vss_pad + 1, LANES) int32
+    row_ids: torch.Tensor          # (num_vss_pad + 1, spw, LANES) int32
+    virtual_to_real: torch.Tensor  # (num_vss_pad + 1,) int32
+    # GLOBAL vertex -> LOCAL VSS range (push expansion); named like the
+    # BVSSDevice fields so the hybrid step reads one surface in both modes
+    vss_of_vertex_start: torch.Tensor  # (n + 1,) int32 ((1,) on 2-D)
+    vss_of_vertex_end: torch.Tensor
+
+
+def _put_block(masks: np.ndarray, row_ids: np.ndarray, v2r: np.ndarray,
+               vstart: np.ndarray, vend: np.ndarray, rps: int,
+               device: torch.device) -> ShardedBVSSDevice:
+    """One block's arrays with the dummy VSS appended, on ``device``."""
+    spw = row_ids.shape[1]
+    masks = np.concatenate([masks, np.zeros((1, LANES), np.uint32)])
+    row_ids = np.concatenate(
+        [row_ids, np.full((1, spw, LANES), rps, np.int32)])
+    v2r = np.concatenate([v2r, np.zeros(1, np.int32)])
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return ShardedBVSSDevice(masks=put(masks.view(np.int32)),
+                             row_ids=put(row_ids), virtual_to_real=put(v2r),
+                             vss_of_vertex_start=put(vstart),
+                             vss_of_vertex_end=put(vend))
+
+
+def shard_to_device(sb: ShardedBVSS, mesh=None, axis: str = "data", *,
+                    shard: int | None = None,
+                    device: "str | torch.device | None" = None
+                    ) -> ShardedBVSSDevice:
+    """Hand one rank its block of ``sb``: shard ``mesh.get_local_rank(axis)``
+    on the rank's own device (:func:`~repro_torch.distributed.bfs_dist.
+    mesh_rank_device`), with the dummy VSS appended.  Without a mesh,
+    ``shard`` and ``device`` say which block goes where."""
+    if mesh is not None:
+        device = mesh_rank_device(mesh, device)
+        shard = mesh.get_local_rank(axis)
+    else:
+        device = resolve_device(device)
+        if shard is None:
+            raise ConfigError("shard_to_device needs a mesh or a shard index")
+    return _put_block(sb.masks[shard], sb.row_ids[shard],
+                      sb.virtual_to_real[shard], sb.vss_start[shard],
+                      sb.vss_end[shard], sb.rows_per_shard, device)
+
+
+def shard_to_device_2d(sb: ShardedBVSS2D, mesh=None, *,
+                       shard: int | None = None,
+                       device: "str | torch.device | None" = None
+                       ) -> ShardedBVSSDevice:
+    """2-D twin of :func:`shard_to_device`: device (i, j) of the mesh takes
+    block ``i·cols + j`` (row-major).  The 2-D engines are pull-only
+    (DESIGN §2.4), so the push-phase vertex -> VSS maps are empty
+    placeholders that keep the :class:`ShardedBVSSDevice` surface
+    uniform."""
+    if mesh is not None:
+        device = mesh_rank_device(mesh, device)
+        row_axis, col_axis = mesh.mesh_dim_names
+        shard = (mesh.get_local_rank(row_axis) * sb.cols
+                 + mesh.get_local_rank(col_axis))
+    else:
+        device = resolve_device(device)
+        if shard is None:
+            raise ConfigError(
+                "shard_to_device_2d needs a mesh or a block index")
+    empty = np.zeros(1, np.int32)
+    return _put_block(sb.masks[shard], sb.row_ids[shard],
+                      sb.virtual_to_real[shard], empty, empty,
+                      sb.rows_per_shard, device)

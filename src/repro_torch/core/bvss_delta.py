@@ -40,7 +40,8 @@ verb.  Every path returns a NEW ``PreparedBFS`` with ``epoch + 1`` (the
 input value is never mutated); pass ``expected_epoch`` for a
 compare-and-swap that raises :class:`~repro_torch.errors.StaleEpochError`
 instead of merging onto a superseded base.  The mesh paths of the
-reference (the per-shard patch) come with ROADMAP.md queue 1 item 11.
+reference (the per-shard patch) come with ROADMAP.md queue 1 item 11e:
+a mesh-sharded preparation raises :class:`~repro_torch.errors.ConfigError`.
 """
 from __future__ import annotations
 
@@ -183,6 +184,11 @@ def apply_edge_updates(prepared: PreparedBFS, inserts=(), deletes=(), *,
             f"but the prepared state is at epoch {prepared.epoch} — "
             f"recompute the delta on the current epoch",
             expected=expected_epoch, actual=prepared.epoch)
+    if prepared.mesh is not None:
+        raise ConfigError(
+            "edge updates on a mesh-sharded preparation are not ported to "
+            "PyTorch yet: the per-shard patch comes with ROADMAP.md queue 1 "
+            "item 11e")
     g_ord = prepared.graph
     n = g_ord.n
     ins = _edge_batch(inserts, n, "inserts")

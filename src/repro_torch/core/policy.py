@@ -12,6 +12,11 @@ the card unless the options say ``device="cpu"``.  ``autotune=True``
 measures the hybrid's ladder and push cap for the device first
 (``core/autotune.py``); streaming edge updates evolve the result through
 :func:`repro_torch.core.bvss_delta.apply_edge_updates` (DESIGN §2.10).
+
+``prepare(graph, mesh=...)`` is the one SHARDED preparation too (DESIGN
+§2.4): the same order/scheme decisions run on the global BVSS on every
+rank, then each rank builds its own shard of the row-sharded problem and
+the engines run the same level loop on every rank of the mesh.
 """
 from __future__ import annotations
 
@@ -23,9 +28,13 @@ import torch
 
 from repro_torch.core.autotune import TileConfig, tune
 from repro_torch.core.bfs import BlestProblem, make_engine
-from repro_torch.core.bvss import (BVSS, build_bvss, build_weight_plane,
-                                   resolve_device, weight_plane_to_device)
+from repro_torch.core.bvss import (BVSS, build_bvss, build_sharded_bvss,
+                                   build_sharded_weight_plane,
+                                   build_weight_plane, resolve_device,
+                                   weight_plane_to_device)
 from repro_torch.core.ordering import auto_order
+from repro_torch.distributed.bfs_dist import mesh_is_2d, mesh_rank_device
+from repro_torch.distributed.collectives import axis_size
 from repro_torch.errors import (BlestError, ConfigError, check_source,
                                 check_weights)
 from repro_torch.graphs import Graph, src_of_edges
@@ -58,6 +67,8 @@ class PrepareOptions:
     autotune: bool = False                # measure hybrid knobs per device
     push_impl: Callable | None = None     # push-kernel seam
     device: str | None = None             # None = "cuda"; "cpu" on request
+    mesh: object | None = None            # row-shard over this DeviceMesh
+    mesh_axis: str = "data"               # row axis name of the mesh
     weights: np.ndarray | None = None     # per-edge weights of the INPUT g
 
     def replace(self, **changes) -> "PrepareOptions":
@@ -79,6 +90,8 @@ class PreparedBFS:
     update_divergence: float
     options: PrepareOptions
     _fn: Callable[[int], torch.Tensor] | None = dataclasses.field(default=None)
+    # mesh the problem is row-sharded over; None = single-device
+    mesh: object | None = None
     # per-edge weights in the REORDERED graph's CSR edge order (float32)
     # and their device weight plane, when prepared with weights
     weights: np.ndarray | None = None
@@ -124,27 +137,37 @@ BVSS_ENGINES = ("brs", "blest", "blest_lazy")
 
 
 def build_problem(g_ord: Graph, *, sigma: int = 8, mesh=None,
-                  bvss: BVSS | None = None,
+                  mesh_axis: str = "data", bvss: BVSS | None = None,
                   options: PrepareOptions | None = None,
                   device: "str | torch.device | None" = None
                   ) -> BlestProblem:
-    """Build the device problem for an (already ordered) graph — the one
-    dispatch every problem-building caller (``prepare``, the serving
-    tier's symmetrised problem) routes through.  ``options`` supplies
-    ``sigma`` and ``device`` in one value (an explicitly passed keyword
-    wins).  Single-device only: a ``mesh`` is a
-    :class:`~repro_torch.errors.ConfigError` (the mesh paths are
-    ROADMAP.md queue 1 item 11)."""
+    """Build the device problem for an (already ordered) graph: single-
+    device, 1-D row-sharded, or 2-D row × column-sharded depending on the
+    mesh — the one dispatch every problem-building caller (``prepare``,
+    the serving tier's symmetrised problem) routes through.  A 2-D mesh
+    (two named dimensions) partitions by ``(rows, cols) = mesh.shape``;
+    a 1-D one over its ``mesh_axis``.  Each rank keeps only its own shard
+    (:func:`~repro_torch.core.bvss.shard_to_device`), on its own device
+    (:func:`~repro_torch.distributed.bfs_dist.mesh_rank_device`: a mesh
+    of another device type than ``device`` is a
+    :class:`~repro_torch.errors.ConfigError`).  ``options`` supplies
+    ``sigma``, ``mesh``, ``mesh_axis`` and ``device`` in one value (an
+    explicitly passed keyword wins)."""
     if options is not None:
         sigma = options.sigma if sigma == 8 else sigma
+        mesh = options.mesh if mesh is None else mesh
+        mesh_axis = options.mesh_axis if mesh_axis == "data" else mesh_axis
         device = options.device if device is None else device
-    if mesh is not None:
-        raise ConfigError(
-            "mesh-sharded problems are not ported to PyTorch yet: they come "
-            "with the mesh slice (ROADMAP.md queue 1 item 11)")
-    if bvss is None:
-        bvss = build_bvss(g_ord, sigma=sigma)
-    return BlestProblem.build(bvss, device)
+    if mesh is None:
+        if bvss is None:
+            bvss = build_bvss(g_ord, sigma=sigma)
+        return BlestProblem.build(bvss, device)
+    mesh_rank_device(mesh, device)          # a DeviceMesh of device's type
+    if mesh_is_2d(mesh):
+        sb = build_sharded_bvss(g_ord, tuple(mesh.shape), sigma=sigma)
+        return BlestProblem.build_sharded_2d(sb, mesh, device)
+    sb = build_sharded_bvss(g_ord, axis_size(mesh, mesh_axis), sigma=sigma)
+    return BlestProblem.build_sharded(sb, mesh, mesh_axis, device)
 
 
 def prepare(g: Graph, options: PrepareOptions | None = None,
@@ -157,10 +180,24 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
     override its fields (``prepare(g, device="cpu")``).  With no CUDA
     device and no ``device="cpu"``, this raises
     :class:`~repro_torch.errors.ConfigError` before any work: the port
-    never quietly runs on the CPU."""
+    never quietly runs on the CPU.
+
+    ``mesh`` (a :class:`torch.distributed.device_mesh.DeviceMesh` from
+    :func:`~repro_torch.distributed.bfs_dist.bfs_mesh` or ``bfs_mesh2d``)
+    row-shards the problem over ``mesh_axis`` (2-D: rows × columns) and
+    builds the mesh-native engine (DESIGN §2.4).  Every rank calls
+    ``prepare`` on the same graph; the policy decisions come from the
+    global BVSS, each rank keeps its own shard on its own device
+    (``cuda:r``, or the CPU for a gloo mesh with ``device="cpu"``), and
+    ``levels(src)`` answers the whole graph on every rank.  Only the BVSS
+    engines shard (others raise ``ValueError``), and weights need a 1-D
+    mesh."""
     o = (options if options is not None else PrepareOptions()).replace(
         **fields)
-    device = resolve_device(o.device)
+    if o.mesh is None:
+        device = resolve_device(o.device)
+    else:
+        device = mesh_rank_device(o.mesh, o.device)
     w_arr = None if o.weights is None else check_weights(o.weights, g.m)
     if o.order:
         perm, kind = auto_order(g, sigma=o.sigma, w=o.w, seed=o.seed)
@@ -184,10 +221,37 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
     bvss = build_bvss(g_ord, sigma=o.sigma)
     engine_name = o.engine if o.engine is not None else \
         choose_update_scheme(bvss, threshold=o.lazy_threshold)
-    problem = build_problem(g_ord, bvss=bvss, device=device) \
-        if engine_name in BVSS_ENGINES else None
-    wplane = None if w_ord is None else weight_plane_to_device(
-        build_weight_plane(g_ord, w_ord, sigma=o.sigma), device)
+    wplane = None
+    if o.mesh is not None:
+        if engine_name not in BVSS_ENGINES:
+            raise ValueError(
+                f"mesh-native prepare supports the BVSS engines "
+                f"{BVSS_ENGINES}, not {engine_name!r} (the CSR/dense "
+                f"baselines have no row-sharded representation)")
+        if w_ord is not None and mesh_is_2d(o.mesh):
+            raise ConfigError(
+                "edge weights are not supported on a 2-D (row × column) "
+                "mesh yet — the weighted verbs ship 1-D row-sharded "
+                "(DESIGN §2.9); use a 1-D mesh or a single device")
+        if w_ord is not None:
+            # build the sharded BVSS once and derive both the problem and
+            # this rank's aligned weight plane from it
+            sb = build_sharded_bvss(g_ord, axis_size(o.mesh, o.mesh_axis),
+                                    sigma=o.sigma)
+            problem = BlestProblem.build_sharded(sb, o.mesh, o.mesh_axis,
+                                                 device)
+            wplane = weight_plane_to_device(
+                build_sharded_weight_plane(g_ord, w_ord, sb), device,
+                mesh=o.mesh, axis=o.mesh_axis)
+        else:
+            problem = build_problem(g_ord, sigma=o.sigma, mesh=o.mesh,
+                                    mesh_axis=o.mesh_axis, device=o.device)
+    else:
+        problem = build_problem(g_ord, bvss=bvss, device=device) \
+            if engine_name in BVSS_ENGINES else None
+        if w_ord is not None:
+            wplane = weight_plane_to_device(
+                build_weight_plane(g_ord, w_ord, sigma=o.sigma), device)
     tile_config: TileConfig | None = None
     tuned_kwargs: dict = {}
     if o.autotune and problem is not None:
@@ -201,8 +265,8 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
                        engine_name=engine_name, bvss=bvss, problem=problem,
                        device=device,
                        update_divergence=bvss.update_divergence(),
-                       options=o, _fn=fn, weights=w_ord, wplane=wplane,
-                       tile_config=tile_config)
+                       options=o, _fn=fn, mesh=o.mesh, weights=w_ord,
+                       wplane=wplane, tile_config=tile_config)
 
 
 def parents_from_levels(g: Graph, levels: np.ndarray) -> np.ndarray:

@@ -67,12 +67,16 @@ def bvss_push_level(F: torch.Tensor, vss_start: torch.Tensor,
     (``levels``) stores ``lvl`` where the row's level is above ``lvl``,
     lazy (``marks``) stores 1.  Exactly one of the two is given.
 
-    F (n_fwords,) int32; vss_start / vss_end (n + 1,) int32; masks
-    (V, 32) int32; row_ids (V, 32/σ, 32) int32; levels (n + 1,) int32 or
-    marks (n + 1,) uint8, returned after the update.  The VSS ranges and
-    rows are not checked against the arrays: they come from one BVSS
-    (``BVSSDevice``, whose dummy vertex n has an empty range).  CUDA
-    tensors launch the kernel; CPU tensors run
+    F (n_fwords,) int32 (bits at vertices >= n count as the dummy vertex
+    n); vss_start / vss_end (n + 1,) int32; masks (V, 32) int32; row_ids
+    (V, 32/σ, 32) int32; levels (N + 1,) int32 or marks (N + 1,) uint8 over
+    the rows that ``row_ids`` name, returned after the update.  N is the
+    levels' own length, not n: single-device N = n, while a mesh shard's
+    rows are its local ``rows_per_shard`` (dummy row N) under the global
+    vertex ranges.  The VSS ranges and rows are not checked against the
+    arrays: they come from one BVSS (``BVSSDevice`` or a
+    ``ShardedBVSSDevice`` block, whose dummy vertex n has an empty range).
+    CUDA tensors launch the kernel; CPU tensors run
     :func:`~repro_torch.kernels.ref.bvss_push_level_ref`."""
     from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
     if (levels is None) == (marks is None):
@@ -93,10 +97,11 @@ def bvss_push_level(F: torch.Tensor, vss_start: torch.Tensor,
     check_operand(vss_end, "vss_end", torch.int32, (n + 1,))
     check_operand(masks, "masks", torch.int32, (V, 32))
     check_operand(row_ids, "row_ids", torch.int32, (V, 32 // sigma, 32))
+    n_rows = out.shape[0] if out.dim() == 1 and out.shape[0] else -1
     if levels is not None:
-        check_operand(levels, "levels", torch.int32, (n + 1,))
+        check_operand(levels, "levels", torch.int32, (n_rows,))
     else:
-        check_operand(marks, "marks", torch.uint8, (n + 1,))
+        check_operand(marks, "marks", torch.uint8, (n_rows,))
     if masks.data_ptr() % 16:
         raise ConfigError("masks must be 16-byte aligned: the kernel reads "
                           "each 128-byte row as eight 16-byte loads")

@@ -226,8 +226,10 @@ extern "C" int bvss_push_launch(const void* masks, const void* bits,
   return static_cast<int>(cudaGetLastError());
 }
 
-// levels (n + 1,) int32 for the eager store, or marks (n + 1,) uint8 for the
-// lazy one: exactly one of the two is non-null.  masks must be 16-byte
+// levels (N + 1,) int32 for the eager store, or marks (N + 1,) uint8 for the
+// lazy one, indexed by row id only: N is n on one device and a shard's local
+// row count on a mesh, where n stays the global vertex count of vss_start /
+// vss_end.  Exactly one of the two is non-null.  masks must be 16-byte
 // aligned (its rows are read as uint4) and n below 2^31 - 1.
 extern "C" int bvss_push_level_launch(const void* F, long long n_fwords,
                                       const void* vss_start,

@@ -19,8 +19,9 @@ NumPy oracles in ``repro_torch.kernels.ref``; each ``VERIFIED`` suffix
 names the oracle that ran.
 
 The session runs on the CUDA card unless ``--device cpu`` asks for the CPU
-(the kernels' PyTorch twins).  ``--devices N > 1`` needs the mesh slice
-and raises :class:`~repro_torch.errors.ConfigError`.
+(the kernels' PyTorch twins).  ``--devices N > 1`` needs the sharded
+analytics (ROADMAP.md queue 1 item 11d) and raises
+:class:`~repro_torch.errors.ConfigError`.
 """
 from __future__ import annotations
 
@@ -68,8 +69,8 @@ def main(argv=None):
         ap.error(f"unknown --what entries {sorted(unknown)}")
     if args.devices != 1:
         raise ConfigError(
-            "--devices is not ported to PyTorch yet: it comes with the mesh "
-            "slice (ROADMAP.md queue 1 item 11)")
+            "--devices is not ported to PyTorch yet: it comes with the "
+            "sharded analytics (ROADMAP.md queue 1 item 11d)")
     resolve_device(args.device)     # no card and no --device cpu: raise now
 
     g = build_graph(args.graph, args.scale, args.seed)

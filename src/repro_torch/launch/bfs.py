@@ -22,20 +22,38 @@ sequential timing::
         --engine blest_full --sources 8 --service --queue \
         --verify-fraction 1.0 --device cpu
 
+``--devices N`` runs the whole pipeline mesh-native (DESIGN §2.4): the
+launcher spawns N ranks (one process each, a TCP store on 127.0.0.1, NCCL
+on the card and gloo under ``--device cpu``), every rank calls
+``prepare(g, mesh=...)`` on a 1-D mesh of N ranks and runs the same
+sources, and rank 0 prints a ``[bfs] sharded: ...`` line and the verdict::
+
+    PYTHONPATH=src python -m repro_torch.launch.bfs --graph road --scale 10 \
+        --engine blest_ac --sources 3 --devices 4 --device cpu
+
+``--devices 1`` is a mesh of one rank (the reference treats it as no
+mesh); without ``--devices`` the engines run on one device, no process
+group.  On the card N may not exceed the cards there are, and
+``--service`` with ``--devices`` waits for the sharded waves: both raise
+:class:`~repro_torch.errors.ConfigError` before any process starts.
+
 The engines run on the CUDA card unless ``--device cpu`` asks for the CPU
-(the kernels' PyTorch twins).  ``--devices N > 1`` needs the mesh and
-raises :class:`~repro_torch.errors.ConfigError` naming its slice.
+(the kernels' PyTorch twins).
 """
 from __future__ import annotations
 
 import argparse
+import socket
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import (GraphSessionManager, PrepareOptions, RequestQueue,
                          TimeoutResult, prepare)
 from repro_torch.core import reference_bfs
+from repro_torch.core.policy import BVSS_ENGINES
+from repro_torch.distributed import bfs_mesh
 from repro_torch.core.ordering import social_like_report
 from repro_torch.errors import ConfigError, KernelFaultError
 from repro_torch.graphs import generators as gen
@@ -129,6 +147,127 @@ def run_service(g, args) -> None:
           + ("; VERIFIED vs oracle" if args.verify else ""))
 
 
+def _free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_mesh(args, threads: int) -> None:
+    """--devices N: run :func:`run_bfs` on a 1-D mesh of N spawned ranks.
+
+    Checked before any process starts: N >= 1, no ``--service`` (the
+    sharded waves are ROADMAP.md queue 1 item 11c), a BVSS engine, and on
+    the card at least N cards.  A rank that fails makes the spawn raise
+    (the others are stopped)."""
+    n = args.devices
+    if n < 1:
+        raise ConfigError(f"--devices needs at least one rank, got {n}")
+    if args.service:
+        raise ConfigError(
+            "--service with --devices is not ported to PyTorch yet: it "
+            "comes with the sharded waves (ROADMAP.md queue 1 item 11c)")
+    engine = ENGINE_VARIANTS[args.engine]["engine"]
+    if engine not in (None, *BVSS_ENGINES):
+        raise ConfigError(
+            f"--devices requires a BVSS engine, not {args.engine}")
+    if args.device == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > have:
+            raise ConfigError(
+                f"--devices {n} needs {n} CUDA cards (one rank a card), "
+                f"only {have} available; --device cpu runs the ranks on "
+                f"the CPU")
+    import torch.multiprocessing as mp
+    mp.spawn(_rank_main, args=(n, _free_port(), args, threads), nprocs=n,
+             join=True)
+
+
+def _rank_main(rank: int, world: int, port: int, args, threads: int
+               ) -> None:
+    """One rank of ``--devices``: join the process group, build the 1-D
+    mesh, run the launcher's BFS pipeline on it; rank 0 prints."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(threads)
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if args.device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = bfs_mesh(world, device_type=args.device)
+        g = build_graph(args.graph, args.scale, args.seed)
+        if rank == 0:
+            describe_graph(g, args, mesh)
+        run_bfs(g, args, mesh=mesh, verbose=rank == 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def describe_graph(g, args, mesh=None) -> None:
+    """The launcher's first line: the graph, its class, the device (and
+    the mesh's shape)."""
+    rep = social_like_report(g)
+    print(f"[bfs] graph={args.graph} n={g.n} m={g.m} "
+          f"social_like={rep.is_social} (top1={rep.top1_share:.2f} "
+          f"slope={rep.ll_slope:.2f}) device={args.device}"
+          + (f" mesh={mesh.size()}x1" if mesh is not None else ""),
+          flush=True)
+
+
+def run_bfs(g, args, *, mesh=None, verbose: bool = True) -> None:
+    """Prepare ``g`` for the chosen variant (on ``mesh`` when given),
+    time ``--sources`` BFSs and check each against the host oracle."""
+    def say(line: str) -> None:
+        if verbose:
+            print(line, flush=True)
+
+    variant = ENGINE_VARIANTS[args.engine]
+    t0 = time.time()
+    prep = prepare(g, options=PrepareOptions(
+        w=512, seed=args.seed, order=variant["order"],
+        engine=variant["engine"], device=args.device, mesh=mesh))
+    prep_s = time.time() - t0
+    if mesh is not None:
+        pb = prep.problem
+        say(f"[bfs] sharded: {pb.n_shards} shards x "
+            f"{pb.rows_per_shard} rows, {pb.num_vss} VSS/shard (padded), "
+            f"frontier={pb.n_fwords * 4}B/level all-gather")
+    if variant["order"]:
+        say(f"[bfs] ordering={prep.ordering} "
+            f"(prepare={prep_s:.2f}s incl. BVSS+engine), "
+            f"bandwidth={prep.graph.bandwidth()}")
+    b = prep.bvss
+    say(f"[bfs] BVSS: num_vss={b.num_vss} slices={b.num_slices} "
+        f"compression={b.compression_ratio():.3f} "
+        f"update_divergence={b.update_divergence():.0f} "
+        f"memory={b.memory_bytes()['total'] / 1e6:.1f}MB")
+    if variant["engine"] is None:
+        say(f"[bfs] policy chose update scheme: {prep.engine_name}")
+
+    rng = np.random.default_rng(args.seed)
+    srcs = rng.integers(0, g.n, args.sources)
+    lv = prep.levels(int(srcs[0]))  # warm: kernel build, allocator
+    times = []
+    for s in srcs:
+        t0 = time.time()
+        lv = prep.levels(int(s))    # ends in a device-to-host copy
+        times.append(time.time() - t0)
+        if args.verify:
+            ref = reference_bfs(g, int(s))
+            if not (lv == ref).all():
+                raise KernelFaultError(
+                    f"{args.engine} levels diverge from the oracle from "
+                    f"source {s}")
+    reached = int((lv != np.iinfo(np.int32).max).sum())
+    say(f"[bfs] {args.engine}: {np.mean(times) * 1e3:.2f} ms/BFS "
+        f"(median {np.median(times) * 1e3:.2f}) over {args.sources} "
+        f"sources; last run reached {reached}/{g.n} vertices"
+        + ("; VERIFIED vs oracle" if args.verify else ""))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="rmat",
@@ -164,62 +303,22 @@ def main(argv=None):
                          "cross-checked against the host oracle (failing "
                          "sessions are quarantined and re-served on the "
                          "reference path)")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="more than 1 is not ported yet: raises "
-                         "ConfigError")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="row-shard the BFS over a 1-D mesh of N ranks, "
+                         "one spawned process each (NCCL on the card, "
+                         "gloo under --device cpu)")
     args = ap.parse_args(argv)
-    if args.devices != 1:
-        raise ConfigError(
-            "--devices is not ported to PyTorch yet: it comes with the mesh "
-            "slice (ROADMAP.md queue 1 item 11)")
+    if args.devices is not None:
+        spawn_mesh(args, threads=max(1, torch.get_num_threads()
+                                     // max(args.devices, 1)))
+        return
 
     g = build_graph(args.graph, args.scale, args.seed)
-    rep = social_like_report(g)
-    print(f"[bfs] graph={args.graph} n={g.n} m={g.m} "
-          f"social_like={rep.is_social} (top1={rep.top1_share:.2f} "
-          f"slope={rep.ll_slope:.2f}) device={args.device}")
-
+    describe_graph(g, args)
     if args.service:
         run_service(g, args)
         return
-
-    variant = ENGINE_VARIANTS[args.engine]
-    t0 = time.time()
-    prep = prepare(g, options=PrepareOptions(
-        w=512, seed=args.seed, order=variant["order"],
-        engine=variant["engine"], device=args.device))
-    prep_s = time.time() - t0
-    if variant["order"]:
-        print(f"[bfs] ordering={prep.ordering} "
-              f"(prepare={prep_s:.2f}s incl. BVSS+engine), "
-              f"bandwidth={prep.graph.bandwidth()}")
-    b = prep.bvss
-    print(f"[bfs] BVSS: num_vss={b.num_vss} slices={b.num_slices} "
-          f"compression={b.compression_ratio():.3f} "
-          f"update_divergence={b.update_divergence():.0f} "
-          f"memory={b.memory_bytes()['total'] / 1e6:.1f}MB")
-    if variant["engine"] is None:
-        print(f"[bfs] policy chose update scheme: {prep.engine_name}")
-
-    rng = np.random.default_rng(args.seed)
-    srcs = rng.integers(0, g.n, args.sources)
-    lv = prep.levels(int(srcs[0]))  # warm: kernel build, allocator
-    times = []
-    for s in srcs:
-        t0 = time.time()
-        lv = prep.levels(int(s))    # ends in a device-to-host copy
-        times.append(time.time() - t0)
-        if args.verify:
-            ref = reference_bfs(g, int(s))
-            if not (lv == ref).all():
-                raise KernelFaultError(
-                    f"{args.engine} levels diverge from the oracle from "
-                    f"source {s}")
-    reached = int((lv != np.iinfo(np.int32).max).sum())
-    print(f"[bfs] {args.engine}: {np.mean(times) * 1e3:.2f} ms/BFS "
-          f"(median {np.median(times) * 1e3:.2f}) over {args.sources} "
-          f"sources; last run reached {reached}/{g.n} vertices"
-          + ("; VERIFIED vs oracle" if args.verify else ""))
+    run_bfs(g, args)
 
 
 if __name__ == "__main__":

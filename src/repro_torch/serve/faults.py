@@ -23,8 +23,8 @@ CUDA kernels (their PyTorch twins on CPU tensors):
 * ``stall_shard`` / ``stall_butterfly_stage`` — the mesh's ``gather_impl``
   seam.  A plan may set one or the other, never both.  On one device no
   engine consults that seam, so such a plan is accepted and inert, as in
-  the reference; the gather it would wrap comes with the mesh slice
-  (ROADMAP.md queue 1 item 11).
+  the reference; the mesh engines' gather it would wrap takes the seam
+  with the sharded waves (ROADMAP.md queue 1 item 11c).
 
 Each wrapper is a torch op on the kernel's output, out of place, so the
 kernel itself runs unchanged.  Every injected fault must surface as a
@@ -133,8 +133,9 @@ class FaultPlan:
         def stalled_gather(*args, **kwargs):
             raise ConfigError(
                 f"FaultPlan({which}) wraps the frontier all-gather of a "
-                f"mesh engine, which is not ported to PyTorch yet: it comes "
-                f"with the mesh slice (ROADMAP.md queue 1 item 11)")
+                f"mesh wave engine, which is not ported to PyTorch yet: it "
+                f"comes with the sharded waves (ROADMAP.md queue 1 item "
+                f"11c)")
 
         return stalled_gather
 

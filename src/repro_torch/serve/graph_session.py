@@ -40,9 +40,9 @@ push cap for the device (``core/autotune.py``).
 ``core/bvss_delta.py``) and swaps the session to the next epoch; waves in
 flight finish on the epoch they started with.
 
-Not ported yet: the ``mesh`` constructor option, which raises
-:class:`~repro_torch.errors.ConfigError` naming its ROADMAP.md slice
-(queue 1 item 11).
+Not ported yet: the ``mesh`` constructor option (the sharded waves),
+which raises :class:`~repro_torch.errors.ConfigError` naming its
+ROADMAP.md slice (queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -106,10 +106,11 @@ class GraphSession:
                  mesh_axis: str = "data", weights=None,
                  fault_plan: FaultPlan | None = None):
         t0 = time.time()
-        if mesh is not None:
+        if mesh is not None or getattr(options, "mesh", None) is not None:
             raise ConfigError(
                 "a mesh-sharded session is not ported to PyTorch yet: it "
-                "comes with the mesh slice (ROADMAP.md queue 1 item 11)")
+                "comes with the mesh slice's sharded waves (ROADMAP.md queue 1 "
+                "item 11c)")
         if options is None:
             options = PrepareOptions(
                 sigma=sigma, w=w, seed=seed, lazy_threshold=lazy_threshold,

@@ -169,7 +169,7 @@ def test_prepare_keyword_fields_and_validation():
     assert a.engine_name == b.engine_name == "blest_lazy"
     np.testing.assert_array_equal(a.levels(3), b.levels(3))
     with pytest.raises(TypeError):
-        repro_torch.prepare(tg, device="cpu", mesh=None)
+        repro_torch.prepare(tg, device="cpu", mesh_shape=None)
     with pytest.raises(GraphValidationError):
         a.levels(tg.n)
     with pytest.raises(GraphValidationError):

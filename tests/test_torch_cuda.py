@@ -700,3 +700,51 @@ def test_cuda_autotune_cached_class_makes_no_launches(cuda_device):
     np.testing.assert_array_equal(p2.levels(0),
                                   repro_torch.reference_bfs(g, 0))
     autotune.clear_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_world_one_equals_oracle(cuda_device):
+    """The mesh path on the card at world size 1 (one card holds one NCCL
+    rank): the 1-D eager, lazy and BRS engines and the 2-D (1, 1) engine
+    equal the oracle, and the shard's levels go through the hand kernels
+    (``bvss_pull``, ``bvss_push_level``, ``finalize_pack_sweep``; 2-D:
+    ``bvss_pull`` alone).  Multi-card NCCL is not exercised here."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import bfs_mesh, bfs_mesh2d
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        g = repro_torch.generators.grid2d(256, 256)   # pushes from corners
+        srcs = (0, g.n - 1)
+        mesh, mesh2 = bfs_mesh(1), bfs_mesh2d(1, 1)
+        for eng, kernels in (
+                ("blest", ("bvss_pull", "bvss_push_level",
+                           "finalize_pack_sweep")),
+                ("blest_lazy", ("bvss_pull", "bvss_push_level",
+                                "finalize_pack_sweep")),
+                ("brs", ("bvss_pull", "finalize_pack_sweep"))):
+            pb = repro_torch.prepare(g, mesh=mesh, engine=eng)
+            assert pb.problem.device == torch.device("cuda", 0)
+            before = tk.launch_counts()
+            for s in srcs:
+                np.testing.assert_array_equal(
+                    pb.levels(s), repro_torch.reference_bfs(g, s))
+            after = tk.launch_counts()
+            for k in kernels:
+                assert after[k] > before[k], (eng, k)
+        pb = repro_torch.prepare(g, mesh=mesh2)
+        before = tk.launch_counts()
+        for s in srcs:
+            np.testing.assert_array_equal(pb.levels(s),
+                                          repro_torch.reference_bfs(g, s))
+        after = tk.launch_counts()
+        assert after["bvss_pull"] > before["bvss_pull"]
+        assert after["finalize_pack_sweep"] == before["finalize_pack_sweep"]
+    finally:
+        dist.destroy_process_group()

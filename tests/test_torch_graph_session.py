@@ -397,7 +397,9 @@ def test_fault_plan_session_equals_plain_session(social_pair, plan):
 def test_build_problem_is_single_device():
     from repro_torch.core.policy import build_problem
     g = tgen.grid2d(5, 7)
-    with pytest.raises(ConfigError, match="mesh slice"):
+    # a mesh must be a DeviceMesh (the sharded builds are
+    # tests/test_torch_distributed*.py's)
+    with pytest.raises(ConfigError, match="DeviceMesh"):
         build_problem(g, mesh=object(), device="cpu")
     p = build_problem(g, sigma=4, device="cpu")
     assert p.sigma == 4 and p.device.type == "cpu" and p.n == g.n

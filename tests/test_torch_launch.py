@@ -45,7 +45,7 @@ def test_cli_verifies_every_variant_on_cpu(variant, capsys):
     assert "device=cpu" in out[0]
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"]])
+@pytest.mark.parametrize("flag", [["--devices", "2", "--service"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(ConfigError, match="not ported"):
         tlaunch.main(["--graph", "road", "--scale", "6", "--device", "cpu",
