@@ -94,7 +94,7 @@ Phases (any failure exits non-zero before the result line):
    1a, 1b and 4 at the reference's sizes, their derived columns equal to
    the JAX package's (``PAPER_TABLE_DERIVED``; ``paper_tables_host``);
    Figure 3, compression and ms per BFS for windows 8 ... 4096 on
-   ``clustered(256, 64)`` (``fig3_clustered_16``, cut to scale 14); the
+   ``clustered(128, 64)`` (``fig3_clustered_16``, cut to scale 13); the
    RMAT scale sweep at scales 14, 16 and 18, MTEPS and the
    ``memory_bytes`` model beside ``torch.cuda.max_memory_allocated``
    (``bench_scale_rmat``); and ``bench_analytics.run(scale=12)``, the
@@ -151,7 +151,7 @@ Phases (any failure exits non-zero before the result line):
    each part right after the phase whose ordered graph it reuses:
    ``prepare(p.graph, order=False, mesh=bfs_mesh(1))`` on phase 3's grid
    and phase 4's ``rmat(18)``, the 1-D eager engine for the phase's
-   sources and the lazy one (the grid: for two, as phase 3's lazy), the
+   sources and the lazy one (the grid: both for two, as phase 3's lazy), the
    sharded BRS and the 2-D ``bfs_mesh2d(1, 1)`` engine for the first
    source (on the grid cut at PROFILE_LEVELS levels), each equal to the
    oracle with its kernels launched on the shard (2-D: ``bvss_pull``
@@ -161,10 +161,32 @@ Phases (any failure exits non-zero before the result line):
    MESH_PROFILE_LEVELS levels); the grid's sharded and single-device
    eager BFSs profiled over MESH_PROFILE_LEVELS levels, device and host
    (``mesh_grid2d_2048``, ``profile_mesh_grid2d_2048_single`` and
-   ``_mesh``, ``mesh_rmat_18``); then
+   ``_mesh``, ``mesh_rmat_18``); and
    ``python -m repro_torch.launch.bfs --devices 1`` in a child process
-   ending ``VERIFIED vs oracle`` and ``--devices 2`` raising
-   ``ConfigError`` on one card (``mesh_launch_cli``).
+   (started with phase 12's launchers) ending ``VERIFIED vs oracle`` and
+   ``--devices 2`` raising ``ConfigError`` on one card
+   (``mesh_launch_cli``);
+12. the mesh-native session at world size 1, on the same one-rank NCCL
+   group, each part right after the phase whose graph and oracle answers
+   it reuses: ``GraphSession(p.graph, mesh=bfs_mesh(1), max_batch=8,
+   order=False, weights=p.weights)`` on phase 4's weighted ``rmat(18)``
+   serves phase 4's calls (the wave of 24 through 8 slots, the closeness
+   and betweenness cohorts of 8, ``pagerank()``) and an ``sssp_batch`` of
+   MESH_SSSP_SOURCES (also run on phase 4's session), each equal to phase
+   4's oracle answers and launching each kernel exactly as often as on
+   one device, with ms and host syncs beside phase 4's
+   (``mesh_session_rmat_18``); the 2-D ``bfs_mesh2d(1, 1)`` session's
+   ``levels_batch`` of 8 and betweenness cohort against the oracles, its
+   ``sssp_batch`` and ``pagerank`` raising ``ConfigError``
+   (``mesh_session2d_rmat_18``); on phase 5's ``rmat(16)``,
+   ``components()`` and ``eccentricity_batch`` of 8 through a mesh
+   session's symmetrised problem (``mesh_verbs_rmat_16``) and
+   ``FaultPlan(stall_shard=0)`` under ``GraphSessionManager(
+   verify_fraction=1.0)``: answers the oracle's through one quarantine,
+   the bare wave diverging (``mesh_serve_faults``); then, in child
+   processes started together, ``launch.bfs --service --devices 1`` with
+   and without ``--queue`` and ``launch.analytics --devices 1``, each
+   ending ``VERIFIED`` (``mesh_launch_service``).
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -238,6 +260,11 @@ def fail(msg: str) -> None:
 
 
 _PHASE_CLOCK = [time.perf_counter()]
+#: every phase line printed so far, by phase name (a later phase reports
+#: its numbers beside an earlier one's)
+EMITTED: dict = {}
+#: oracle answers a later phase reuses for the same calls, by phase name
+ORACLES: dict = {}
 
 
 def emit(obj: dict) -> None:
@@ -247,6 +274,7 @@ def emit(obj: dict) -> None:
         now = time.perf_counter()
         obj = {**obj, "phase_s": now - _PHASE_CLOCK[0]}
         _PHASE_CLOCK[0] = now
+        EMITTED[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -1291,6 +1319,7 @@ def closeness_phase(torch, rt, sess, g, sources, card: str) -> dict:
     counts = launch_counts()
     require_launches(counts, "closeness_batch", ("bvss_spmm",))
     want = closeness_ref(g, sources)
+    ORACLES["closeness_batch_rmat_18"] = (sources, want)
     err = float(np.max(np.abs(cc - want) / np.maximum(np.abs(want), 1e-300)))
     if cc.shape != want.shape or not np.all(np.isfinite(cc)) or err > 1e-12:
         fail(f"closeness_batch differs from closeness_ref (rel err {err})")
@@ -1336,6 +1365,7 @@ def verbs_phase(torch, rt, sess, g, rng, card: str) -> dict:
         fail("components() differs from connected_components_ref")
     if not np.array_equal(ecc, eccentricity_ref(gs, srcs)):
         fail("eccentricity_batch differs from eccentricity_ref")
+    ORACLES["verbs_rmat_16_symmetrised"] = (want, srcs, ecc)
     # the report's witnesses: periphery has eccentricity diameter_lb,
     # center has radius_ub, both in the largest component
     big = np.bincount(want).argmax()
@@ -1391,6 +1421,7 @@ def betweenness_phase(torch, sess, g, sources, card: str) -> dict:
     t0 = time.perf_counter()
     want = betweenness_ref(g, sources)
     oracle_s = time.perf_counter() - t0
+    ORACLES["betweenness_rmat_18"] = want
     err = np.abs(bc - want)
     if bc.shape != want.shape or not np.all(np.isfinite(bc)) or \
             bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
@@ -1446,6 +1477,7 @@ def sssp_phase(torch, rt, sess, g, sources, card: str, name: str,
     else:
         want = sssp_ref(g, sources, weights)
     oracle_s = time.perf_counter() - t0
+    ORACLES[name] = want
     if dist.shape != want.shape or not np.array_equal(dist, want):
         bad = int(np.count_nonzero(dist != want))
         fail(f"{name}: sssp_batch differs from the oracle at {bad} entries")
@@ -1480,6 +1512,7 @@ def pagerank_phase(torch, sess, g, card: str) -> dict:
     t0 = time.perf_counter()
     want = pagerank_ref(g)
     oracle_s = time.perf_counter() - t0
+    ORACLES["pagerank_rmat_18"] = want
     rel = float(np.max(np.abs(pr - want) / want))
     total = float(pr.sum())
     if pr.shape != want.shape or not rel <= 1e-4 or \
@@ -1716,7 +1749,7 @@ def cli_phase(torch, card: str) -> dict:
 # room for phase 10 within the script's time limit
 ANALYTICS_ARGS = ["--graph", "rmat", "--scale", "14", "--sources", "8",
                   "--max-batch", "8", "--verify"]
-FIG3_SCALE = 14                  # clustered(256, 64); cut from 16 (PERF.md)
+FIG3_SCALE = 13                  # clustered(128, 64); cut from 16 (PERF.md)
 SCALE_SWEEP = (14, 16, 18)       # the RMAT scale sweep's scales
 ANALYTICS_BENCH_SCALE = 12       # bench_analytics' graph suite scale
 
@@ -2853,7 +2886,7 @@ def bench_hybrid_phase(torch, card: str) -> dict:
 # ---------------------------------------------------------------------------
 # phase 11: the mesh-native BFS on torch.distributed, at world size 1
 # ---------------------------------------------------------------------------
-MESH_LAZY_GRID_SOURCES = 2       # the grid's lazy sources, as phase 3's lazy
+MESH_GRID_SOURCES = 2            # the grid's eager and lazy mesh sources
 MESH_PROFILE_LEVELS = 256        # the grid's profiled and sync-counted levels
 MESH_LAUNCH_ARGS = ["--graph", "road", "--scale", str(CLI_SCALE),
                     "--engine", "blest_full", "--sources", "2"]
@@ -3039,24 +3072,16 @@ def mesh_phase(torch, rt, name: str, g, p, sources, oracle, single: dict,
     return total
 
 
-def mesh_launch_phase(torch, card: str) -> None:
-    """``python -m repro_torch.launch.bfs --devices 1`` in a child process
-    (it spawns its own rank and NCCL group), ending ``VERIFIED vs
-    oracle``; and ``--devices 2`` raising ConfigError on a one-card
-    machine before any process starts."""
+def mesh_launch_phase(torch, lines: list, card: str) -> None:
+    """``python -m repro_torch.launch.bfs --devices 1``, run in a child
+    process (it spawns its own rank and NCCL group) beside phase 12's
+    launchers (``lines``: its output), ending ``VERIFIED vs oracle``; and
+    ``--devices 2`` raising ConfigError on a one-card machine before any
+    process starts."""
     from repro_torch.errors import ConfigError
     from repro_torch.launch import bfs as launcher
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.bfs", *MESH_LAUNCH_ARGS,
-         "--devices", "1"], cwd=ROOT, capture_output=True, text=True,
-        timeout=600, env={**__import__("os").environ,
-                          "PYTHONPATH": str(ROOT / "src")})
-    lines = out.stdout.strip().splitlines()
-    if out.returncode or not lines or \
-            not lines[-1].endswith("VERIFIED vs oracle") or \
-            not any(ln.startswith("[bfs] sharded: 1 shards") for ln in lines):
-        fail(f"launcher --devices 1 (rc {out.returncode}): {out.stdout}\n"
-             f"{out.stderr[-3000:]}")
+    if not any(ln.startswith("[bfs] sharded: 1 shards") for ln in lines):
+        fail(f"launcher --devices 1 printed no sharded line: {lines}")
     refused = None
     if torch.cuda.device_count() == 1:
         try:
@@ -3067,6 +3092,368 @@ def mesh_launch_phase(torch, card: str) -> None:
             fail("launcher --devices 2 did not raise ConfigError on one card")
     emit({"phase": "mesh_launch_cli", "lines": lines,
           "devices_2_on_one_card": refused, "card": card})
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the mesh-native session on torch.distributed, at world size 1
+# ---------------------------------------------------------------------------
+MESH_SSSP_SOURCES = 4            # the mesh session's sssp_batch cohort
+MESH_2D_QUERIES = SLOTS          # the 2-D session's levels_batch
+MESH_FAULT_QUERIES = 4
+MESH_SERVICE_RUNS = {
+    # phase 11's launcher (mesh_launch_cli), started with phase 12's
+    "bfs": ["repro_torch.launch.bfs", *MESH_LAUNCH_ARGS, "--devices", "1"],
+    "service": ["repro_torch.launch.bfs", *MESH_LAUNCH_ARGS, "--service",
+                "--verify-fraction", "1.0", "--devices", "1"],
+    "service_queue": ["repro_torch.launch.bfs", *MESH_LAUNCH_ARGS,
+                      "--service", "--queue", "--verify-fraction", "1.0",
+                      "--devices", "1"],
+    # the analytics CLI's own small graph, rmat(10)
+    "analytics": ["repro_torch.launch.analytics", "--devices", "1"],
+}
+
+
+def timed_verb(torch, fn):
+    """``(result, wall ms, launch counts)`` of one verb call (each ends in
+    a device-to-host copy)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, wall_ms, launch_counts()
+
+
+def same_launches(name: str, got: dict, want: dict, kernels: tuple) -> dict:
+    """At world size 1 the sharded engines take the single-device
+    decisions, so each kernel launches exactly as often as on one device
+    for the same call."""
+    pairs = {k: [got[k], want[k]] for k in kernels}
+    if any(a != b for a, b in pairs.values()):
+        fail(f"{name}: launches on the mesh differ from one device's "
+             f"(mesh, single): {pairs}")
+    return pairs
+
+
+def mesh_session_phase(torch, rt, g, p, sess, mesh, queries, fsrcs,
+                       oracle, card: str) -> dict:
+    """``GraphSession(mesh=bfs_mesh(1), max_batch=SLOTS)`` on phase 4's
+    ordered, weighted ``rmat(18)`` (``order=False``: no second ordering
+    pass): the same calls as phase 4 through the mesh session, each equal
+    to phase 4's oracle answers, with ms, host syncs and launches beside
+    phase 4's single-device values; ``sssp_batch`` of MESH_SSSP_SOURCES is
+    run on the single-device session too, for its counterpart."""
+    perm = p.perm
+    t0 = time.perf_counter()
+    msess = rt.GraphSession(p.graph, max_batch=SLOTS, mesh=mesh,
+                            order=False, weights=p.weights)
+    prepare_s = time.perf_counter() - t0
+    if msess.engine_name != p.engine_name:
+        fail(f"mesh session chose {msess.engine_name}, one device "
+             f"{p.engine_name}")
+    verbs: dict = {}
+    total: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # the wave: 24 queries through 8 slots, phase 4's
+    stats = msess._ms.stats
+    before = dict(stats)
+    lvs, wall, c = timed_verb(torch, lambda: msess.levels_batch(
+        perm[np.asarray(queries)]))
+    require_launches(c, "mesh levels_batch", ("bvss_spmm",))
+    for s, lv in zip(queries, lvs):
+        if not np.array_equal(lv[perm], oracle(g, s)):
+            fail(f"mesh levels_batch: source {s} differs from the oracle")
+    delta = {k: stats[k] - before[k] for k in stats}
+    levels_run = delta["pull_levels"] + delta["push_levels"]
+    one = EMITTED["wave_rmat_18"]
+    verbs["levels_batch"] = {
+        "queries": len(queries), "wall_ms": wall,
+        "single_wall_ms": one["wall_ms"], "levels_run": levels_run,
+        "single_levels_run": one["levels_run"],
+        "ms_per_level": wall / max(levels_run, 1),
+        "single_ms_per_level": one["ms_per_level"],
+        "host_syncs": delta["host_syncs"],
+        "host_syncs_per_level": delta["host_syncs"] / max(levels_run, 1),
+        "single_host_syncs": one["host_syncs"],
+        "single_host_syncs_per_level": one["host_syncs"]
+        / max(one["levels_run"], 1),
+        "launches": same_launches("mesh levels_batch", c, one["launches"],
+                                  ("bvss_spmm",))}
+    add(c)
+    # a closeness cohort, phase 4's sources
+    csrcs, want = ORACLES["closeness_batch_rmat_18"]
+    cc, wall, c = timed_verb(torch, lambda: msess.closeness_batch(
+        perm[np.asarray(csrcs)]))
+    err = float(np.max(np.abs(cc - want) / np.maximum(np.abs(want), 1e-300)))
+    if not err <= 1e-12:
+        fail(f"mesh closeness_batch differs from closeness_ref ({err})")
+    one = EMITTED["closeness_batch_rmat_18"]
+    verbs["closeness_batch"] = {
+        "sources": len(csrcs), "wall_ms": wall,
+        "single_wall_ms": one["wall_ms"], "max_rel_err": err,
+        "tolerance": "rtol 1e-12",
+        "launches": same_launches("mesh closeness", c, one["launches"],
+                                  ("bvss_spmm",))}
+    add(c)
+    # a betweenness cohort, phase 4's float-channel sources
+    bc, wall, c = timed_verb(torch, lambda: msess.betweenness_batch(
+        perm[np.asarray(fsrcs)]))
+    bc, want = bc[perm], ORACLES["betweenness_rmat_18"]
+    err = np.abs(bc - want)
+    if not np.all(np.isfinite(bc)) or \
+            bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
+        fail(f"mesh betweenness differs from betweenness_ref "
+             f"({float(err.max())})")
+    f = msess._bc_fn(len(fsrcs))
+    one = EMITTED["betweenness_rmat_18"]
+    verbs["betweenness_batch"] = {
+        "sources": len(fsrcs), "wall_ms": wall,
+        "single_wall_ms": one["wall_ms"],
+        "forward_levels": f.engine.stats["pull_levels"],
+        "backward_levels": f.stats["backward_levels"],
+        "host_syncs": f.engine.stats["host_syncs"] + f.stats["host_syncs"],
+        "single_host_syncs": one["host_syncs"],
+        "max_abs_err": float(err.max()),
+        "tolerance": "rtol 1e-4, atol 1e-4",
+        "launches": same_launches(
+            "mesh betweenness", c, one["launches"],
+            ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))}
+    add(c)
+    # an SSSP cohort of MESH_SSSP_SOURCES, on the mesh and on one device
+    srcs = fsrcs[:MESH_SSSP_SOURCES]
+    want = ORACLES["sssp_rmat_18"][:MESH_SSSP_SOURCES]
+    dist, wall, c = timed_verb(torch, lambda: msess.sssp_batch(
+        perm[np.asarray(srcs)]))
+    single, single_wall, sc = timed_verb(torch,
+                                         lambda: sess.sssp_batch(srcs))
+    for tag, d in (("mesh", dist[:, perm]), ("single", single)):
+        if not np.array_equal(d, want):
+            fail(f"{tag} sssp_batch differs from Dijkstra at "
+                 f"{int(np.count_nonzero(d != want))} entries")
+    verbs["sssp_batch"] = {
+        "sources": len(srcs), "wall_ms": wall, "single_wall_ms": single_wall,
+        "relaxations": msess._sssp_fn(len(srcs)).stats["relaxations"],
+        "tolerance": "exact",
+        "launches": same_launches("mesh sssp_batch", c, sc,
+                                  ("bvss_spmm_minplus",))}
+    add(c)
+    # pagerank
+    pr, wall, c = timed_verb(torch, msess.pagerank)
+    pr, want = pr[perm], ORACLES["pagerank_rmat_18"]
+    rel = float(np.max(np.abs(pr - want) / want))
+    if not rel <= 1e-4 or not abs(float(pr.sum()) - 1.0) <= 1e-5:
+        fail(f"mesh pagerank differs from pagerank_ref ({rel})")
+    fn = next(v for k, v in msess._analytics_cache.items()
+              if isinstance(k, tuple) and k[0] == "pagerank_fn")
+    one = EMITTED["pagerank_rmat_18"]
+    verbs["pagerank"] = {
+        "wall_ms": wall, "single_wall_ms": one["wall_ms"],
+        "iterations": fn.stats["iterations"],
+        "single_iterations": one["iterations"], "max_rel_err": rel,
+        "tolerance": "rel err 1e-4, |sum - 1| 1e-5",
+        "launches": same_launches("mesh pagerank", c, one["launches"],
+                                  ("bvss_spmm_w",))}
+    add(c)
+    emit({"phase": "mesh_session_rmat_18", "world_size": 1,
+          "mesh": "(1,) data", "n": g.n, "prepare_s": prepare_s,
+          "single_prepare_s": EMITTED["main_path_rmat_18"]["prepare_s"],
+          "verbs": verbs, "launches": total, "card": card})
+    del msess
+    torch.cuda.empty_cache()
+    return total
+
+
+def mesh_session2d_phase(torch, rt, g, p, mesh2, queries, fsrcs, oracle,
+                         card: str) -> dict:
+    """The 2-D ``(1, 1)`` mesh session on phase 4's ordered ``rmat(18)``
+    (unweighted: weights are 1-D only): a ``levels_batch`` of
+    MESH_2D_QUERIES and a betweenness cohort against the oracles; the
+    weighted verbs raise ConfigError, as the reference's do."""
+    from repro_torch.errors import ConfigError
+    perm = p.perm
+    t0 = time.perf_counter()
+    msess = rt.GraphSession(p.graph, max_batch=SLOTS, mesh=mesh2,
+                            order=False)
+    prepare_s = time.perf_counter() - t0
+    qs = queries[:MESH_2D_QUERIES]
+    lvs, wave_wall, c = timed_verb(torch, lambda: msess.levels_batch(
+        perm[np.asarray(qs)]))
+    require_launches(c, "2-D levels_batch", ("bvss_spmm",))
+    for s, lv in zip(qs, lvs):
+        if not np.array_equal(lv[perm], oracle(g, s)):
+            fail(f"2-D levels_batch: source {s} differs from the oracle")
+    counts = dict(c)
+    bc, bc_wall, c = timed_verb(torch, lambda: msess.betweenness_batch(
+        perm[np.asarray(fsrcs)]))
+    require_launches(c, "2-D betweenness",
+                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))
+    bc, want = bc[perm], ORACLES["betweenness_rmat_18"]
+    err = np.abs(bc - want)
+    if not np.all(np.isfinite(bc)) or \
+            bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
+        fail(f"2-D betweenness differs from betweenness_ref "
+             f"({float(err.max())})")
+    counts = {k: counts[k] + c[k] for k in counts}
+    refused = {}
+    for verb, call in (("sssp_batch", lambda: msess.sssp_batch(qs[:2])),
+                       ("pagerank", msess.pagerank)):
+        try:
+            call()
+        except ConfigError as e:
+            refused[verb] = str(e)
+        else:
+            fail(f"2-D {verb} did not raise ConfigError")
+    emit({"phase": "mesh_session2d_rmat_18", "world_size": 1,
+          "mesh": "(1, 1) data x col", "prepare_s": prepare_s,
+          "levels_batch": {"queries": len(qs), "wall_ms": wave_wall,
+                           "wave_stats": dict(msess._ms.stats)},
+          "betweenness_batch": {"sources": len(fsrcs), "wall_ms": bc_wall,
+                                "max_abs_err": float(err.max()),
+                                "tolerance": "rtol 1e-4, atol 1e-4"},
+          "refused": refused, "launches": counts, "card": card})
+    del msess
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_verbs_phase(torch, rt, g, p, mesh, card: str) -> dict:
+    """``components()`` and ``eccentricity_batch`` of phase 5's sources on
+    phase 5's ordered ``rmat(16)`` through a mesh session's symmetrised
+    problem, equal to phase 5's oracle answers (``extremes()`` is left
+    out: 74.6 s on one device)."""
+    from repro_torch.kernels.ref import normalize_labels
+    want, srcs, ecc_want = ORACLES["verbs_rmat_16_symmetrised"]
+    perm = p.perm
+    t0 = time.perf_counter()
+    msess = rt.GraphSession(p.graph, max_batch=SLOTS, mesh=mesh,
+                            order=False)
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    msess._sym_problem()
+    sym_build_s = time.perf_counter() - t0
+    labels, comp_wall, c = timed_verb(torch, msess.components)
+    require_launches(c, "mesh components",
+                     ("bvss_spmm", "bvss_pull", "finalize_pack_sweep"))
+    if not np.array_equal(normalize_labels(labels[perm]), want):
+        fail("mesh components() differs from connected_components_ref")
+    counts = dict(c)
+    rounds = dict(msess._sym_ms().stats)
+    ecc, ecc_wall, c = timed_verb(torch, lambda: msess.eccentricity_batch(
+        perm[np.asarray(srcs)]))
+    require_launches(c, "mesh eccentricity_batch", ("bvss_spmm",))
+    if not np.array_equal(ecc, ecc_want):
+        fail("mesh eccentricity_batch differs from eccentricity_ref")
+    counts = {k: counts[k] + c[k] for k in counts}
+    one = EMITTED["verbs_rmat_16_symmetrised"]
+    # phase 5's pool stats cover two components() runs (extremes() runs
+    # one more): compare a level's host syncs
+    single = one["wave_stats"]
+    emit({"phase": "mesh_verbs_rmat_16", "world_size": 1, "n": g.n,
+          "prepare_s": prepare_s, "sym_build_s": sym_build_s,
+          "single_sym_build_s": one["sym_build_s"],
+          "components_ms": comp_wall,
+          "single_components_ms": one["components_s"] * 1e3,
+          "eccentricity_batch_ms": ecc_wall,
+          "single_eccentricity_batch_ms": one["eccentricity_batch_s"] * 1e3,
+          "components": int(labels.max()) + 1, "wave_stats": rounds,
+          "host_syncs_per_level": rounds["host_syncs"]
+          / max(rounds["pull_levels"] + rounds["push_levels"], 1),
+          "single_host_syncs_per_level": single["host_syncs"]
+          / max(single["pull_levels"] + single["push_levels"], 1),
+          "launches": counts, "card": card})
+    del msess
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_faults_phase(torch, rt, g, p, mesh, rng, oracle, card: str
+                      ) -> dict:
+    """``FaultPlan(stall_shard=0)`` on a mesh session of phase 5's ordered
+    ``rmat(16)``, opened by ``GraphSessionManager(verify_fraction=1.0)``:
+    the verified answers equal the oracle through exactly one quarantine,
+    and the same wave unverified under-discovers.  At world size 1 the
+    only shard's frontier words arrive zeroed; ``stall_butterfly_stage``
+    has no stage at one rank and is exercised on gloo ranks only
+    (``tests/test_torch_mesh_session_2d.py``)."""
+    import warnings
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import DegradedServiceWarning
+    perm = p.perm
+    queries = [int(s) for s in rng.choice(g.n, MESH_FAULT_QUERIES,
+                                          replace=False)]
+    mgr = rt.GraphSessionManager(verify_fraction=1.0)
+    mgr.open_session("stalled", p.graph, max_batch=SLOTS, mesh=mesh,
+                     order=False, fault_plan=rt.FaultPlan(stall_shard=0))
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = mgr.levels_batch("stalled", perm[np.asarray(queries)])
+    counts = launch_counts()
+    require_launches(counts, "mesh stall", ("bvss_spmm",))
+    for s, lv in zip(queries, out):
+        if not np.array_equal(lv[perm], oracle(g, s)):
+            fail(f"stalled mesh session: source {s} differs from the "
+                 f"oracle under verification")
+    stats = mgr.stats()
+    degraded = sum(issubclass(w.category, DegradedServiceWarning)
+                   for w in caught)
+    if stats["quarantines"] != 1 or not degraded:
+        fail(f"stalled mesh session: {stats['quarantines']} quarantines, "
+             f"{degraded} degraded warnings (want 1 and some)")
+    bare = mgr._sessions["stalled"].session.levels_batch(
+        perm[np.asarray(queries)])
+    diverged = sum(not np.array_equal(lv[perm], oracle(g, s))
+                   for s, lv in zip(queries, bare))
+    if not diverged:
+        fail("the stalled shard changed no unverified answer")
+    emit({"phase": "mesh_serve_faults", "world_size": 1,
+          "plan": "FaultPlan(stall_shard=0)", "queries": len(queries),
+          "quarantines": stats["quarantines"], "degraded_warnings": degraded,
+          "verified": stats["verified"], "unverified_diverged": diverged,
+          "launches": counts, "card": card})
+    del mgr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_launch_service_phase(torch, card: str) -> None:
+    """The launchers on a one-rank mesh, in child processes started
+    together (each spawns its own rank and NCCL group on the card):
+    ``launch.bfs --service --devices 1`` with and without ``--queue``,
+    and ``launch.analytics --devices 1``, each ending ``VERIFIED``; with
+    them phase 11's ``launch.bfs --devices 1`` (its line:
+    :func:`mesh_launch_phase`)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, argv in MESH_SERVICE_RUNS.items()}
+    lines = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+            fail(f"{name} --devices 1 ran past 600 s")
+        lines[name] = out.strip().splitlines()
+        checked = [ln for ln in lines[name] if ln.startswith(
+            ("[bfs] service", "[analytics] ")) and "extremes" not in ln
+            and not ln.startswith("[analytics] graph")] \
+            if name != "bfs" else lines[name][-1:]
+        if proc.returncode or not checked or \
+                not all("VERIFIED" in ln for ln in checked):
+            fail(f"{name} --devices 1 (rc {proc.returncode}): {out}\n"
+                 f"{err[-3000:]}")
+    mesh_launch_phase(torch, lines.pop("bfs"), card)
+    emit({"phase": "mesh_launch_service", "lines": lines, "card": card})
 
 
 def main() -> None:
@@ -3191,9 +3578,9 @@ def main() -> None:
     # phase 11 on this graph: the mesh-native BFS at world size 1
     meshes = mesh_init(torch)
     by_phase["mesh_grid2d_2048"] = mesh_phase(
-        torch, rt, "mesh_grid2d_2048", g, p, sources, oracle,
-        {"eager": main_rows, "lazy": lazy_rows}, meshes, card,
-        lazy_sources=MESH_LAZY_GRID_SOURCES, cap=PROFILE_LEVELS)
+        torch, rt, "mesh_grid2d_2048", g, p, sources[:MESH_GRID_SOURCES],
+        oracle, {"eager": main_rows[:MESH_GRID_SOURCES], "lazy": lazy_rows},
+        meshes, card, lazy_sources=MESH_GRID_SOURCES, cap=PROFILE_LEVELS)
     del sess, p, bfs
     torch.cuda.empty_cache()
 
@@ -3241,16 +3628,15 @@ def main() -> None:
     by_phase["autotune_rmat_18"], by_phase["autotune_rmat_18_tune"] = \
         autotune_phase(torch, rt, "autotune_rmat_18", p, g, sources,
                        oracle, card)
-    # phase 11 on this graph, then the launcher's --devices; the NCCL
-    # group ends here
+    # phase 11 on this graph, then phase 12's mesh sessions on it
     by_phase["mesh_rmat_18"] = mesh_phase(
         torch, rt, "mesh_rmat_18", g, p, sources, oracle,
         {"eager": main_rows}, meshes, card, lazy_sources=len(sources),
         cap=None)
-    mesh_launch_phase(torch, card)
-    import torch.distributed as dist
-    dist.destroy_process_group()
-    del meshes
+    by_phase["mesh_session_rmat_18"] = mesh_session_phase(
+        torch, rt, g, p, sess, meshes[0], queries, fsrcs, oracle, card)
+    by_phase["mesh_session2d_rmat_18"] = mesh_session2d_phase(
+        torch, rt, g, p, meshes[1], queries, fsrcs, oracle, card)
     by_phase["update_edges_rmat_18"] = update_edges_phase(
         torch, rt, sess, g, sources, queries, fsrcs, oracle, card)
 
@@ -3264,6 +3650,18 @@ def main() -> None:
     emit({"phase": "prepare_rmat_16", "n": g.n, "m": g.m,
           "prepare_s": time.perf_counter() - t0, "card": card})
     by_phase["verbs_rmat_16"] = verbs_phase(torch, rt, sess, g, rng, card)
+    # phase 12 on this graph: the symmetrised verbs and the stall seam
+    # through mesh sessions, then the launchers on a one-rank mesh (phase
+    # 11's with them); the NCCL group ends here
+    by_phase["mesh_verbs_rmat_16"] = mesh_verbs_phase(
+        torch, rt, g, sess.prepared, meshes[0], card)
+    by_phase["mesh_serve_faults"] = mesh_faults_phase(
+        torch, rt, g, sess.prepared, meshes[0],
+        np.random.default_rng(SEED + 12), memo_oracle(rt), card)
+    mesh_launch_service_phase(torch, card)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    del meshes
     by_phase["sssp_rmat_16"] = sssp_phase(
         torch, rt, sess, g, [int(x) for x in rng.choice(g.n, 4,
                                                         replace=False)],

@@ -1,5 +1,5 @@
 """Brandes betweenness centrality on the BVSS wave engine (DESIGN §2.6),
-the single-device port of ``repro/analytics/betweenness.py``.
+the port of ``repro/analytics/betweenness.py``.
 
 Brandes' algorithm per source s:
 
@@ -29,7 +29,18 @@ loop of ``core/bfs.py`` did: one host copy per forward level, one for the
 deepest level before the backward sweep.  The scatters into rows and
 columns are ``index_add_``s, whose float adds the card orders differently
 from run to run; σ stays exact (integers in f32), δ agrees to rtol 1e-5.
-The sharded builders come with the mesh slice.
+
+On a mesh-sharded problem (DESIGN §2.4/§2.6) both phases run as each
+rank's part, with no replicated sweep.  Forward: the σ channel of the
+sharded wave engine, each rank recording its own queue history.
+Backward: each rank replays its own history over its row block; its
+column scatter covers only the dependency flowing through its rows, so
+the per-rank partials are summed with one ``reduce_scatter_tensor`` a
+level (the reference's ``psum_scatter``), which hands each rank its own
+row block (2-D: over the row axis to the rank's column segment, then one
+butterfly exchange over the column axis).  The countdown starts at the
+mesh's deepest level (a MAX all-reduce, the reference's ``pmax``), so
+every rank runs the same backward levels and their collectives.
 """
 from __future__ import annotations
 
@@ -39,10 +50,14 @@ import numpy as np
 import torch
 
 from repro_torch.analytics.common import pad_cohort
-from repro_torch.core.bfs import (BlestProblem, QueueHistory,
-                                  make_queue_history, queue_widths)
-from repro_torch.core.level_pipeline import LevelPipeline, run_levels_recorded
+from repro_torch.core.bfs import (BlestProblem, QueueHistory, gather_rows,
+                                  make_queue_history, queue_widths,
+                                  rank_layout)
+from repro_torch.core.level_pipeline import (LevelPipeline, mesh_reduce,
+                                             run_levels_recorded)
 from repro_torch.core.multi_source import INF, make_ms_engine
+from repro_torch.distributed.collectives import (butterfly_frontier_exchange,
+                                                 reduce_scatter_tiled)
 from repro_torch.graphs import Graph
 from repro_torch.kernels import bvss_spmm_t, bvss_spmm_t_local
 from repro_torch.kernels.ref import bvss_spmm_t_ref
@@ -54,7 +69,8 @@ def make_betweenness(problem: BlestProblem, n_sources: int, *,
                      spmm_w_impl: Callable | None = None) -> Callable:
     """Build ``f(sources (S,)) -> (levels (n,S) int32, sigma (n,S) f32,
     delta (n,S) f32)`` tensors on the problem's device, running both
-    Brandes phases.
+    Brandes phases — on a sharded problem as this rank's part, the
+    outputs global on every rank (module docstring).
 
     ``delta[:, j]`` is the dependency of every vertex on source ``j``
     (endpoints excluded: the source row is zeroed), so a caller sums
@@ -69,32 +85,57 @@ def make_betweenness(problem: BlestProblem, n_sources: int, *,
     n, sigma = p.n, p.sigma
     dev = p.dev
     device = p.device
+    lay = rank_layout(p)
+    L = lay.rows
     eng = make_ms_engine(p, S, use_kernel=use_kernel, buckets=buckets,
                          track_sigma=True, spmm_w_impl=spmm_w_impl)
     spmm_t = bvss_spmm_t if use_kernel else bvss_spmm_t_ref
     widths = queue_widths(p.num_vss, buckets)
     max_lv = max_levels if max_levels is not None else n + 1
-    n_cols = p.n_sets * sigma
+    # the column space the transposed product scatters into: one device's
+    # padded sets; a 1-D rank's global columns (every row block, so the
+    # reduce-scatter hands each rank its own); a 2-D rank's column block
+    n_cols = p.n_fwords * 32 if p.mesh is not None and not p.is_2d \
+        else p.n_sets * sigma
+    if p.is_2d:
+        mesh = p.mesh
+        n_loc = p.n_shards * p.cols_per_block
     col_ids = torch.arange(sigma, device=device)
-    cols_idx = torch.arange(S, device=device)
     pipe = LevelPipeline(step=lambda s, lvl: eng.step(s),
                          finalize=lambda s, lvl: eng.finalize(s),
                          active=lambda s: s.cont)
     stats = {"backward_levels": 0, "host_syncs": 0}
 
+    def row_coeff(coeff: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the global column coefficient: a shard sees
+        only the dependency flowing through its own rows, so on a mesh the
+        per-rank partials are summed and each rank keeps its row block
+        (1-D: one reduce-scatter; 2-D: a reduce-scatter over the row axis
+        to this rank's column segment, then the segments butterfly-
+        exchanged over the column axis)."""
+        if p.mesh is None:
+            return coeff[:n]
+        if not p.is_2d:
+            return reduce_scatter_tiled(coeff, lay.row_group)
+        seg = reduce_scatter_tiled(coeff[:n_loc], lay.row_group)
+        return butterfly_frontier_exchange(seg, mesh, p.col_axis)
+
     def backward(levels: torch.Tensor, sig: torch.Tensor,
                  hist: QueueHistory) -> torch.Tensor:
         """Reverse per-level sweep over the recorded forward queues."""
-        delta = torch.zeros((n, S), dtype=torch.float32, device=device)
+        delta = torch.zeros((L, S), dtype=torch.float32, device=device)
         if n == 0:
             return delta
-        tmax = int(torch.where(levels == INF, 0, levels).max())
+        # the countdown is the same on every rank: each backward level
+        # carries a collective
+        deepest = torch.where(levels == INF, 0, levels).max().reshape(1)
+        tmax = int(mesh_reduce(deepest, lay.groups, "max")[0])
         stats["host_syncs"] += 1
         safe = sig.clamp_min(1.0)
-        h = torch.zeros((n + 1, S), dtype=torch.float32, device=device)
+        h = torch.zeros((L + 1, S), dtype=torch.float32, device=device)
         for t in range(tmax, 0, -1):
             Q = hist.Q[t - 1]
-            h[:n] = torch.where(levels == t, (1.0 + delta) / safe, 0.0)
+            h[:L] = torch.where(levels == t, (1.0 + delta) / safe, 0.0)
             part = bvss_spmm_t_local(dev.masks[Q], dev.row_ids[Q], h,
                                      sigma=sigma, impl=spmm_t)  # (w, σ, S)
             cols = (dev.virtual_to_real[Q].to(torch.int64)[:, None] * sigma
@@ -102,8 +143,8 @@ def make_betweenness(problem: BlestProblem, n_sources: int, *,
             coeff = torch.zeros((n_cols, S), dtype=torch.float32,
                                 device=device)
             coeff.index_add_(0, cols.reshape(-1), part.view(-1, S))
-            delta = delta + torch.where(levels == t - 1, sig * coeff[:n],
-                                        0.0)
+            delta = delta + torch.where(levels == t - 1,
+                                        sig * row_coeff(coeff), 0.0)
             stats["backward_levels"] += 1
         return delta
 
@@ -113,11 +154,16 @@ def make_betweenness(problem: BlestProblem, n_sources: int, *,
         st, _, hist = run_levels_recorded(
             pipe, eng.init(srcs), max_levels=max_lv, history=hist0,
             record=record)
-        levels = st.levels[:n]
+        levels = st.levels[:L]
         delta = backward(levels, st.paths, hist)
         # endpoints excluded: a source contributes no dependency to itself
-        delta[torch.from_numpy(srcs).to(device), cols_idx] = 0.0
-        return levels, st.paths, delta
+        # (on the rank that owns its row)
+        own = (srcs >= lay.first_row) & (srcs < lay.first_row + L)
+        rows, cols = torch.from_numpy(np.stack(
+            [srcs[own] - lay.first_row, np.flatnonzero(own)])).to(device)
+        delta[rows, cols] = 0.0
+        return (gather_rows(levels, lay, n), gather_rows(st.paths, lay, n),
+                gather_rows(delta, lay, n))
 
     bc.engine = eng
     bc.stats = stats

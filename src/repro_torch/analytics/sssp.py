@@ -1,5 +1,5 @@
 """Delta-stepping single-source shortest paths on the wave surface
-(DESIGN §2.9), the single-device port of ``repro/analytics/sssp.py``.
+(DESIGN §2.9), the port of ``repro/analytics/sssp.py``.
 
 SSSP is the tropical-semiring instance of the wave machinery: swap the
 Boolean pull tile for the min-plus product (CUDA ``bvss_spmm_minplus``)
@@ -23,7 +23,15 @@ relaxations: one host copy per relaxation (the live VSS count and the
 frontier test) and one per bucket advance.  The scatter-min is
 ``scatter_reduce_(..., "amin")`` into a distance array with one spare row
 for the dummy row id n, which JAX's scatter drops when n is a multiple of
-σ.  The sharded builder comes with the mesh slice.
+σ.
+
+A 1-D row-sharded problem runs the same loops on every rank: local rows
+scatter locally, the frontier's distance values are all-gathered once a
+relaxation (the float twin of the frontier-word gather, which also makes
+the frontier test global), and the bucket minima are a MIN all-reduce
+(the reference's ``pmin``), so every rank runs the same relaxations.  A
+2-D problem is a :class:`~repro_torch.errors.ConfigError`, as in the
+reference (the weighted verbs ship 1-D; DESIGN §2.9).
 """
 from __future__ import annotations
 
@@ -33,8 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.analytics.common import pad_cohort
-from repro_torch.core.bfs import (BlestProblem, make_compactor, queue_widths,
-                                  selected_width)
+from repro_torch.core.bfs import (BlestProblem, gather_rows, make_compactor,
+                                  queue_widths, rank_layout, selected_width)
+from repro_torch.core.level_pipeline import mesh_reduce
+from repro_torch.distributed.collectives import all_gather_tiled
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import bvss_spmm_minplus_local
 from repro_torch.kernels.ref import bvss_spmm_minplus_ref
@@ -69,83 +79,104 @@ def make_sssp(problem: BlestProblem, wplane: torch.Tensor, n_sources: int,
     """Build ``f(sources (S,), delta float) -> dist (n, S) float32 tensor``
     over ``problem`` (ids are the problem's own).  ``wplane`` is the device
     weight plane ``prepare(..., weights=...)`` committed
-    (``PreparedBFS.wplane``); its +inf dummy row makes padded queue entries
-    relax nothing.  ``f.stats`` counts relaxations, bucket rounds and host
-    copies."""
+    (``PreparedBFS.wplane``; a rank's own shard of it on a mesh); its +inf
+    dummy row makes padded queue entries relax nothing.  Single-device and
+    1-D row-sharded (the answer global on every rank); 2-D raises
+    :class:`~repro_torch.errors.ConfigError`.  ``f.stats`` counts
+    relaxations, bucket rounds and host copies."""
     if wplane is None:
         raise ConfigError(
             "sssp needs a weight plane: prepare(..., weights=...) or let "
             "GraphSession default to unit weights")
     p = problem
+    if p.is_2d:
+        raise ConfigError(
+            "sssp is not supported on a 2-D (row × column) mesh yet — "
+            "the weighted verbs ship 1-D row-sharded (DESIGN §2.9)")
     dev = p.dev
     device = p.device
     n, sigma, n_sets = p.n, p.sigma, p.n_sets
     S = n_sources
     ncols = n_sets * sigma
+    lay = rank_layout(p)
+    # this rank's distance rows: one device keeps the whole padded column
+    # space (ncols >= n), so the frontier values need no gather; a mesh
+    # rank keeps its row block
+    L = ncols if p.mesh is None else lay.rows
     widths = queue_widths(p.num_vss, buckets)
     compact = make_compactor(dev, p.num_vss, widths[-1])
     impl = None if use_kernel else bvss_spmm_minplus_ref
-    valid = (torch.arange(ncols, device=device) < n)[:, None]  # padding cols
+    valid = ((lay.first_row + torch.arange(L, device=device)) < n)[:, None]
     cap = max_rounds if max_rounds is not None else n + 2
-    cols = torch.arange(S, device=device)
     stats = {"relaxations": 0, "rounds": 0, "host_syncs": 0}
 
-    def frontier_queue(fr: torch.Tensor) -> tuple[torch.Tensor, int, bool]:
-        """Compact the frontier's slice sets into the VSS queue; one host
-        copy brings back the live count and whether the frontier holds
-        anything."""
-        set_active = fr.view(n_sets, sigma * S).any(dim=1)
+    def frontier_queue(fr: torch.Tensor, dist: torch.Tensor
+                       ) -> tuple[torch.Tensor, int, bool, torch.Tensor]:
+        """The frontier's distance values every column may read (on a mesh
+        all-gathered: the float twin of the frontier-word gather), its
+        slice sets compacted into the VSS queue; one host copy brings back
+        the live count and whether the frontier holds anything."""
+        xg = torch.where(fr, dist, _INF)                 # (L, S)
+        if p.mesh is None:
+            active = fr
+        else:
+            xg = all_gather_tiled(xg, lay.row_group)
+            active = xg[:ncols] < _INF
+        set_active = active.reshape(n_sets, sigma * S).any(dim=1)
         Q, count = compact(set_active)
-        count, live = torch.stack([count, fr.any().to(count.dtype)]).tolist()
+        count, live = torch.stack(
+            [count, set_active.any().to(count.dtype)]).tolist()
         stats["host_syncs"] += 1
-        return Q, int(count), bool(live)
+        return Q, int(count), bool(live), xg
 
-    def relax(dist: torch.Tensor, fr: torch.Tensor, Q: torch.Tensor,
+    def relax(dist: torch.Tensor, xg: torch.Tensor, Q: torch.Tensor,
               count: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """One frontier relaxation: compacted min-plus pull + scatter-min.
-        Returns (new dist, improved mask)."""
-        xg = torch.where(fr, dist, _INF)                 # (ncols, S)
+        """One frontier relaxation: compacted min-plus pull + scatter-min
+        into this rank's rows.  Returns (new dist, improved mask)."""
         ids = Q[:selected_width(widths, count)]
         y = bvss_spmm_minplus_local(dev.masks[ids], wplane[ids],
                                     dev.virtual_to_real[ids], xg,
                                     sigma=sigma, impl=impl)
-        rows = dev.row_ids[ids].reshape(-1).to(torch.int64)   # dummy = n
+        rows = dev.row_ids[ids].reshape(-1).to(torch.int64)   # dummy row
         d2 = torch.cat([dist, torch.full((1, S), _INF, device=device)])
         d2.scatter_reduce_(0, rows[:, None].expand(-1, S), y.view(-1, S),
                            "amin")
         # dummy-row scatters may land in padding columns (row n < ncols):
         # wipe them so the padding never re-enters a gather as a distance
-        d2 = torch.where(valid, d2[:ncols], _INF)
+        d2 = torch.where(valid, d2[:L], _INF)
         stats["relaxations"] += 1
         return d2, d2 < dist
 
     def sssp(sources, delta: float) -> torch.Tensor:
-        srcs = torch.from_numpy(np.asarray(sources, dtype=np.int64)).to(
-            device)
+        srcs = np.asarray(sources, dtype=np.int64)
+        own = (srcs >= lay.first_row) & (srcs < lay.first_row + L)
+        rows, cols = torch.from_numpy(np.stack(
+            [srcs[own] - lay.first_row, np.flatnonzero(own)])).to(device)
         delta = torch.tensor(delta, dtype=torch.float32, device=device)
-        dist = torch.full((ncols, S), _INF, device=device)
-        dist[srcs, cols] = 0.0
-        fr = torch.zeros((ncols, S), dtype=torch.bool, device=device)
-        fr[srcs, cols] = True
+        dist = torch.full((L, S), _INF, device=device)
+        dist[rows, cols] = 0.0
+        fr = torch.zeros((L, S), dtype=torch.bool, device=device)
+        fr[rows, cols] = True
         btop = delta.expand(S).clone()
-        Q, count, live = frontier_queue(fr)
+        Q, count, live, xg = frontier_queue(fr, dist)
         rounds = 0
         while live and rounds < cap:
             it = 0
             while live and it < cap:
-                dist, improved = relax(dist, fr, Q, count)
+                dist, improved = relax(dist, xg, Q, count)
                 fr = improved & (dist < btop[None, :])
                 it += 1
-                Q, count, live = frontier_queue(fr)
+                Q, count, live, xg = frontier_queue(fr, dist)
             unsettled = valid & (dist >= btop[None, :])
-            rem = torch.where(unsettled, dist, _INF).min(dim=0).values
+            rem = mesh_reduce(torch.where(unsettled, dist, _INF).min(
+                dim=0).values, lay.groups, "min")
             nbt = _next_btop(rem, btop, delta)
             fr = unsettled & (dist < nbt[None, :])
             btop = nbt
             rounds += 1
             stats["rounds"] += 1
-            Q, count, live = frontier_queue(fr)
-        return dist[:n]
+            Q, count, live, xg = frontier_queue(fr, dist)
+        return gather_rows(dist, lay, n)
 
     sssp.stats = stats
     return sssp

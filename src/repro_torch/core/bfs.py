@@ -1,5 +1,5 @@
-"""Single-source BLEST engines (paper §4, Algorithms 2 & 3) on PyTorch —
-the single-device half of ``repro/core/bfs.py``.
+"""Single-source BLEST engines (paper §4, Algorithms 2 & 3) on PyTorch, the
+port of ``repro/core/bfs.py``.
 
 Engines
 -------
@@ -233,6 +233,44 @@ class BlestProblem:
                             col_axis=col_axis, n_col_shards=sb.cols,
                             cols_per_block=sb.cols_per_block,
                             max_vss_per_set=sb.max_vss_per_set)
+
+
+class RankLayout(NamedTuple):
+    """Where this rank's rows sit in the global vertex space, and the
+    process groups that reduce and gather over the whole mesh (DESIGN
+    §2.4).  On one device the rank holds every row and has no group."""
+
+    rows: int           # local rows: n, or rows_per_shard on a mesh
+    first_row: int      # global id of local row 0
+    groups: tuple       # reduction groups: () on one device, the axis
+                        #   group (1-D), the column then the row group (2-D)
+    row_group: object   # the row-axis group that gathers row blocks (None)
+    leader: bool        # rank (0, ..., 0) of the mesh (True on one device)
+
+
+def rank_layout(p: "BlestProblem") -> RankLayout:
+    """The :class:`RankLayout` of this rank of ``p``'s mesh."""
+    if p.mesh is None:
+        return RankLayout(p.n, 0, (), None, True)
+    mesh = p.mesh
+    i = mesh.get_local_rank(p.axis)
+    rows = mesh.get_group(p.axis)
+    if p.is_2d:
+        return RankLayout(p.rows_per_shard, i * p.rows_per_shard,
+                          (mesh.get_group(p.col_axis), rows), rows,
+                          i == 0 and mesh.get_local_rank(p.col_axis) == 0)
+    return RankLayout(p.rows_per_shard, i * p.rows_per_shard, (rows,), rows,
+                      i == 0)
+
+
+def gather_rows(x: torch.Tensor, lay: RankLayout, n: int) -> torch.Tensor:
+    """Every rank's local row block ``x`` (``lay.rows`` leading rows) in
+    row-block order, cut to the ``n`` global rows, on every rank: the
+    answer of a sharded engine (not a level's traffic, so the comm ledger
+    does not record it).  On one device ``x[:n]``."""
+    if lay.row_group is None:
+        return x[:n]
+    return all_gather_tiled(x.contiguous(), lay.row_group)[:n]
 
 
 PullFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
@@ -647,14 +685,6 @@ def _local_levels0(src: int, first_row: int, rps: int,
     return levels
 
 
-def _gather_levels(levels: torch.Tensor, mesh, axis: str, n: int
-                   ) -> torch.Tensor:
-    """Every shard's local levels along ``axis``, in shard order: the
-    global ``(n,)`` level array, on every rank (the engines' answer; not a
-    level's traffic, so the ledger does not record it)."""
-    return all_gather_tiled(levels, mesh.get_group(axis))[:n]
-
-
 def _make_blest_bfs_sharded(p: BlestProblem, *, lazy: bool, pull: PullFn,
                             push: PushFn | None, fin_impl: Callable,
                             widths: list[int], qcap: int, max_lv: int,
@@ -734,7 +764,7 @@ def _make_blest_bfs_sharded(p: BlestProblem, *, lazy: bool, pull: PullFn,
                              device=device)
         state = _BlestState(levels, F, Q, count, marks0, n - 1, fcount, live)
         state, _ = run_levels(pipe, state, max_levels=max_lv)
-        return _gather_levels(state.levels[:rps], mesh, axis, n)
+        return gather_rows(state.levels[:rps], rank_layout(p), n)
 
     return bfs
 
@@ -834,7 +864,7 @@ def _make_blest_bfs_sharded_2d(p: BlestProblem, *, pull: PullFn,
         state = _BlestState(levels, F, Q, count, marks0, n - 1, 0, live)
         state, _ = run_levels(pipe, state, max_levels=max_lv)
         # column-replicated row blocks: gather along the row axis
-        return _gather_levels(state.levels[:rps], mesh, rax, n)
+        return gather_rows(state.levels[:rps], rank_layout(p), n)
 
     return bfs
 
@@ -953,7 +983,7 @@ def _make_brs_bfs_sharded(p: BlestProblem, *, pull: PullFn,
         marks = torch.zeros((rps + 1,), dtype=torch.uint8, device=device)
         state, _ = run_levels(pipe, _BrsState(levels, marks, F, True),
                               max_levels=max_lv)
-        return _gather_levels(state.levels, mesh, axis, n)
+        return gather_rows(state.levels, rank_layout(p), n)
 
     return bfs
 
@@ -1124,11 +1154,6 @@ def make_engine(g: Graph, engine: str, *, sigma: int = 8,
         problem = BlestProblem.build(b, device)
     if engine == "multi_source":
         from repro_torch.core.multi_source import make_multi_source_bfs
-        if problem.mesh is not None:
-            raise ConfigError(
-                "the multi-source engine on a mesh-sharded problem is not "
-                "ported to PyTorch yet: it comes with the sharded waves "
-                "(ROADMAP.md queue 1 item 11c)")
         if n_sources is None:
             raise ValueError("multi_source engine needs n_sources")
         return make_multi_source_bfs(g, n_sources, problem=problem,

@@ -43,22 +43,36 @@ class LevelPipeline:
     active: Callable[[State], bool]
 
 
+def mesh_reduce(x: torch.Tensor, groups: Sequence | None,
+                op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over the whole mesh (``"sum"``, ``"max"`` or
+    ``"min"``), the same on every rank: each group of ``groups`` (one on a
+    1-D mesh, the column and the row group on a 2-D one) all-reduces a copy
+    in turn.  ``groups=None`` (or empty) is the single-device identity and
+    returns ``x`` itself."""
+    if not groups:
+        return x
+    out = x.clone()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN}[op]
+    for group in groups:
+        dist.all_reduce(out, op=red, group=group)
+    return out
+
+
 def global_any(pred: torch.Tensor, groups: Sequence | None
                ) -> torch.Tensor:
     """Continuation predicate across the mesh: ``pred`` is this shard's
     local "still work to do" 0-d bool tensor; the result (a 0-d bool tensor
     on the same device, not yet copied to the host) is True iff ANY shard
     says so, and the same on every rank, so the ranks' level loops stay in
-    lock-step.  ``groups=None`` is the single-device identity; each group
-    of ``groups`` (one on a 1-D mesh, the column and the row group on a 2-D
-    one) sums the int32 count of live shards in turn.  A sum is what NCCL
-    and gloo both reduce; no bitwise reduction op is used."""
+    lock-step.  ``groups=None`` is the single-device identity; otherwise
+    the int32 count of live shards is summed over the mesh
+    (:func:`mesh_reduce`).  A sum is what NCCL and gloo both reduce; no
+    bitwise reduction op is used."""
     if not groups:
         return pred
-    live = pred.to(torch.int32, copy=True).reshape(1)
-    for group in groups:
-        dist.all_reduce(live, op=dist.ReduceOp.SUM, group=group)
-    return live[0] > 0
+    return mesh_reduce(pred.to(torch.int32).reshape(1), groups)[0] > 0
 
 
 def run_levels(pipe: LevelPipeline, state: State, *, max_levels: int

@@ -1,5 +1,5 @@
-"""Multi-source BFS as batched BVSS bit-SpMM (paper §2 + §7, DESIGN §2.5) —
-the single-device half of ``repro/core/multi_source.py``.
+"""Multi-source BFS as batched BVSS bit-SpMM (paper §2 + §7, DESIGN §2.5),
+the port of ``repro/core/multi_source.py``.
 
 Stacking S frontiers column-wise turns the SpMSpV pull into an SpMM: the
 slices of every queued VSS are contracted against the S stacked σ-bit
@@ -50,7 +50,20 @@ gives those rows their level).  The sums are an ``index_add_`` over the
 queued rows, so on the card their order varies from run to run; path
 counts are integers, exact in f32 up to 2^24.
 
-Not in this slice: the mesh paths.
+On a mesh-sharded problem (DESIGN §2.4) the same engine is one rank's
+part, SPMD: the rank holds its own ``(rows_per_shard + 1, S)`` block of
+levels, marks and σ where the reference stacks every shard on a leading
+axis under ``shard_map``.  1-D: the frontier words are a global replica,
+all-gathered at the end of each level (the gather seam), so the pull, the
+push and the queue need no other collective; the σ operand is one float
+all-gather a level.  2-D: a rank holds its column block of the frontier,
+its partial hits are OR-ed over the column axis before any level commits
+and its σ sums added over it, and the fresh frontier segments and σ
+values are butterfly-exchanged over the row axis (pull-only).  The terms
+that span ranks (any rank's queue live, the unvisited count, 2-D column
+liveness) ride one all-reduce in ``requeue`` before its one host copy;
+``levels_of`` and ``paths_of`` gather the rows to every rank, outside the
+comm ledger.
 """
 from __future__ import annotations
 
@@ -63,10 +76,16 @@ import torch
 from repro_torch.core.bfs import (DIRECTIONS, BlestProblem, INF,
                                   _frontier_bytes, _make_popcount,
                                   _round_width, expand_push_queue,
-                                  make_compactor, make_vertex_compactor,
-                                  queue_widths, resolve_push_cap,
+                                  gather_rows, make_compactor,
+                                  make_vertex_compactor, queue_widths,
+                                  rank_layout, resolve_push_cap,
                                   select_width, selected_width)
-from repro_torch.core.level_pipeline import LevelPipeline, run_levels
+from repro_torch.core.level_pipeline import (LevelPipeline, mesh_reduce,
+                                             run_levels)
+from repro_torch.distributed.bfs_dist import frontier_all_gather
+from repro_torch.distributed.collectives import (all_gather_tiled,
+                                                 butterfly_frontier_exchange,
+                                                 butterfly_or_allreduce)
 from repro_torch.errors import ConfigError
 from repro_torch.graphs import Graph
 from repro_torch.kernels import bvss_spmm, bvss_spmm_w, bvss_spmm_w_local
@@ -127,23 +146,28 @@ def _index_tensor(x, device: torch.device) -> torch.Tensor:
 
 
 class MSState(NamedTuple):
-    levels: torch.Tensor  # (n+1, S) int32; row n is the dummy row
-    marks: torch.Tensor   # (n+1, S) uint8 hit marks of the running level
-                          #   (all 0 between levels); row n is the sink
-    F: torch.Tensor       # (n_fwords, S) int32 per-column packed frontier
+    levels: torch.Tensor  # (L+1, S) int32 this rank's rows (L = n on one
+                          #   device, rows_per_shard on a mesh); row L is
+                          #   the dummy row
+    marks: torch.Tensor   # (L+1, S) uint8 hit marks of the running level
+                          #   (all 0 between levels); row L is the sink
+    F: torch.Tensor       # (n_fwords, S) int32 per-column packed frontier:
+                          #   global on one device and a 1-D mesh (every
+                          #   rank holds the replica), the rank's column
+                          #   block on a 2-D mesh
     Q: torch.Tensor       # (qcap,) int64 union VSS queue, dummy-padded
     count: int            # live VSS count (host copy: the bucket pick)
     col_lvl: torch.Tensor  # (S,) int32 per-column BFS depth reached so far
-    cont: bool            # any live VSS (host copy)
+    cont: bool            # any live VSS on any rank (host copy)
     live: np.ndarray      # (S,) bool per-column frontier non-empty (host)
     # host copies of the auto direction test's inputs (0 when the engine
     # cannot push): popcount of the union frontier, of all frontier bits,
-    # and the number of unvisited (vertex, column) entries
+    # and the number of unvisited (vertex, column) entries of the mesh
     ucount: int = 0
     tbits: int = 0
     unvisited: int = 0
     paths: torch.Tensor | None = None
-                          # (n, S) float32 σ shortest-path counts (Brandes
+                          # (L, S) float32 σ shortest-path counts (Brandes
                           # forward channel), present iff the engine was
                           # built with ``track_sigma=True``
 
@@ -155,8 +179,9 @@ class MSEngine:
     ``step``/``finalize`` plug into :class:`LevelPipeline` for the fixed
     cohort loop; ``insert``/``requeue``/``level_step``/``col_live`` are the
     wave-serving surface, driven by the host between levels.
-    ``levels_of(state, slot)`` gives one column's ``(n,)`` levels (a list
-    of slots gives ``(n, k)``), on the device."""
+    ``levels_of(state, slot)`` gives one column's ``(n,)`` global levels
+    (a list of slots gives ``(n, k)``, None every column), on the device
+    and on every rank of a mesh."""
 
     problem: BlestProblem
     n_slots: int
@@ -191,7 +216,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
                    spmm_w_impl: Callable | None = None,
                    gather_impl: Callable | None = None,
                    push_impl: Callable | None = None) -> MSEngine:
-    """Build the S-column lock-step BVSS level machinery.
+    """Build the S-column lock-step BVSS level machinery, on one device or
+    as this rank's part of a mesh-sharded problem (module docstring).
 
     ``direction`` / ``push_cap`` / ``alpha`` / ``widths`` are the
     direction-optimizing knobs of DESIGN §2.8, batched: the push branch
@@ -199,26 +225,37 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
     each vertex into the ≤ R VSSs of its own slice set, and pushes
     per-column one-hot frontier bytes through the SAME bit-SpMM kernel the
     pull uses, so both directions share one kernel and one seam
-    (``spmm_impl``).  ``widths`` overrides the bucketed pull ladder.
+    (``spmm_impl``).  ``widths`` overrides the bucketed pull ladder.  The
+    2-D partition is pull-only: ``"auto"`` resolves to pull there and a
+    forced ``"push"`` is a :class:`~repro_torch.errors.ConfigError`.
 
     ``track_sigma`` widens the state with the Brandes σ path-count
     channel and pins ``direction="pull"`` (the weighted twin has no push
     formulation; forced push with σ tracking is a
     :class:`~repro_torch.errors.ConfigError`).  ``spmm_w_impl`` overrides
-    its weighted tile product (the σ-channel seam).  As in the reference,
-    ``gather_impl`` (consulted only on a sharded problem) and
-    ``push_impl`` (the wave push rides the spmm seam) are accepted and
-    ignored here."""
-    del gather_impl, push_impl
+    its weighted tile product (the σ-channel seam).  ``gather_impl``
+    replaces the mesh's frontier exchange (the stall seam of
+    :mod:`repro_torch.serve.faults`, called as ``gather(words, mesh,
+    axis)``); one device has no exchange and ignores it, as the reference
+    does.  ``push_impl`` is accepted and ignored: the wave push rides the
+    spmm seam."""
+    del push_impl
     p = problem
     if direction not in DIRECTIONS:
         raise ConfigError(
             f"direction must be one of {DIRECTIONS}, got {direction!r}")
+    if p.is_2d and direction == "push":
+        raise ConfigError(
+            "the 2-D row × column partition is pull-only: push writes to "
+            "remote row blocks, which the column-partitioned frontier "
+            "cannot express; use direction='pull' or 'auto', or a 1-D mesh")
     if track_sigma:
         if direction == "push":
             raise ConfigError(
                 "track_sigma is pull-only (the Brandes σ channel has no "
                 "weighted push twin); direction='push' is contradictory")
+        direction = "pull"
+    if p.is_2d:
         direction = "pull"
     spmm = spmm_impl if spmm_impl is not None else \
         (bvss_spmm if use_kernel else bvss_spmm_ref)
@@ -229,6 +266,19 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
     sigma = p.sigma
     S = n_slots
     n, n_fwords = p.n, p.n_fwords
+    lay = rank_layout(p)
+    L = lay.rows                     # local rows; row L is the dummy row
+    mesh = p.mesh
+    if p.is_2d:
+        cpb = p.cols_per_block
+        wpc = L // 32 // p.n_col_shards          # words per column segment
+        j = mesh.get_local_rank(p.col_axis)
+        col_group = mesh.get_group(p.col_axis)
+        gather = gather_impl if gather_impl is not None else \
+            butterfly_frontier_exchange
+    elif mesh is not None:
+        gather = gather_impl if gather_impl is not None else \
+            frontier_all_gather
     widths = list(widths) if widths is not None else \
         queue_widths(p.num_vss, buckets)
     qcap = widths[-1]
@@ -246,41 +296,68 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         indices stay int32."""
         rows = dev.row_ids[ids].reshape(-1)                     # (E,) int32
         hit = counts.view(rows.shape[0], S) > 0
-        tgt = torch.where(hit, rows[:, None], n)               # (E, S) int32
+        tgt = torch.where(hit, rows[:, None], L)               # (E, S) int32
         state.marks.index_put_((tgt, cols), one)
         return state
 
     n_cols = p.n_sets * sigma  # padded column space (≥ n) for value gathers
 
-    def sigma_update(state: MSState, ids: torch.Tensor) -> MSState:
+    def sigma_operand(state: MSState) -> torch.Tensor:
+        """The σ-frontier values (rows at depth ``col_lvl``) of every
+        column the weighted pull may read: on a mesh the float twin of
+        the frontier-word exchange (1-D: an all-gather of every row
+        block; 2-D: this rank's column segment, butterfly-exchanged over
+        the row axis), made before the width is picked."""
+        xv = torch.where(state.levels[:L] == state.col_lvl[None, :],
+                         state.paths, 0.0)
+        if mesh is None:
+            xg = torch.zeros((n_cols, S), dtype=torch.float32,
+                             device=device)
+            xg[:n] = xv
+            return xg
+        if p.is_2d:
+            return butterfly_frontier_exchange(
+                xv[j * cpb:(j + 1) * cpb], mesh, p.axis)
+        return all_gather_tiled(xv, lay.row_group)
+
+    def sigma_sums(ids: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
         """The σ channel (DESIGN §2.6): the weighted twin of the pull over
-        the same queued tiles, contracted against the frontier's path
-        counts; rows this level's marks discover take the sum.  The
-        Boolean marks gate discovery, so a converged column (whose last
-        level still equals its ``col_lvl``) changes nothing."""
-        lv = state.levels[:n]
-        xv = torch.zeros((n_cols, S), dtype=torch.float32, device=device)
-        xv[:n] = torch.where(lv == state.col_lvl[None, :], state.paths, 0.0)
-        wv = bvss_spmm_w_local(dev.masks[ids], dev.virtual_to_real[ids], xv,
+        the same queued tiles, summed into this rank's rows."""
+        wv = bvss_spmm_w_local(dev.masks[ids], dev.virtual_to_real[ids], xg,
                                sigma=sigma, impl=spmm_w)
         rows = dev.row_ids[ids].reshape(-1).to(torch.int64)
-        acc = torch.zeros((n + 1, S), dtype=torch.float32, device=device)
+        acc = torch.zeros((L + 1, S), dtype=torch.float32, device=device)
         acc.index_add_(0, rows, wv.view(rows.shape[0], S))
-        new = (state.marks[:n] != 0) & (lv == INF)
-        state.paths.copy_(torch.where(new, acc[:n], state.paths))
-        return state
+        return acc
 
-    def pull_update(state: MSState, width: int) -> MSState:
+    def pull_update(state: MSState, width: int,
+                    xg: torch.Tensor | None) -> torch.Tensor | None:
         ids = state.Q[:width]
         fb = _frontier_bytes(state.F, dev.virtual_to_real[ids], sigma)
         counts = spmm(dev.masks[ids], fb, sigma=sigma)  # (w, spw, 32, S)
         stats["pull_levels"] += 1
-        state = mark(state, ids, counts)
-        return sigma_update(state, ids) if track_sigma else state
+        mark(state, ids, counts)
+        return sigma_sums(ids, xg) if track_sigma else None
 
     def pull_step(state: MSState) -> MSState:
-        return select_width(widths, state.count,
-                            lambda w: pull_update(state, w))
+        xg = sigma_operand(state) if track_sigma else None
+        acc = select_width(widths, state.count,
+                           lambda w: pull_update(state, w, xg))
+        if p.is_2d:
+            # each column block saw its own slice of the frontier: OR the
+            # partial hits over the column axis before any level commits
+            hw = butterfly_or_allreduce(
+                _pack_cols(state.marks[:L] != 0, L // 32), mesh, p.col_axis)
+            state.marks[:L].copy_(_unpack_cols(hw))
+            if track_sigma:
+                acc = mesh_reduce(acc, (col_group,))
+        if track_sigma:
+            # rows this level's marks discover take the sum; the Boolean
+            # marks gate discovery, so a converged column changes nothing
+            lv = state.levels[:L]
+            new = (state.marks[:L] != 0) & (lv == INF)
+            state.paths.copy_(torch.where(new, acc[:L], state.paths))
+        return state
 
     pcap = resolve_push_cap(direction, push_cap, n)
     pqcap = _round_width(pcap)
@@ -298,7 +375,10 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         def push_update(state: MSState) -> MSState:
             """Batched push level (DESIGN §2.8): union-frontier vertex
             queue → per-vertex VSS expansion → per-column one-hot bytes
-            through the same bit-SpMM kernel → the same marks."""
+            through the same bit-SpMM kernel → the same marks.  On a 1-D
+            mesh every rank walks the same global frontier replica through
+            its own vertex → local-VSS map, so the push needs no
+            collective and a rank's direction may differ from another's."""
             VQ, _ = compact_vertices(_union_words(state.F))
             ids = expand_push_queue(dev, VQ, R, p.num_vss)
             vrep = VQ[:, None].expand(pqcap, R).reshape(-1)
@@ -318,63 +398,121 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
                             <= np.float32(state.unvisited))
                 return push_update(state) if use_push else pull_step(state)
 
-    def requeue(state: MSState) -> MSState:
+    def requeue(state: MSState, advance: bool = False) -> MSState:
         """Rebuild the union queue from the per-column frontiers (a slice
         set is live iff any column's σ-bit frontier byte is non-zero) and
-        bring the level's host scalars back in one copy."""
+        bring the level's host scalars back in one copy.  On a mesh the
+        terms that span ranks (any rank's queue live; the unvisited
+        entries; on 2-D the per-column liveness, as each rank holds one
+        column block) ride one all-reduce first.  ``advance`` (the end of
+        a level) moves every live column's depth on."""
         set_active = (_frontier_bytes(state.F, all_sets, sigma) != 0
                       ).any(dim=1)
         Q, count = compact(set_active)
         live = (state.F != 0).any(dim=0)
+        unvisited = (state.levels[:L] == INF).sum().view(1) if can_push \
+            else None
+        cont = None
+        if mesh is not None:
+            terms = [(count > 0).view(1).to(torch.int64)]
+            if p.is_2d:
+                terms.append(live.to(torch.int64))
+            if can_push:
+                terms.append(unvisited)
+            red = mesh_reduce(torch.cat(terms), lay.groups)
+            cont = red[:1]
+            if p.is_2d:
+                live = red[1:1 + S] > 0
+            if can_push:
+                unvisited = red[-1:]
         scalars = [count.view(1), live.to(torch.int64)]
+        if cont is not None:
+            scalars.append(cont)
         if can_push:
             scalars += [popcount(_union_words(state.F)).view(1),
-                        popcount(state.F).view(1),
-                        (state.levels[:n] == INF).sum().view(1)]
+                        popcount(state.F).view(1), unvisited]
         host = torch.cat(scalars).tolist()
         stats["host_syncs"] += 1
         count = int(host[0])
-        extra = host[1 + S:] if can_push else [0, 0, 0]
-        return state._replace(Q=Q, count=count, cont=count > 0,
-                              live=np.array(host[1:1 + S], dtype=bool),
-                              ucount=extra[0], tbits=extra[1],
-                              unvisited=extra[2])
+        live_h = np.array(host[1:1 + S], dtype=bool)
+        rest = host[1 + S:]
+        if cont is not None:
+            cont, rest = rest[0] > 0, rest[1:]
+        else:
+            cont = count > 0
+        extra = rest if can_push else [0, 0, 0]
+        col_lvl = state.col_lvl + live if advance else state.col_lvl
+        return state._replace(Q=Q, count=count, cont=cont, live=live_h,
+                              col_lvl=col_lvl, ucount=extra[0],
+                              tbits=extra[1], unvisited=extra[2])
 
     def finalize(state: MSState) -> MSState:
-        lv = state.levels[:n]
-        new = (state.marks[:n] != 0) & (lv == INF)              # (n, S)
+        lv = state.levels[:L]
+        new = (state.marks[:L] != 0) & (lv == INF)              # (L, S)
         lv.copy_(torch.where(new, (state.col_lvl + 1)[None, :], lv))
         state.marks.zero_()
-        bits = torch.zeros((n_fwords * 32, S), dtype=torch.bool,
-                           device=device)
-        bits[:n] = new
-        state = state._replace(F=_pack_cols(bits, n_fwords),
-                               col_lvl=state.col_lvl + new.any(dim=0))
-        return requeue(state)
+        if mesh is None:
+            bits = torch.zeros((n_fwords * 32, S), dtype=torch.bool,
+                               device=device)
+            bits[:n] = new
+            F = _pack_cols(bits, n_fwords)
+        elif p.is_2d:
+            # next level's column-block frontier: this rank's column
+            # segment of its row block's new words, exchanged over the
+            # row axis (the gather seam)
+            fw = _pack_cols(new, L // 32)[j * wpc:(j + 1) * wpc]
+            F = gather(fw, mesh, p.axis)
+        else:
+            # the one cross-rank term of a level: every rank's new words
+            # all-gathered into the global replica (the gather seam)
+            F = gather(_pack_cols(new, L // 32), mesh, p.axis)
+        return requeue(state._replace(F=F), advance=True)
 
     def fresh_state() -> MSState:
         return MSState(
-            levels=torch.full((n + 1, S), INF, dtype=torch.int32,
+            levels=torch.full((L + 1, S), INF, dtype=torch.int32,
                               device=device),
-            marks=torch.zeros((n + 1, S), dtype=torch.uint8, device=device),
+            marks=torch.zeros((L + 1, S), dtype=torch.uint8, device=device),
             F=torch.zeros((n_fwords, S), dtype=torch.int32, device=device),
             Q=torch.full((qcap,), p.num_vss, dtype=torch.int64,
                          device=device),
             count=0, col_lvl=torch.zeros((S,), dtype=torch.int32,
                                          device=device),
             cont=False, live=np.zeros(S, dtype=bool), unvisited=n * S,
-            paths=torch.zeros((n, S), dtype=torch.float32, device=device)
+            paths=torch.zeros((L, S), dtype=torch.float32, device=device)
             if track_sigma else None)
 
     def seed(state: MSState, srcs: np.ndarray, slots: np.ndarray) -> None:
-        """Level 0 of fresh queries ``srcs`` in columns ``slots`` (whose
-        levels and frontier words are already cleared), in place."""
-        sv, sl = _index_tensor(np.stack([srcs, slots]), device)
-        state.levels[sv, sl] = 0
-        state.F[sv >> 5, sl] = (torch.ones_like(sv) << (sv & 31)).to(
-            torch.int32)
-        if track_sigma:
-            state.paths[sv, sl] = 1.0
+        """Level 0 of fresh queries ``srcs`` (global ids) in columns
+        ``slots`` (whose levels and frontier words are already cleared),
+        in place: the level and σ on the rank owning the row, the
+        frontier bit on every rank (2-D: the rank of the source's column
+        block)."""
+        if mesh is None:
+            sv, sl = _index_tensor(np.stack([srcs, slots]), device)
+            state.levels[sv, sl] = 0
+            state.F[sv >> 5, sl] = (torch.ones_like(sv) << (sv & 31)).to(
+                torch.int32)
+            if track_sigma:
+                state.paths[sv, sl] = 1.0
+            return
+        own = (srcs >= lay.first_row) & (srcs < lay.first_row + L)
+        if own.any():
+            rv, rl = _index_tensor(np.stack([srcs[own] - lay.first_row,
+                                             slots[own]]), device)
+            state.levels[rv, rl] = 0
+            if track_sigma:
+                state.paths[rv, rl] = 1.0
+        bit, bslots = srcs, slots
+        if p.is_2d:
+            off = srcs % L
+            ownc = off // cpb == j
+            bit = (srcs // L * cpb + off - j * cpb)[ownc]
+            bslots = slots[ownc]
+        if len(bit):
+            bv, bl = _index_tensor(np.stack([bit, bslots]), device)
+            state.F[bv >> 5, bl] = (torch.ones_like(bv) << (bv & 31)).to(
+                torch.int32)
 
     def init(sources) -> MSState:
         srcs = _host_array(sources, np.int64)
@@ -419,25 +557,52 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
 
     def col_live(state: MSState) -> np.ndarray:
         stats["host_syncs"] += 1
-        return (state.F != 0).any(dim=0).cpu().numpy()
+        live = (state.F != 0).any(dim=0)
+        if p.is_2d:
+            live = mesh_reduce(live.to(torch.int64), lay.groups) > 0
+        return live.cpu().numpy()
 
-    def levels_of(state: MSState, slot) -> torch.Tensor:
+    def columns(x: torch.Tensor, slot) -> torch.Tensor:
+        """Columns ``slot`` (an int, a list, or None for all) of the local
+        rows ``x``, gathered into the ``n`` global rows."""
+        if slot is None:
+            return gather_rows(x[:L], lay, n)
         if isinstance(slot, (int, np.integer)):
-            return state.levels[:n, int(slot)]
-        return state.levels[:n].index_select(1, _index_tensor(slot, device))
+            return gather_rows(x[:L, int(slot)], lay, n)
+        return gather_rows(x[:L].index_select(1, _index_tensor(slot, device)),
+                           lay, n)
 
     return MSEngine(
         problem=p, n_slots=S, init=init, idle=fresh_state, insert=insert,
         insert_batch=insert_batch, requeue=requeue, step=step,
         finalize=finalize, level_step=level_step, col_live=col_live,
-        levels_of=levels_of, stats=stats,
-        paths_of=(lambda st, slot: st.paths[:, slot]) if track_sigma
+        levels_of=lambda st, slot: columns(st.levels, slot), stats=stats,
+        paths_of=(lambda st, slot: columns(st.paths, slot)) if track_sigma
         else None)
 
 
 # ---------------------------------------------------------------------------
 # generic wave driver: the ONE slot-pool serving loop (DESIGN §2.5/§2.6)
 # ---------------------------------------------------------------------------
+def leader_agreement(eng: MSEngine) -> Callable | None:
+    """On a mesh, ``agree(values) -> list``: the mesh leader's (rank 0's)
+    int list of the same length, on every rank (a sum all-reduce to which
+    the other ranks add zeros; one host copy).  None on one device."""
+    p = eng.problem
+    if p.mesh is None:
+        return None
+    lay = rank_layout(p)
+
+    def agree(values) -> list[int]:
+        x = torch.tensor(values, dtype=torch.int64, device=p.device)
+        if not lay.leader:
+            x.zero_()
+        eng.stats["host_syncs"] += 1
+        return mesh_reduce(x, lay.groups).tolist()
+
+    return agree
+
+
 def drive_wave(eng: MSEngine,
                next_source: Callable[[int], int | None],
                on_converged: Callable[[int, np.ndarray], None], *,
@@ -467,8 +632,19 @@ def drive_wave(eng: MSEngine,
     converge or are harvested in one level come back to the host in ONE
     copy, so every slot's ``should_harvest`` is asked before that level's
     ``on_converged``/``on_harvested`` calls are made (in slot order).
+
+    On a mesh every rank runs this loop (SPMD) and each decision that
+    steers a collective must be the same on every rank, where the
+    reference has one controller.  So rank 0 decides: every rank asks its
+    hooks, then each round's refill (which slots get which source) and
+    each level's harvest come from rank 0 in one small all-reduce apiece.
+    The refill hooks must make the same choices on every rank (a rank
+    that disagrees raises); ``should_harvest`` may answer differently on
+    other ranks (a deadline on each rank's own clock), and rank 0's
+    answer counts.
     """
     S = eng.n_slots
+    agree = leader_agreement(eng)
     busy = [False] * S
     st = eng.idle()
     steps = 0
@@ -483,12 +659,30 @@ def drive_wave(eng: MSEngine,
                     continue
                 srcs[slot] = int(src)
                 mask[slot] = True
-                busy[slot] = True
+        if agree is not None:
+            lead = agree([*mask.astype(np.int64), *np.where(mask, srcs, 0)])
+            if not (np.array_equal(lead[:S], mask)
+                    and np.array_equal(lead[S:], np.where(mask, srcs, 0))):
+                raise RuntimeError(
+                    f"drive_wave: this rank's refill ({mask}, {srcs}) "
+                    f"differs from rank 0's: the refill hooks must make "
+                    f"the same choices on every rank of the mesh")
+        for slot in np.flatnonzero(mask):
+            busy[slot] = True
         if not any(busy):
             return steps
         if mask.any():  # one insert + requeue (one host copy) per round
             st = eng.insert_batch(st, srcs, mask)
         st, live = eng.level_step(st)
+        harvest = np.zeros(S, dtype=bool)
+        if should_harvest is not None:
+            for slot in range(S):
+                if busy[slot] and live[slot]:
+                    harvest[slot] = bool(should_harvest(slot))
+            if agree is not None and any(
+                    busy[s] and live[s] for s in range(S)):
+                harvest = np.array(agree(harvest.astype(np.int64)),
+                                   dtype=bool)
         done: list[tuple[int, Callable | None]] = []
         for slot in range(S):
             if not busy[slot]:
@@ -496,7 +690,7 @@ def drive_wave(eng: MSEngine,
             if not live[slot]:
                 done.append((slot, on_converged))
                 busy[slot] = False
-            elif should_harvest is not None and should_harvest(slot):
+            elif harvest[slot]:
                 # harvest mid-flight: the stale column is overwritten by
                 # the next insert_batch (until then its frontier bits cost
                 # only the union queue a few extra live sets)
@@ -528,9 +722,10 @@ def make_multi_source_bfs(g: Graph | None, n_sources: int, *,
     """Build ``f(sources (S,)) -> levels (n, S) int32 tensor`` running the
     whole level loop for a fixed source cohort (one host copy per level).
     Without ``problem``, one is built from ``bvss`` (or from ``g``) on
-    ``device`` (default: the card).  ``widths`` / ``direction`` /
-    ``push_cap`` / ``alpha`` are the direction-optimizing knobs (DESIGN
-    §2.8; see :func:`make_ms_engine`)."""
+    ``device`` (default: the card).  On a sharded ``problem`` every rank
+    runs the same loop on its own shard and gets the whole answer.
+    ``widths`` / ``direction`` / ``push_cap`` / ``alpha`` are the
+    direction-optimizing knobs (DESIGN §2.8; see :func:`make_ms_engine`)."""
     if problem is None:
         if bvss is None:
             from repro_torch.core.bvss import build_bvss
@@ -547,7 +742,7 @@ def make_multi_source_bfs(g: Graph | None, n_sources: int, *,
 
     def bfs(sources) -> torch.Tensor:
         state, _ = run_levels(pipe, eng.init(sources), max_levels=max_lv)
-        return state.levels[:problem.n]
+        return eng.levels_of(state, None)
 
     bfs.engine = eng
     return bfs

@@ -34,6 +34,9 @@ from repro_torch.errors import ConfigError
 #: renames ``all_gather_single``)
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+#: the tiled reduce-scatter (``reduce_scatter_tensor``, renamed likewise)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -87,6 +90,17 @@ def all_gather_tiled(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     _ALL_GATHER(out, x.contiguous(), group=group)
+    return out
+
+
+def reduce_scatter_tiled(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``'s ranks of ``x``, split along dim 0 into one
+    block a rank in rank order: this rank's block (the reference's tiled
+    ``psum_scatter``; records nothing)."""
+    n = dist.get_world_size(group)
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _REDUCE_SCATTER(out, x.contiguous(), group=group)
     return out
 
 

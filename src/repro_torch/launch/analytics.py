@@ -19,9 +19,17 @@ NumPy oracles in ``repro_torch.kernels.ref``; each ``VERIFIED`` suffix
 names the oracle that ran.
 
 The session runs on the CUDA card unless ``--device cpu`` asks for the CPU
-(the kernels' PyTorch twins).  ``--devices N > 1`` needs the sharded
-analytics (ROADMAP.md queue 1 item 11d) and raises
-:class:`~repro_torch.errors.ConfigError`.
+(the kernels' PyTorch twins).  ``--devices N`` serves through a
+row-sharded session: the launcher spawns N ranks as ``repro_torch.launch.
+bfs``'s ``--devices`` does (NCCL on the card, gloo under ``--device
+cpu``), every rank builds the session on a 1-D mesh of N ranks and runs
+every verb on it, and rank 0 prints::
+
+    PYTHONPATH=src python -m repro_torch.launch.analytics --graph rmat \
+        --scale 8 --devices 2 --device cpu
+
+``--devices 1`` is a mesh of one rank (the reference treats it as no
+mesh); without ``--devices`` the session runs on one device.
 """
 from __future__ import annotations
 
@@ -30,10 +38,12 @@ import time
 
 import numpy as np
 
+import torch
+
 from repro_torch import GraphSession, PrepareOptions
 from repro_torch.core.bvss import resolve_device
-from repro_torch.errors import ConfigError, KernelFaultError
-from repro_torch.launch.bfs import build_graph
+from repro_torch.errors import KernelFaultError
+from repro_torch.launch.bfs import build_graph, spawn_mesh
 
 WHAT = ("components", "eccentricity", "extremes", "betweenness",
         "closeness", "sssp", "pagerank")
@@ -58,22 +68,34 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run the session on the card (default) or on the "
                          "CPU through the kernels' PyTorch twins")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="more than 1 is not ported yet: raises "
-                         "ConfigError")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="row-shard the session over a 1-D mesh of N "
+                         "ranks, one spawned process each (NCCL on the "
+                         "card, gloo under --device cpu)")
     args = ap.parse_args(argv)
 
     what = [w.strip() for w in args.what.split(",") if w.strip()]
     unknown = set(what) - set(WHAT)
     if unknown:
         ap.error(f"unknown --what entries {sorted(unknown)}")
-    if args.devices != 1:
-        raise ConfigError(
-            "--devices is not ported to PyTorch yet: it comes with the "
-            "sharded analytics (ROADMAP.md queue 1 item 11d)")
+    if args.devices is not None:
+        spawn_mesh(args, max(1, torch.get_num_threads() // max(args.devices,
+                                                               1)),
+                   run=run_analytics)
+        return
     resolve_device(args.device)     # no card and no --device cpu: raise now
+    run_analytics(build_graph(args.graph, args.scale, args.seed), args)
 
-    g = build_graph(args.graph, args.scale, args.seed)
+
+def run_analytics(g, args, mesh=None, verbose: bool = True) -> None:
+    """Serve ``args.what`` off one session of ``g`` (on ``mesh`` when
+    given: every rank runs this, ``verbose`` ranks print) and verify each
+    verb but ``extremes`` against its oracle."""
+    def say(line: str) -> None:
+        if verbose:
+            print(line, flush=True)
+
+    what = [w.strip() for w in args.what.split(",") if w.strip()]
     weights = None
     if "sssp" in what:
         # dyadic rationals: f32 path sums are exact, so --verify can
@@ -83,10 +105,12 @@ def main(argv=None):
     sess = GraphSession(g, max_batch=args.max_batch,
                         options=PrepareOptions(w=512, seed=args.seed,
                                                weights=weights,
-                                               device=args.device))
-    print(f"[analytics] graph={args.graph} n={g.n} m={g.m} "
-          f"ordering={sess.ordering} engine={sess.engine_name} "
-          f"max_batch={sess.max_batch} device={args.device}")
+                                               device=args.device,
+                                               mesh=mesh))
+    say(f"[analytics] graph={args.graph} n={g.n} m={g.m} "
+        f"ordering={sess.ordering} engine={sess.engine_name} "
+        f"max_batch={sess.max_batch} device={args.device}"
+        + (f" mesh={mesh.size()}x1" if mesh is not None else ""))
     rng = np.random.default_rng(args.seed)
 
     if "components" in what:
@@ -103,7 +127,7 @@ def main(argv=None):
                 raise KernelFaultError(
                     "components diverge from the SciPy oracle")
             line += "; VERIFIED vs scipy"
-        print(line)
+        say(line)
 
     if "eccentricity" in what:
         srcs = rng.integers(0, g.n, args.sources)
@@ -119,19 +143,19 @@ def main(argv=None):
                 raise KernelFaultError(
                     "eccentricity diverges from the oracle")
             line += "; VERIFIED vs scipy"
-        print(line)
+        say(line)
 
     if "extremes" in what:
         t0 = time.time()
         rep = sess.extremes()
         dt = time.time() - t0
-        print(f"[analytics] extremes (iFUB): diameter="
-              f"[{rep.diameter_lb}, {rep.diameter_ub}] "
-              f"{'EXACT' if rep.exact else 'bounds'} "
-              f"radius<={rep.radius_ub} center={rep.center} "
-              f"periphery={rep.periphery} "
-              f"({rep.n_ecc_evals} ecc evals / {g.n} vertices) "
-              f"in {dt * 1e3:.1f}ms")
+        say(f"[analytics] extremes (iFUB): diameter="
+            f"[{rep.diameter_lb}, {rep.diameter_ub}] "
+            f"{'EXACT' if rep.exact else 'bounds'} "
+            f"radius<={rep.radius_ub} center={rep.center} "
+            f"periphery={rep.periphery} "
+            f"({rep.n_ecc_evals} ecc evals / {g.n} vertices) "
+            f"in {dt * 1e3:.1f}ms")
 
     if "betweenness" in what:
         t0 = time.time()
@@ -146,7 +170,7 @@ def main(argv=None):
             ref = betweenness_ref(g, srcs)
             np.testing.assert_allclose(bc, ref, rtol=1e-4, atol=1e-4)
             line += "; VERIFIED vs Brandes oracle"
-        print(line)
+        say(line)
 
     if "closeness" in what:
         srcs = rng.integers(0, g.n, args.sources)
@@ -161,7 +185,7 @@ def main(argv=None):
             np.testing.assert_allclose(cc, closeness_ref(g, srcs),
                                        rtol=1e-9)
             line += "; VERIFIED vs scipy"
-        print(line)
+        say(line)
 
     if "sssp" in what:
         srcs = rng.integers(0, g.n, min(args.sources, g.n))
@@ -182,7 +206,7 @@ def main(argv=None):
                 raise KernelFaultError(
                     "sssp diverges from the SciPy Dijkstra oracle")
             line += "; VERIFIED vs scipy"
-        print(line)
+        say(line)
 
     if "pagerank" in what:
         t0 = time.time()
@@ -201,7 +225,7 @@ def main(argv=None):
                     f"pagerank diverges from the float64 power-iteration "
                     f"oracle (max rel err {rel:.2e})")
             line += "; VERIFIED vs float64 power iteration"
-        print(line)
+        say(line)
 
 
 if __name__ == "__main__":

@@ -31,10 +31,11 @@ sources, and rank 0 prints a ``[bfs] sharded: ...`` line and the verdict::
     PYTHONPATH=src python -m repro_torch.launch.bfs --graph road --scale 10 \
         --engine blest_ac --sources 3 --devices 4 --device cpu
 
+``--service`` (and ``--queue``) with ``--devices N`` serves through a
+session on that mesh in every rank, each rank making the same calls.
 ``--devices 1`` is a mesh of one rank (the reference treats it as no
 mesh); without ``--devices`` the engines run on one device, no process
-group.  On the card N may not exceed the cards there are, and
-``--service`` with ``--devices`` waits for the sharded waves: both raise
+group.  On the card N may not exceed the cards there are: that raises
 :class:`~repro_torch.errors.ConfigError` before any process starts.
 
 The engines run on the CUDA card unless ``--device cpu`` asks for the CPU
@@ -86,17 +87,23 @@ ENGINE_VARIANTS = {
     "dirop": dict(engine="dirop", order=False),
 }
 
-def run_service(g, args) -> None:
+def run_service(g, args, *, mesh=None, verbose: bool = True) -> None:
     """--service: hardened wave-batched serving through the multi-tenant
-    GraphSessionManager (admission, deadlines, verify-mode sampling)."""
+    GraphSessionManager (admission, deadlines, verify-mode sampling), on
+    ``mesh`` when given (every rank runs this; ``verbose`` ranks print)."""
+    def say(line: str) -> None:
+        if verbose:
+            print(line, flush=True)
+
     variant = ENGINE_VARIANTS[args.engine]
     mgr = GraphSessionManager(verify_fraction=args.verify_fraction)
     sess = mgr.open_session(
         "cli", g, max_batch=args.max_batch,
         options=PrepareOptions(w=512, seed=args.seed,
                                order=variant["order"],
-                               engine=variant["engine"], device=args.device))
-    print(f"[bfs] session up: ordering={sess.ordering} "
+                               engine=variant["engine"], device=args.device,
+                               mesh=mesh))
+    say(f"[bfs] session up: ordering={sess.ordering} "
           f"engine={sess.engine_name} "
           f"compression={sess.bvss.compression_ratio():.3f} "
           f"preprocess={sess.preprocess_s:.2f}s "
@@ -117,7 +124,7 @@ def run_service(g, args) -> None:
         lvs = [f.result(0) for f in futs]
         t_wave = time.time() - t0
         qs = q.stats()
-        print(f"[bfs] queue: {qs['completed']} completed over "
+        say(f"[bfs] queue: {qs['completed']} completed over "
               f"{qs['waves']} waves, {qs['coalesced']} coalesced "
               f"mid-flight, {qs['timeouts']} deadline harvests")
     else:
@@ -138,7 +145,7 @@ def run_service(g, args) -> None:
             if not (lv_seq == ref).all():
                 raise KernelFaultError(f"seq mismatch from source {q}")
     st = mgr.stats()
-    print(f"[bfs] service: {len(queries)} queries, "
+    say(f"[bfs] service: {len(queries)} queries, "
           f"wave={t_wave * 1e3:.1f}ms "
           f"sequential={t_seq * 1e3:.1f}ms "
           f"speedup={t_seq / max(t_wave, 1e-9):.2f}x "
@@ -154,24 +161,24 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def spawn_mesh(args, threads: int) -> None:
-    """--devices N: run :func:`run_bfs` on a 1-D mesh of N spawned ranks.
+def spawn_mesh(args, threads: int, run=None) -> None:
+    """--devices N: call ``run(g, args, mesh, verbose)`` in each of N
+    spawned ranks on a 1-D mesh over them (``args.graph``, ``.scale``,
+    ``.seed`` and ``.device`` say what and where), rank 0 verbose; by
+    default :func:`run_mesh`, this launcher's BFS pipeline or service.
 
-    Checked before any process starts: N >= 1, no ``--service`` (the
-    sharded waves are ROADMAP.md queue 1 item 11c), a BVSS engine, and on
-    the card at least N cards.  A rank that fails makes the spawn raise
-    (the others are stopped)."""
+    Checked before any process starts: N >= 1, for this launcher a BVSS
+    engine, and on the card at least N cards.  A rank that fails makes
+    the spawn raise (the others are stopped)."""
     n = args.devices
     if n < 1:
         raise ConfigError(f"--devices needs at least one rank, got {n}")
-    if args.service:
-        raise ConfigError(
-            "--service with --devices is not ported to PyTorch yet: it "
-            "comes with the sharded waves (ROADMAP.md queue 1 item 11c)")
-    engine = ENGINE_VARIANTS[args.engine]["engine"]
-    if engine not in (None, *BVSS_ENGINES):
-        raise ConfigError(
-            f"--devices requires a BVSS engine, not {args.engine}")
+    if run is None:
+        engine = ENGINE_VARIANTS[args.engine]["engine"]
+        if engine not in (None, *BVSS_ENGINES):
+            raise ConfigError(
+                f"--devices requires a BVSS engine, not {args.engine}")
+        run = run_mesh
     if args.device == "cuda":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n > have:
@@ -180,14 +187,25 @@ def spawn_mesh(args, threads: int) -> None:
                 f"only {have} available; --device cpu runs the ranks on "
                 f"the CPU")
     import torch.multiprocessing as mp
-    mp.spawn(_rank_main, args=(n, _free_port(), args, threads), nprocs=n,
-             join=True)
+    mp.spawn(_rank_main, args=(n, _free_port(), args, threads, run),
+             nprocs=n, join=True)
 
 
-def _rank_main(rank: int, world: int, port: int, args, threads: int
-               ) -> None:
-    """One rank of ``--devices``: join the process group, build the 1-D
-    mesh, run the launcher's BFS pipeline on it; rank 0 prints."""
+def run_mesh(g, args, mesh, verbose: bool) -> None:
+    """One rank's part of ``--devices``: the BFS pipeline or the service."""
+    if verbose:
+        describe_graph(g, args, mesh)
+    if args.service:
+        run_service(g, args, mesh=mesh, verbose=verbose)
+    else:
+        run_bfs(g, args, mesh=mesh, verbose=verbose)
+
+
+def _rank_main(rank: int, world: int, port: int, args, threads: int,
+               run) -> None:
+    """One rank of a spawned mesh: join the process group, build the 1-D
+    mesh, build the graph and call ``run(g, args, mesh, rank == 0)``
+    (rank 0 prints)."""
     import torch.distributed as dist
 
     torch.set_num_threads(threads)
@@ -198,10 +216,8 @@ def _rank_main(rank: int, world: int, port: int, args, threads: int
                             rank=rank, world_size=world)
     try:
         mesh = bfs_mesh(world, device_type=args.device)
-        g = build_graph(args.graph, args.scale, args.seed)
-        if rank == 0:
-            describe_graph(g, args, mesh)
-        run_bfs(g, args, mesh=mesh, verbose=rank == 0)
+        run(build_graph(args.graph, args.scale, args.seed), args, mesh,
+            rank == 0)
     finally:
         dist.destroy_process_group()
 

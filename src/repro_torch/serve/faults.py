@@ -20,11 +20,17 @@ CUDA kernels (their PyTorch twins on CPU tensors):
   path-count float channel is NaN-poisoned where the tile contributed.
   Betweenness scores go NaN; the finite guard must degrade to the host
   oracle.
-* ``stall_shard`` / ``stall_butterfly_stage`` — the mesh's ``gather_impl``
-  seam.  A plan may set one or the other, never both.  On one device no
-  engine consults that seam, so such a plan is accepted and inert, as in
-  the reference; the mesh engines' gather it would wrap takes the seam
-  with the sharded waves (ROADMAP.md queue 1 item 11c).
+* ``stall_shard`` — ``gather_impl``, the frontier exchange of the mesh
+  wave engines: shard k's segment of the all-gathered frontier words
+  arrives zeroed (a stalled peer), so the vertices it owns stop
+  propagating and other shards under-discover.
+* ``stall_butterfly_stage`` — the same seam: stage k of the butterfly
+  frontier exchange (``distributed.collectives.
+  butterfly_frontier_exchange``) drops its partner block, the 2-D
+  analogue of ``stall_shard``.  A plan may set one stall or the other,
+  never both.  Only the wave pools of a mesh session consult the seam,
+  as in the reference: on one device a stall plan is accepted and inert,
+  and at world size 1 a butterfly has no stage.
 
 Each wrapper is a torch op on the kernel's output, out of place, so the
 kernel itself runs unchanged.  Every injected fault must surface as a
@@ -34,10 +40,13 @@ typed error or a degraded-but-correct result, never a silent wrong answer
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
+from repro_torch.distributed.bfs_dist import frontier_all_gather
+from repro_torch.distributed.collectives import butterfly_frontier_exchange
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import bvss_spmm, bvss_spmm_w, push_vss_kernel
 from repro_torch.kernels.ref import (bvss_push_ref, bvss_spmm_ref,
@@ -124,18 +133,23 @@ class FaultPlan:
         return faulty_spmm_w
 
     def wrap_gather(self) -> Callable | None:
-        if self.stall_shard is None and self.stall_butterfly_stage is None:
+        """The stalled frontier exchange ``gather(words, mesh, axis)`` of
+        this plan, or None."""
+        if self.stall_butterfly_stage is not None:
+            return functools.partial(
+                butterfly_frontier_exchange,
+                stall_stage=int(self.stall_butterfly_stage))
+        if self.stall_shard is None:
             return None
-        which = (f"stall_shard={self.stall_shard}"
-                 if self.stall_shard is not None else
-                 f"stall_butterfly_stage={self.stall_butterfly_stage}")
+        k = int(self.stall_shard)
 
-        def stalled_gather(*args, **kwargs):
-            raise ConfigError(
-                f"FaultPlan({which}) wraps the frontier all-gather of a "
-                f"mesh wave engine, which is not ported to PyTorch yet: it "
-                f"comes with the sharded waves (ROADMAP.md queue 1 item "
-                f"11c)")
+        def stalled_gather(fw_local, mesh, axis):
+            full = frontier_all_gather(fw_local, mesh, axis)
+            lw = fw_local.shape[0]
+            # shard k's words arrive zeroed: its frontier never reaches
+            # the other shards' pull operands
+            full[k * lw:(k + 1) * lw] = 0
+            return full
 
         return stalled_gather
 

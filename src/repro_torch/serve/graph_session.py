@@ -1,5 +1,5 @@
 """GraphSession: batched BFS query serving over one prepared graph
-(DESIGN §2.5), the single-device port of ``repro/serve/graph_session.py``.
+(DESIGN §2.5), the port of ``repro/serve/graph_session.py``.
 
 A session owns ALL prepared state for one graph — ordering decision,
 permutation + inverse, BVSS, the single-source engine, and the batched
@@ -40,9 +40,16 @@ push cap for the device (``core/autotune.py``).
 ``core/bvss_delta.py``) and swaps the session to the next epoch; waves in
 flight finish on the epoch they started with.
 
-Not ported yet: the ``mesh`` constructor option (the sharded waves),
-which raises :class:`~repro_torch.errors.ConfigError` naming its
-ROADMAP.md slice (queue 1 item 11c).
+A session is mesh-native (DESIGN §2.4): with ``mesh=`` (a
+:class:`torch.distributed.device_mesh.DeviceMesh`) every rank of the mesh
+builds the same session on the same graph and makes the same calls
+(SPMD); each holds its own shard, and every verb answers the whole graph
+on every rank.  The wave pools, the symmetrised twin, the weight plane
+and the verbs' engines are all sharded; the single-source engine is
+``prepare``'s sharded one.  On a 2-D mesh the weighted verbs (``sssp``,
+``pagerank``) raise :class:`~repro_torch.errors.ConfigError`, as the
+reference's do, and ``update_edges`` on any mesh is still to be ported
+(ROADMAP.md queue 1 item 11e).
 """
 from __future__ import annotations
 
@@ -60,12 +67,15 @@ from repro_torch.analytics import (ExtremesReport, betweenness_centrality,
                                    make_pagerank, make_sssp, out_degrees,
                                    pagerank_scores, sssp_distances)
 from repro_torch.core.bfs import BlestProblem, make_blest_bfs
-from repro_torch.core.bvss import build_weight_plane, weight_plane_to_device
+from repro_torch.core.bvss import (build_sharded_bvss,
+                                   build_sharded_weight_plane,
+                                   build_weight_plane, weight_plane_to_device)
 from repro_torch.core.bvss_delta import apply_edge_updates
 from repro_torch.core.multi_source import (drive_wave, make_ms_engine,
                                            make_multi_source_bfs)
 from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
                                      build_problem, prepare)
+from repro_torch.distributed.collectives import axis_size
 from repro_torch.errors import ConfigError, check_source, check_sources
 from repro_torch.graphs import Graph
 from repro_torch.kernels.ref import normalize_labels
@@ -86,10 +96,12 @@ class GraphSession:
 
     Parameters mirror :func:`repro_torch.core.policy.prepare`;
     ``max_batch`` is the wave slot-pool width (the S of the stacked
-    bit-SpMM frontier); ``weights`` (one strictly positive float per CSR
-    edge of ``g``) arms the weighted verbs.  Like ``prepare``, the session
-    runs on the card unless ``options=PrepareOptions(device="cpu")`` asks
-    for the CPU.
+    bit-SpMM frontier); ``mesh`` row-shards the session over a
+    ``DeviceMesh`` (every rank of it builds the session); ``weights`` (one
+    strictly positive float per CSR edge of ``g``) arms the weighted
+    verbs.  Like ``prepare``, the session runs on the card unless
+    ``options=PrepareOptions(device="cpu")`` asks for the CPU (a gloo
+    mesh is given there as ``options.mesh``).
     """
 
     #: every query verb a session serves (the reference's tuple)
@@ -106,17 +118,13 @@ class GraphSession:
                  mesh_axis: str = "data", weights=None,
                  fault_plan: FaultPlan | None = None):
         t0 = time.time()
-        if mesh is not None or getattr(options, "mesh", None) is not None:
-            raise ConfigError(
-                "a mesh-sharded session is not ported to PyTorch yet: it "
-                "comes with the mesh slice's sharded waves (ROADMAP.md queue 1 "
-                "item 11c)")
         if options is None:
             options = PrepareOptions(
                 sigma=sigma, w=w, seed=seed, lazy_threshold=lazy_threshold,
                 order=order, engine=engine, use_kernels=use_kernel,
-                direction=direction, autotune=autotune, weights=weights)
-        elif weights is not None or \
+                direction=direction, autotune=autotune, mesh=mesh,
+                mesh_axis=mesh_axis, weights=weights)
+        elif weights is not None or mesh is not None or \
                 (sigma, w, seed, lazy_threshold, order, engine, use_kernel,
                  direction, autotune, mesh_axis) != \
                 (8, 512, 0, None, True, None, True, "auto", False, "data"):
@@ -137,6 +145,7 @@ class GraphSession:
         self.max_batch = int(max_batch)
         self._use_kernel = options.use_kernels
         self._direction = options.direction
+        self._mesh_axis = options.mesh_axis
         self.max_steps = max_steps
         self._bind_prepared()
         self.preprocess_s = time.time() - t0
@@ -206,6 +215,12 @@ class GraphSession:
     @property
     def engine_name(self) -> str:
         return self.prepared.engine_name
+
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` the session is row-sharded over (None on one
+        device)."""
+        return self.prepared.mesh
 
     @property
     def epoch(self) -> int:
@@ -334,9 +349,11 @@ class GraphSession:
     def _sym_problem(self) -> BlestProblem:
         """The symmetrised twin of the prepared problem (same internal id
         space — symmetrisation commutes with the reordering), on the
-        session's device, backing the classical undirected analytics."""
+        session's device, backing the classical undirected analytics;
+        sharded when the session is."""
         return self._cached("sym_problem", lambda: build_problem(
             self.prepared.graph.symmetrized, sigma=self.prepared.bvss.sigma,
+            mesh=self.mesh, mesh_axis=self._mesh_axis,
             device=self._problem.device))
 
     def _sym_ms(self):
@@ -475,10 +492,26 @@ class GraphSession:
         way, so it aligns with the session's problem bit for bit."""
         if self.prepared.wplane is not None:
             return self.prepared.wplane
-        return self._cached("unit_wplane", lambda: weight_plane_to_device(
-            build_weight_plane(self.prepared.graph, self._weights_ord(),
-                               sigma=self.prepared.bvss.sigma),
-            self._problem.device))
+        if self._problem.is_2d:
+            raise ConfigError(
+                "weighted verbs are not supported on a 2-D (row × column) "
+                "mesh yet — the weighted verbs ship 1-D row-sharded "
+                "(DESIGN §2.9); use a 1-D mesh or a single device")
+
+        def unit_plane():
+            g_ord, ones = self.prepared.graph, self._weights_ord()
+            sigma = self.prepared.bvss.sigma
+            if self.mesh is None:
+                return weight_plane_to_device(
+                    build_weight_plane(g_ord, ones, sigma=sigma),
+                    self._problem.device)
+            sb = build_sharded_bvss(
+                g_ord, axis_size(self.mesh, self._mesh_axis), sigma=sigma)
+            return weight_plane_to_device(
+                build_sharded_weight_plane(g_ord, ones, sb),
+                self._problem.device, mesh=self.mesh, axis=self._mesh_axis)
+
+        return self._cached("unit_wplane", unit_plane)
 
     def _sssp_fn(self, width: int):
         """Cached delta-stepping engine of cohort width ``width``."""

@@ -44,6 +44,16 @@ on any stream is complete before the wave reads it.  Each wave and its
 verification hold the manager's serving lock, so an edge update
 (:meth:`GraphSessionManager.update_edges`) from another thread lands
 between waves, never inside one.
+
+On a mesh session every rank runs its own queue (SPMD): each rank submits
+the same requests in the same order, so their request ids agree, and
+drains them.  A wave's refills follow rank 0: rank 0 picks each request
+by the tenant-fair rule on its own clock, and the other ranks take the
+request with the same id, waiting for their own submission of it if it
+has not been made yet; ``drive_wave`` makes the deadline harvests rank
+0's too.  A rank's pump may start a wave before rank 0's does; it then
+waits in the wave's first collective.  Every mesh session of a queue
+shares the process group, so a queue serves one mesh session.
 """
 from __future__ import annotations
 
@@ -56,7 +66,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.multi_source import drive_wave
+from repro_torch.core.bfs import rank_layout
+from repro_torch.core.multi_source import drive_wave, leader_agreement
 from repro_torch.errors import QueueFullError, check_source
 from repro_torch.serve.session_manager import GraphSessionManager
 
@@ -171,6 +182,15 @@ class _SessionQueue:
                  if r.not_before is not None]
         return min(times) if times else None
 
+    def take(self, request_id: int) -> _Request | None:
+        """Remove and return the request with this id, if it is here."""
+        for q in self.tenants.values():
+            for i, req in enumerate(q):
+                if req.future.request_id == request_id:
+                    del q[i]
+                    return req
+        return None
+
     def drain_all(self) -> list[_Request]:
         out = [r for q in self.tenants.values() for r in q]
         for q in self.tenants.values():
@@ -277,6 +297,21 @@ class RequestQueue:
                 self._n_pending -= 1
                 self._n_tenant[req.tenant] -= 1
             return req
+
+    def _checkout_id(self, name: str, request_id: int,
+                     poll_s: float = 0.0005) -> _Request:
+        """Remove request ``request_id`` of session ``name`` from the
+        pending pool, waiting for its submission if this rank has not
+        made it yet (a mesh rank following rank 0's pick)."""
+        while True:
+            with self._lock:
+                sq = self._pending.get(name)
+                req = sq.take(request_id) if sq is not None else None
+                if req is not None:
+                    self._n_pending -= 1
+                    self._n_tenant[req.tenant] -= 1
+                    return req
+            time.sleep(poll_s)
 
     @property
     def pending(self) -> int:
@@ -391,8 +426,20 @@ class WaveScheduler:
         def cap_of(tenant: str) -> int | None:
             return mgr.quota_for(tenant).max_inflight
 
+        # on a mesh every rank drains its own queue of the same requests
+        # (SPMD), and the wave's refills must match: rank 0 picks, and
+        # the other ranks take the request with rank 0's id
+        agree = leader_agreement(sess._ms)
+        leader = agree is None or rank_layout(sess._problem).leader
+
         def next_source(slot: int) -> int | None:
-            req = q._checkout(self.name, q._clock(), slot_share, cap_of)
+            req = q._checkout(self.name, q._clock(), slot_share, cap_of) \
+                if leader else None
+            if agree is not None:
+                rid = agree([-1 if req is None
+                             else req.future.request_id])[0]
+                if not leader and rid >= 0:
+                    req = q._checkout_id(self.name, rid)
             if req is None:
                 return None
             if any(o is not None for o in owner):

@@ -8,11 +8,11 @@ render the same through the snapshot's own renderer
 
 * the ``device`` parameter, which the port adds (its entry points run on
   the card unless the caller asks for the CPU);
-* the ``mesh`` and ``mesh_axis`` parameters of ``GraphSession`` and
-  ``GraphSessionManager.open_session``, and ``GraphSession.mesh``, which
-  come with the sharded waves (ROADMAP.md queue 1 item 11c).  Those of
-  ``PrepareOptions``, ``PreparedBFS`` and ``build_problem`` are ported and
-  compared;
+* none for the mesh: since the sharded waves were ported, the ``mesh``
+  and ``mesh_axis`` parameters of ``GraphSession`` and
+  ``GraphSessionManager.open_session`` and ``GraphSession.mesh`` are
+  compared like the rest (``LATER_SLICE_PARAMS`` and
+  ``DIVERGENT_MEMBERS`` are empty);
 * ``PreparedBFS``'s field order: the port's ``device`` field sits before
   ``_fn``, so the fields compare as a set of names;
 * the name of ``prepare``'s keyword catch-all (``**legacy`` in the
@@ -35,10 +35,9 @@ from torch_one_thread import one_torch_thread  # noqa: F401
 #: parameters that differ by design (see the module docstring)
 DIVERGENT_PARAMS = ("device",)
 #: parameters that come with a later slice, by the line they are on
-LATER_SLICE_PARAMS = {"GraphSession": ("mesh", "mesh_axis"),
-                      "GraphSessionManager.open_session": ("mesh",)}
+LATER_SLICE_PARAMS: dict[str, tuple[str, ...]] = {}
 #: members that come with a later slice
-DIVERGENT_MEMBERS = ("GraphSession.mesh",)
+DIVERGENT_MEMBERS: tuple[str, ...] = ()
 #: classes whose fields compare as a set of names
 UNORDERED = ("PreparedBFS",)
 

@@ -748,3 +748,56 @@ def test_cuda_mesh_world_one_equals_oracle(cuda_device):
         assert after["finalize_pack_sweep"] == before["finalize_pack_sweep"]
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_session_world_one_equals_oracle(cuda_device):
+    """A mesh session on the card at world size 1 (one NCCL rank): the
+    wave's levels, a betweenness cohort and an SSSP cohort equal the
+    oracles, and each verb goes through its hand kernels on the shard
+    (``bvss_spmm``; ``bvss_spmm_w`` and ``bvss_spmm_t``;
+    ``bvss_spmm_minplus``).  Multi-card NCCL is not exercised here."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import bfs_mesh
+    from repro_torch.kernels.ref import betweenness_ref, sssp_ref
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        g = repro_torch.generators.rmat(10, 8, seed=5)
+        w = (np.random.default_rng(6).integers(1, 128, g.m) / 32.0
+             ).astype(np.float32)
+        sess = repro_torch.GraphSession(g, max_batch=4, mesh=bfs_mesh(1),
+                                        weights=w)
+        assert sess.mesh is not None
+        assert sess._problem.device == torch.device("cuda", 0)
+        queries = [0, 17, 300, 511, 1000, 17]
+        srcs = queries[:4]
+        for verb, kernels, run in (
+                ("levels_batch", ("bvss_spmm",),
+                 lambda: sess.levels_batch(queries)),
+                ("betweenness", ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"),
+                 lambda: sess.betweenness_batch(srcs)),
+                ("sssp", ("bvss_spmm_minplus",),
+                 lambda: sess.sssp_batch(srcs))):
+            before = tk.launch_counts()
+            got = run()
+            after = tk.launch_counts()
+            for k in kernels:
+                assert after[k] > before[k], (verb, k)
+            if verb == "levels_batch":
+                for s, lv in zip(queries, got):
+                    np.testing.assert_array_equal(
+                        lv, repro_torch.reference_bfs(g, s))
+            elif verb == "betweenness":
+                np.testing.assert_allclose(got, betweenness_ref(g, srcs),
+                                           rtol=1e-4, atol=1e-4)
+            else:
+                np.testing.assert_array_equal(got, sssp_ref(g, srcs, w))
+    finally:
+        dist.destroy_process_group()

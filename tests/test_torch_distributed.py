@@ -32,6 +32,7 @@ import repro
 import repro_torch
 import torch_mesh as tm
 from repro.core import bvss as jbvss
+from repro.core import reference_bfs as jreference_bfs
 from repro.distributed.bfs_dist import frontier_all_gather as j_gather
 from repro.distributed.collectives import comm_ledger as j_ledger
 from repro.graphs import generators as jgen
@@ -275,11 +276,18 @@ def test_mesh_over_request_raises_config_error(ranks):
 
 
 def test_unported_mesh_paths_name_their_slice(ranks):
+    """Edge updates on a mesh name their slice (item 11e); the
+    multi-source engine and a session, which named item 11c before it
+    was ported, now serve the mesh and equal the reference on every rank."""
     got = ranks[0]
     assert got["update_edges"].startswith("ConfigError")
     assert "item 11e" in got["update_edges"]
-    for key in ("multi_source", "session"):
-        assert got[key].startswith("ConfigError") and "item 11c" in got[key]
+    g = J_ENGINE_GRAPH
+    for rank in ranks[:tm.ENGINE_RANKS]:
+        for key in ("multi_source", "session"):
+            for lv, s in zip(rank[key], (0, g.n - 1)):
+                np.testing.assert_array_equal(
+                    lv, np.asarray(jreference_bfs(g, s)), err_msg=key)
 
 
 # ---------------------------------------------------------------------------

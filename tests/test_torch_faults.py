@@ -11,7 +11,8 @@ the reference does: with ``direction="pull"`` the unverified faulted
 levels under ``corrupt_spmm_tile`` equal the reference's faulted levels
 bit for bit, and the manager's events and ``stats()`` equal the
 reference's.  On one device neither package consults the ``gather_impl``
-seam, so the two stall plans are accepted and inert in both.
+seam, so the two stall plans are accepted and inert in both (the mesh
+cases: ``tests/test_torch_mesh_session.py``).
 
 Tolerance: levels, ``TimeoutResult`` fields, events and ``stats()``
 exactly; betweenness within rtol 1e-4 / atol 1e-4 of the reference's
@@ -130,12 +131,37 @@ def test_double_stall_plan_rejected():
 @pytest.mark.parametrize("plan", [FaultPlan(stall_shard=1),
                                   FaultPlan(stall_butterfly_stage=0)],
                          ids=["stall-shard", "stall-stage"])
-def test_stall_gather_names_the_mesh_slice(plan):
-    """The gather a stall plan wraps is a mesh engine's; if anything ever
-    called it on one device, it names the slice that brings the mesh."""
+def test_stall_gather_names_the_mesh_slice(plan, monkeypatch):
+    """The gather a stall plan wraps is a mesh wave engine's frontier
+    exchange, ``gather(words, mesh, axis)``: on a 2-rank mesh (here its
+    transfers stubbed: the peer's block is the words + 10) rank 0 receives
+    shard 1's segment zeroed, by the flat all-gather (``stall_shard``) and
+    by stage 0 of the butterfly (``stall_butterfly_stage``), where the
+    unstalled exchange delivers it.  The plans on real gloo ranks:
+    ``tests/test_torch_mesh_session.py``."""
+    from repro_torch.distributed import bfs_dist, collectives
+
+    class TwoRanks:
+        mesh_dim_names, shape = ("data",), (2,)
+
+        def get_group(self, axis):
+            return None
+
+        def get_local_rank(self, axis):
+            return 0
+
+    monkeypatch.setattr(bfs_dist, "all_gather_tiled",
+                        lambda x, group: torch.cat([x, x + 10]))
+    monkeypatch.setattr(collectives, "_exchange",
+                        lambda send, peer, group: send + 10)
+    monkeypatch.setattr(collectives, "_partner", lambda group, idx, bit: 1)
+    words = torch.arange(1, 5, dtype=torch.int32)
     gather = plan.engine_overrides()["gather_impl"]
-    with pytest.raises(ConfigError, match="queue 1 item 11"):
-        gather(torch.zeros(4, dtype=torch.int32), "data")
+    got = gather(words, TwoRanks(), "data")
+    np.testing.assert_array_equal(got.numpy(), [1, 2, 3, 4, 0, 0, 0, 0])
+    clean = bfs_dist.frontier_all_gather(words, TwoRanks(), "data")
+    np.testing.assert_array_equal(clean.numpy(),
+                                  [1, 2, 3, 4, 11, 12, 13, 14])
 
 
 def test_faulted_session_actually_diverges(graphs):

@@ -362,13 +362,19 @@ def test_autotune_session_matches_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(mesh=object()), "mesh slice"),
+    (dict(mesh=object()), "EITHER"),
 ])
 def test_unported_options_raise(kw, slice_name):
+    """A session's ``mesh=`` is ported (``tests/test_torch_mesh_session.py``
+    serves it on gloo ranks); beside ``options=`` the keyword is the
+    reference's ConfigError, in both packages."""
     g = tgen.path(4)
     with pytest.raises(ConfigError, match=slice_name):
         repro_torch.GraphSession(
             g, options=repro_torch.PrepareOptions(device="cpu"), **kw)
+    with pytest.raises(repro.ConfigError, match=slice_name):
+        repro.GraphSession(J_FAM["path"], options=repro.PrepareOptions(),
+                           **kw)
 
 
 @pytest.mark.parametrize("plan", [None, "no_faults", "empty"])

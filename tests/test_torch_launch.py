@@ -2,10 +2,16 @@
 
 ``repro_torch.launch.bfs.main([..., "--device", "cpu"])`` must run every
 Table-2 variant of the reference launcher to ``VERIFIED vs oracle``, on
-the reference's graphs and variant table; the flags that wait for a later
-slice must raise; without ``--device cpu`` the launcher asks for the card.
+the reference's graphs and variant table; ``--service`` with
+``--devices`` serves on spawned gloo ranks; without ``--device cpu`` the
+launcher asks for the card.
 The bench scripts (``repro_torch.bench``) run end to end at a small size,
 each checking its engines or kernels against the oracles or twins."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +22,8 @@ from repro_torch.bench import (bench_queue, bench_service, kernel_bench,
 from repro_torch.errors import ConfigError
 from repro_torch.launch import bfs as tlaunch
 from torch_one_thread import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_engine_variants_match_reference():
@@ -45,11 +53,30 @@ def test_cli_verifies_every_variant_on_cpu(variant, capsys):
     assert "device=cpu" in out[0]
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2", "--service"]])
+@pytest.mark.parametrize("flag", [["--devices", "2", "--service"],
+                                  ["--devices", "2", "--service",
+                                   "--queue"]])
 def test_unported_flags_raise(flag):
-    with pytest.raises(ConfigError, match="not ported"):
-        tlaunch.main(["--graph", "road", "--scale", "6", "--device", "cpu",
-                      *flag])
+    """No flag of the launcher is refused any more: ``--service`` (and
+    ``--queue``) with ``--devices 2`` serves through a session on a mesh
+    of two spawned gloo ranks, rank 0 printing once, and verifies every
+    answer against the oracle."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.bfs", "--graph", "road",
+         "--scale", "6", "--engine", "blest_full", "--sources", "4",
+         "--device", "cpu", "--verify-fraction", "1.0", *flag],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].endswith("device=cpu mesh=2x1"), lines
+    assert lines[1].startswith("[bfs] session up: "), lines
+    if "--queue" in flag:
+        assert lines[2].startswith("[bfs] queue: 4 completed"), lines
+    assert len(lines) == 3 + ("--queue" in flag), lines
+    assert lines[-1].startswith("[bfs] service: 4 queries, "), lines
+    assert "quarantines=0" in lines[-1], lines[-1]
+    assert lines[-1].endswith("VERIFIED vs oracle"), lines[-1]
 
 
 @pytest.mark.parametrize("flags", [

@@ -6,8 +6,14 @@ With ``--device cpu`` every verb of ``WHAT`` runs, and every verb but
 ``VERIFIED`` suffix of the oracle that ran, at the reference's
 tolerances.  The first line carries the reference's fields with the values
 its own host pipeline gives (ordering and update scheme); unknown
-``--what`` entries are an argparse error; ``--devices 2`` waits for the
-mesh slice; without ``--device cpu`` the launcher asks for the card."""
+``--what`` entries are an argparse error; ``--devices 2`` serves every
+verb on a mesh of two gloo ranks; without ``--device cpu`` the launcher
+asks for the card."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -20,6 +26,7 @@ from repro_torch.errors import ConfigError
 from repro_torch.launch import analytics as tanalytics
 from torch_one_thread import one_torch_thread  # noqa: F401
 
+ROOT = Path(__file__).resolve().parents[1]
 SUFFIX = {"components": "; VERIFIED vs scipy",
           "eccentricity": "; VERIFIED vs scipy",
           "betweenness": "; VERIFIED vs Brandes oracle",
@@ -97,9 +104,22 @@ def test_unknown_what_is_an_argparse_error(capsys):
 
 
 def test_devices_waits_for_the_mesh_slice():
-    with pytest.raises(ConfigError, match="not ported.*item 11"):
-        tanalytics.main(["--graph", "road", "--scale", "6", "--device",
-                         "cpu", "--devices", "2"])
+    """``--devices 2`` (once refused, queue 1 item 11d) serves every verb
+    through a session on a mesh of two spawned gloo ranks: rank 0 prints
+    once, and every verb but ``extremes`` ends in its oracle's suffix."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.analytics", "--graph",
+         "road", "--scale", "6", "--device", "cpu", "--devices", "2",
+         "--sources", "4"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].endswith("device=cpu mesh=2x1"), lines
+    got = verb_lines(lines)
+    assert sorted(got) == sorted(tanalytics.WHAT), lines
+    for verb, suffix in SUFFIX.items():
+        assert got[verb].endswith(suffix), got[verb]
 
 
 def test_cli_runs_on_the_card_by_default(monkeypatch):

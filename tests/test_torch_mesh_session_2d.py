@@ -1,0 +1,92 @@
+"""The mesh session of the port on a 2-D ``("data", "col")`` mesh against
+the JAX reference.
+
+The cases run once per module on one gloo group of 8 CPU ranks
+(``tests/torch_mesh.py``, ``program_session_2d``) and mirror the
+reference's 2-D mesh cases:
+
+* ``tests/test_distributed_2d.py::test_2d_session_transparency_and_sigma_parity``
+  on (2, 2) and (4, 2), and on (1, 1): the wave levels bit for bit,
+  betweenness within rtol 1e-6 of the oracle and of the reference's
+  single-device session, components equal to it; with every other verb
+  the reference serves on a 2-D mesh (``levels``, ``eccentricity``,
+  ``closeness``), and ``sssp``/``pagerank`` raising its ConfigError;
+* ``tests/test_weighted_verbs.py``: weights on a 2-D mesh are a
+  ConfigError;
+* ``tests/test_faults.py``: the stalled butterfly stage on a (2, 1) mesh,
+  quarantined under full verification and changing answers without it.
+
+Every rank's answers must equal rank 0's.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import repro
+import torch_mesh as tm
+from repro.core import reference_bfs as jbfs
+from repro.graphs import generators as jgen
+from repro.kernels.ref import (betweenness_ref, closeness_ref,
+                               eccentricity_ref)
+from torch_one_thread import one_torch_thread  # noqa: F401
+
+
+@pytest.fixture(scope="module")
+def ranks() -> list[dict]:
+    """Every rank's results of :func:`torch_mesh.program_session_2d`."""
+    return tm.run_ranks(tm.program_session_2d, 8)
+
+
+@pytest.fixture(scope="module")
+def single():
+    jg = jgen.clustered(3, 23, seed=4)
+    tm.same_graph(tm.clustered_graph(), jg)
+    return jg, repro.GraphSession(jg, max_batch=3, w=256)
+
+
+@pytest.mark.parametrize("shape", tm.SESSION_MESHES_2D,
+                         ids=[f"{r}x{c}" for r, c in tm.SESSION_MESHES_2D])
+def test_2d_session_transparency_and_sigma_parity(ranks, single, shape):
+    jg, jsess = single
+    got = tm.each_rank(ranks, ("session", shape), shape[0] * shape[1])
+    q = tm.SESSION_QUERIES_2D
+    for s, lv in zip(q, got["levels_batch"]):
+        np.testing.assert_array_equal(lv, jbfs(jg, s), err_msg=f"src {s}")
+    np.testing.assert_array_equal(got["levels"], jbfs(jg, q[2]))
+    srcs = tm.BC_SOURCES_2D
+    np.testing.assert_allclose(got["betweenness"], betweenness_ref(jg, srcs),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got["betweenness"],
+                               jsess.betweenness_batch(srcs), rtol=1e-6)
+    np.testing.assert_array_equal(got["components"], jsess.components())
+    np.testing.assert_array_equal(got["eccentricity"],
+                                  eccentricity_ref(jg.symmetrized, q[:4]))
+    np.testing.assert_allclose(got["closeness"], closeness_ref(jg, q[:4]),
+                               rtol=1e-12)
+    # the weighted verbs and the push direction: the reference refuses
+    # them on a 2-D mesh, and so does the port
+    assert got["sssp"].startswith("ConfigError") and "2-D" in got["sssp"]
+    assert got["pagerank"].startswith("ConfigError") and \
+        "2-D" in got["pagerank"]
+    assert got["push"].startswith("ConfigError") and \
+        "pull-only" in got["push"]
+
+
+def test_2d_mesh_weighted_session_is_typed_config_error(ranks):
+    msg = tm.each_rank(ranks, "weighted_prepare", 4)
+    assert msg.startswith("ConfigError") and "2-D" in msg
+
+
+def test_stalled_butterfly_stage_caught_and_underdiscovers(ranks):
+    """Stage 0's partner block dropped on every rank of a (2, 1) mesh:
+    verified, every answer is the oracle's through one quarantine;
+    unverified, the stall changes answers."""
+    got = tm.each_rank(ranks, "stall_stage")
+    jg = jgen.rmat(7, 8, seed=2)
+    for s, lv in zip(tm.FAULT_QUERIES, got["verified"]):
+        np.testing.assert_array_equal(lv, jbfs(jg, s))
+    assert got["degraded"] >= 1
+    assert got["stats"]["quarantines"] == 1
+    assert sum(not np.array_equal(lv, jbfs(jg, s))
+               for s, lv in zip(tm.FAULT_QUERIES, got["unverified"])) > 0

@@ -484,9 +484,18 @@ def test_update_edges_matches_reference(graphs):
 
 
 def test_mesh_session_names_its_slice(graphs):
-    _, g = graphs
+    """``open_session(mesh=)`` passes the mesh to the session (served on
+    gloo ranks in ``tests/test_torch_mesh_session.py``); beside
+    ``options=`` it is the reference's ConfigError, and nothing is
+    admitted, in both packages."""
+    jg, g = graphs
     mgr = GraphSessionManager()
-    with pytest.raises(ConfigError, match="mesh slice"):
+    with pytest.raises(ConfigError, match="EITHER"):
         mgr.open_session("m", g, mesh=object(),
                          options=repro_torch.PrepareOptions(device="cpu"))
     assert "m" not in mgr and mgr.stats()["sessions"] == 0
+    jm = repro.GraphSessionManager()
+    with pytest.raises(repro.ConfigError, match="EITHER"):
+        jm.open_session("m", jg, mesh=object(),
+                        options=repro.PrepareOptions())
+    assert "m" not in jm and jm.stats()["sessions"] == 0

@@ -87,6 +87,35 @@ def run_ranks(program, world: int, *, timeout: float = 240.0) -> list:
     return results
 
 
+def same_graph(tg, jg) -> None:
+    np.testing.assert_array_equal(tg.indptr, jg.indptr)
+    np.testing.assert_array_equal(tg.indices, jg.indices)
+
+
+def each_rank(ranks: list, key, P: int = 2):
+    """``key``'s result on every rank of the P-rank mesh, all equal to rank
+    0's (SPMD: every rank gets the whole answer)."""
+    got = [r[key] for r in ranks[:P]]
+    for other in got[1:]:
+        assert_same(other, got[0])
+    return got[0]
+
+
+def assert_same(a, b) -> None:
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert_same(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert_same(x, y)
+    elif a is None or isinstance(a, (str, bool, int, float)):
+        assert a == b
+    else:
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def _raises(fn, *args, **kwargs) -> str | None:
     """The class name and message of what ``fn`` raises, or None."""
     try:
@@ -203,11 +232,14 @@ def program_1d(rank: int, world: int) -> dict:
                                   mesh_axis="rows")
         out["update_edges"] = _raises(rt.apply_edge_updates, pb,
                                       inserts=[(0, 1)])
-        out["multi_source"] = _raises(make_engine, g, "multi_source",
-                                      problem=pb.problem, n_sources=2)
-        out["session"] = _raises(
-            rt.GraphSession, g, options=rt.PrepareOptions(device="cpu",
-                                                          mesh=mesh))
+        # the multi-source engine and a session on the mesh (once refused
+        # here, queue 1 item 11c): levels in caller ids
+        ms = make_engine(g, "multi_source", problem=pb.problem, n_sources=2)
+        lv = ms(pb.perm[[0, g.n - 1]]).numpy()
+        out["multi_source"] = [lv[pb.perm, k] for k in range(2)]
+        sess = rt.GraphSession(g, options=rt.PrepareOptions(device="cpu",
+                                                            mesh=mesh))
+        out["session"] = sess.levels_batch([0, g.n - 1])
     if rank < WEIGHT_RANKS:
         g = engine_graph()
         for eng in ("blest", "blest_lazy", "brs"):
@@ -323,4 +355,286 @@ def program_2d(rank: int, world: int) -> dict:
                                  engine="brs")
             out["weights"] = _raises(rt.prepare, g, mesh=mesh, device="cpu",
                                      weights=weights_of(g))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mesh sessions, 1-D (tests/test_torch_mesh_session.py)
+# ---------------------------------------------------------------------------
+SESSION_RANKS = (1, 2, 8)
+VERB_QUERIES = [0, 5, 19, 64, 100, 5, 127]
+FAULT_QUERIES = [0, 5, 19, 64]
+SKEW_QUERIES = [0, 1, 2, 3]
+QUEUE_QUERIES = [3, 17, 29, 41, 55, 60, 71, 88, 96, 104, 113, 127]
+
+
+def dyadic(rng, m: int) -> np.ndarray:
+    """Dyadic weights k/32 (exact float32 path sums), one per CSR edge."""
+    return (rng.integers(1, 128, m) / 32.0).astype(np.float32)
+
+
+def verbs_graph():
+    from repro_torch.graphs import generators as gen
+    return gen.rmat(7, 8, seed=19)
+
+
+def bc_graphs():
+    """The reference's sharded-Brandes graphs: ragged n = 69, and one with
+    an isolated source (its column empties at level 1)."""
+    from repro_torch.graphs import from_edges
+    from repro_torch.graphs import generators as gen
+    return [gen.clustered(3, 23, seed=4),
+            from_edges(50, np.array([1, 2, 10]), np.array([2, 3, 11]))]
+
+
+def bc_sources(g) -> np.ndarray:
+    return np.array([1, min(40, g.n - 1), 2, g.n - 1], dtype=np.int64)
+
+
+def degenerate_graphs() -> dict:
+    """``tests/test_validation.py``'s DEGENERATE cases, on the port's
+    graphs."""
+    from repro_torch.graphs import Graph, from_edges
+
+    def empty(n):
+        return Graph(n, np.zeros(n + 1, dtype=np.int64),
+                     np.zeros(0, dtype=np.int32))
+    return {
+        "single-vertex": (empty(1), [0]),
+        "zero-edge": (empty(40), [0, 17, 39]),
+        "all-isolated-but-one-edge": (
+            from_edges(40, np.array([0]), np.array([1])), [0, 1, 25]),
+        "source-in-empty-component": (
+            from_edges(50, np.arange(10), np.arange(1, 11)), [45, 0, 49]),
+    }
+
+
+def bad_weight_cases(m: int) -> dict:
+    w = np.ones(m, dtype=np.float32)
+    nan, neg, zero, inf = w.copy(), w.copy(), w.copy(), w.copy()
+    nan[m // 2], neg[0], zero[-1], inf[0] = np.nan, -1.0, 0.0, np.inf
+    return {"shape": np.ones(m + 1, dtype=np.float32), "nan": nan,
+            "negative": neg, "zero": zero, "inf": inf}
+
+
+def _faulted(rt, g, opts, plan) -> dict:
+    """A stall plan through a verifying manager, and on a bare session."""
+    import warnings
+    mgr = rt.GraphSessionManager(verify_fraction=1.0)
+    mgr.open_session("stalled", g, max_batch=2, options=opts,
+                     fault_plan=plan)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        verified = mgr.levels_batch("stalled", FAULT_QUERIES)
+    sess = rt.GraphSession(g, max_batch=2, options=opts, fault_plan=plan)
+    return {"verified": verified, "stats": mgr.stats(),
+            "degraded": sum(issubclass(w.category, rt.DegradedServiceWarning)
+                            for w in caught),
+            "unverified": sess.levels_batch(FAULT_QUERIES)}
+
+
+def program_session_1d(rank: int, world: int) -> dict:
+    """Every 1-D session case, on sub-meshes of the first P ranks; results
+    keyed by case, from every rank of the case's mesh."""
+    import time
+
+    import repro_torch as rt
+    from repro_torch.analytics.betweenness import make_betweenness
+    from repro_torch.core.bfs import BlestProblem
+    from repro_torch.core.bvss import build_sharded_bvss
+    from repro_torch.core.multi_source import make_ms_engine
+    from repro_torch.distributed import bfs_mesh
+    from repro_torch.graphs import from_edges
+    from repro_torch.graphs import generators as gen
+    meshes = {P: bfs_mesh(P, device_type="cpu") for P in SESSION_RANKS}
+    out: dict = {}
+
+    def opts(P, **kw):
+        return rt.PrepareOptions(device="cpu", mesh=meshes[P], **kw)
+
+    for P in SESSION_RANKS:
+        if rank >= P:
+            continue
+        # the seven verbs on one weighted session, opened by the manager
+        g = verbs_graph()
+        mgr = rt.GraphSessionManager()
+        sess = mgr.open_session("verbs", g, max_batch=3, options=opts(
+            P, w=256, weights=dyadic(np.random.default_rng(20), g.m)))
+        q = VERB_QUERIES
+        out[("verbs", P)] = {
+            "levels": sess.levels(q[1]),
+            "levels_batch": mgr.levels_batch("verbs", q),
+            "components": sess.components(),
+            "eccentricity": sess.eccentricity_batch(q[:5]),
+            "closeness": sess.closeness_batch(q[:5]),
+            "betweenness": sess.betweenness_batch(q[:4]),
+            "sssp_batch": sess.sssp_batch(q[:3]),
+            "sssp": sess.sssp(q[4]),
+            "pagerank": sess.pagerank(tol=1e-10, max_iter=500),
+            "bytes": mgr.bytes_used(),
+            "problems_sharded": all(
+                v.mesh is not None for v in sess._analytics_cache.values()
+                if isinstance(v, BlestProblem)),
+            "update_edges": _raises(sess.update_edges, inserts=[(0, 1)])}
+        # Brandes across device counts, the kernel path and the twins'
+        for gi, gb in enumerate(bc_graphs()):
+            pD = BlestProblem.build_sharded(build_sharded_bvss(gb, P),
+                                            meshes[P], device="cpu")
+            for use_kernel in (True, False):
+                f = make_betweenness(pD, 4, use_kernel=use_kernel)
+                out[("bc", P, gi, use_kernel)] = [
+                    x.numpy() for x in f(bc_sources(gb))]
+        if P == 1:
+            continue
+        # the caller-id contract: refills, a duplicate, mixed depths
+        g = gen.rmat(8, 8, seed=1)
+        sess = rt.GraphSession(g, max_batch=3, options=opts(P, w=256))
+        rng = np.random.default_rng(0)
+        queries = [int(x) for x in rng.integers(0, g.n, 7)]
+        queries[3] = queries[0]
+        g2 = from_edges(60, np.arange(59), np.arange(1, 60))
+        sess2 = rt.GraphSession(g2, max_batch=2, options=opts(P,
+                                                              order=False))
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            srcs, cc = sess.centrality_sample(5, seed=2)
+        out[("caller_ids", P)] = {
+            "ordering": sess.ordering, "moved": bool(
+                (sess.perm != np.arange(g.n)).any()),
+            "queries": queries, "levels": sess.levels_batch(queries),
+            "path": sess2.levels_batch([58, 0, 55, 2, 59]),
+            "sample": (srcs, cc)}
+    if rank >= 2:
+        return out
+    mesh2 = meshes[2]
+    # the reference's two-device parity cases (tests/test_analytics.py)
+    g = gen.rmat(6, 8, seed=1)
+    sess = rt.GraphSession(g, max_batch=4, options=opts(2))
+    srcs = np.random.default_rng(4).integers(0, g.n, 4)
+    out["parity_rmat"] = {"components": sess.components(),
+                          "betweenness": sess.betweenness_batch(srcs)}
+    g = gen.grid2d(8, 8, shuffle=True, seed=3)
+    sess = rt.GraphSession(g, max_batch=4, options=opts(2))
+    out["parity_ecc"] = sess.eccentricity_batch(
+        np.random.default_rng(5).integers(0, g.n, 5))
+    g = gen.clustered(3, 16, seed=4)
+    sess = rt.GraphSession(g, max_batch=4, options=opts(2))
+    srcs = np.random.default_rng(8).integers(0, g.n, 5)
+    out["parity_closeness"] = {"sampled": sess.closeness_batch(srcs),
+                               "exact": sess.closeness_batch()}
+    # σ channel through a mid-flight refill, on the host-driven surface
+    g = gen.rmat(6, 8, seed=3)
+    eng = make_ms_engine(BlestProblem.build_sharded(
+        build_sharded_bvss(g, 2), mesh2, device="cpu"), 2, track_sigma=True)
+    st = eng.init(np.array([5, 9]))
+    for refill in (True, False):
+        for _ in range(g.n):
+            st, live = eng.level_step(st)
+            if not live.any():
+                break
+        if refill:
+            st = eng.insert_batch(st, np.array([23, 0]),
+                                  np.array([True, False]))
+    out["sigma_refill"] = [eng.paths_of(st, slot).numpy() for slot in (0, 1)]
+    # the weighted verbs' own cases (tests/test_weighted_verbs.py)
+    g = gen.rmat(7, 8, seed=19)
+    sess = rt.GraphSession(g, options=opts(2, weights=dyadic(
+        np.random.default_rng(20), g.m)))
+    out["sssp"] = sess.sssp_batch([0, 9])
+    g = gen.rmat(7, 8, seed=21)
+    out["pagerank"] = rt.GraphSession(g, options=opts(2)).pagerank(
+        tol=1e-10, max_iter=500)
+    g = gen.rmat(6, 4, seed=22)
+    out["bad_weights"] = {case: _raises(rt.GraphSession, g,
+                                        options=opts(2, weights=bad))
+                          for case, bad in bad_weight_cases(g.m).items()}
+    # the stall seam (tests/test_faults.py), and the degenerate graphs
+    # (tests/test_validation.py)
+    out["stall_shard"] = _faulted(rt, gen.rmat(7, 8, seed=2), opts(2),
+                                  rt.FaultPlan(stall_shard=1))
+    out["degenerate"] = {
+        case: rt.GraphSession(gd, max_batch=2, options=opts(
+            2, order=False)).levels_batch(sources)
+        for case, (gd, sources) in degenerate_graphs().items()}
+    # a deadline that rank 1 would call differently: rank 0's call counts
+    g2 = from_edges(60, np.arange(59), np.arange(1, 60))
+    sess = rt.GraphSession(g2, max_batch=2, options=opts(2, order=False))
+    asked = {i: 0 for i in range(len(SKEW_QUERIES))}
+    partial: dict = {}
+
+    def should_harvest(i):
+        asked[i] += 1
+        return (i == 1 and asked[i] == 3) if rank == 0 else i == 0
+
+    got = sess.levels_batch(SKEW_QUERIES, should_harvest=should_harvest,
+                            on_harvested=partial.__setitem__)
+    out["skew"] = {"levels": got, "partial": partial}
+    # the async queue over the 2-rank session: the pump drains while the
+    # ranks submit on their own timing
+    g = gen.rmat(7, 8, seed=2)
+    mgr = rt.GraphSessionManager(verify_fraction=1.0)
+    mgr.open_session("q", g, max_batch=4, options=opts(2))
+    queue = rt.RequestQueue(mgr)
+    queue.start(poll_s=0.001)
+    futs = []
+    for src in QUEUE_QUERIES:
+        futs.append(queue.submit("q", src))
+        time.sleep(0.003 * (rank + 1))
+    queue.stop(drain=True)
+    out["queue"] = {"levels": [f.result(0) for f in futs],
+                    "stats": queue.stats(), "manager": mgr.stats()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mesh sessions, 2-D (tests/test_torch_mesh_session_2d.py)
+# ---------------------------------------------------------------------------
+SESSION_MESHES_2D = ((1, 1), (2, 2), (4, 2))
+SESSION_QUERIES_2D = [0, 7, 23, 7, 68]
+BC_SOURCES_2D = [0, 5, 23, 41]
+
+
+def program_session_2d(rank: int, world: int) -> dict:
+    """Every 2-D session case, on sub-meshes of the first ranks."""
+    import repro_torch as rt
+    from repro_torch.core.multi_source import make_ms_engine
+    from repro_torch.distributed import bfs_mesh2d
+    from repro_torch.graphs import generators as gen
+    meshes = {s: bfs_mesh2d(*s, device_type="cpu")
+              for s in {*SESSION_MESHES_2D, (2, 1)}}
+    out: dict = {}
+
+    def opts(shape, **kw):
+        return rt.PrepareOptions(device="cpu", mesh=meshes[shape], **kw)
+
+    for shape in SESSION_MESHES_2D:
+        if rank >= shape[0] * shape[1]:
+            continue
+        # tests/test_distributed_2d.py's transparency case, with every
+        # verb the reference serves on a 2-D mesh
+        g = clustered_graph()
+        sess = rt.GraphSession(g, max_batch=3, options=opts(shape, w=256))
+        q = SESSION_QUERIES_2D
+        out[("session", shape)] = {
+            "levels_batch": sess.levels_batch(q),
+            "levels": sess.levels(q[2]),
+            "betweenness": sess.betweenness_batch(BC_SOURCES_2D),
+            "components": sess.components(),
+            "eccentricity": sess.eccentricity_batch(q[:4]),
+            "closeness": sess.closeness_batch(q[:4]),
+            "sssp": _raises(sess.sssp, 0),
+            "pagerank": _raises(sess.pagerank),
+            "push": _raises(make_ms_engine, sess._problem, 2,
+                            direction="push")}
+    if rank < 4:
+        g = gen.rmat(6, 4, seed=23)
+        out["weighted_prepare"] = _raises(
+            rt.GraphSession, g, options=opts((2, 2), weights=dyadic(
+                np.random.default_rng(24), g.m)))
+    if rank < 2:
+        # tests/test_faults.py's stalled butterfly stage, on a (2, 1) mesh
+        out["stall_stage"] = _faulted(
+            rt, gen.rmat(7, 8, seed=2), opts((2, 1)),
+            rt.FaultPlan(stall_butterfly_stage=0))
     return out
