@@ -186,7 +186,34 @@ Phases (any failure exits non-zero before the result line):
    the bare wave diverging (``mesh_serve_faults``); then, in child
    processes started together, ``launch.bfs --service --devices 1`` with
    and without ``--queue`` and ``launch.analytics --devices 1``, each
-   ending ``VERIFIED`` (``mesh_launch_service``).
+   ending ``VERIFIED`` (``mesh_launch_service``);
+13. edge updates on a mesh at world size 1, on phase 5's ordered
+   ``rmat(16)`` with dyadic weights: a weighted ``GraphSession(mesh=
+   bfs_mesh(1))`` and a single-device one take a patch-safe batch of
+   MESH_UPDATE_EDGES inserts and deletes (``patched``) and one insert out
+   of a slice set with no slices (``rebuilt``), a 2-D ``(1, 1)`` session
+   a patch-safe batch (``rebuilt``, the reference's 2-D reason); after
+   each, the reports equal one device's, ``levels`` of 4 sources, a
+   ``levels_batch`` of 8 and (1-D) ``sssp_batch`` of 4 and ``pagerank()``
+   equal the oracles of the updated graph, each tile kernel launching as
+   on one device, ``update_s`` beside one device's
+   (``mesh_update_rmat_16``); then ``bench_dist``'s sharded engine, wave
+   and Brandes at world size 1, all verified (``bench_dist``);
+14. the LM serving tier at full width, float32 with TF32 off in the
+   layers though the phase turns it on for the process, from a seed on
+   the card: qwen3-0.6b's ``model_cfg`` (28 layers, d_model
+   1,024, vocab 151,936) — prefill of 16 tokens and 4 decode steps against
+   ``forward``, the card's prefill logits against the CPU's for the same
+   weights, ``ServeEngine`` (4 slots, 8 requests of 8 new tokens) against
+   a standalone B = 1 decode, one decode step of 4 slots profiled
+   (``lm_qwen3_0_6b``, ``profile_lm_decode_qwen3_0_6b``); gemma3-1b's
+   (5 local : 1 global, window 512) prefill of 520 tokens and 20 decode
+   steps past the window's wrap against ``forward``
+   (``lm_window_gemma3_1b``), each within 1e-4 of the largest logit
+   (a control with the layers in TF32 must fail both qwen3 checks), with
+   prefill ms, ms a decode step, tokens/s and ``max_memory_allocated``
+   beside the parameter bytes; and ``python -m repro_torch.launch.serve``
+   and ``examples/torch_serve_lm.py`` as children (``lm_launchers``).
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -2614,48 +2641,76 @@ def caller_view(p):
     return gc, None if p.weights is None else p.weights[order]
 
 
+EPOCH_VERBS = ("levels", "levels_batch", "betweenness_batch", "sssp")
+EPOCH_KERNELS = ("bvss_pull", "finalize_pack_sweep", "bvss_spmm",
+                 "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus")
+
+
 def check_epoch(torch, rt, name: str, sess, sources, queries, fsrcs,
-                card: str) -> dict:
-    """After an epoch swap: ``levels`` of ``sources``, a wave of
-    ``queries`` through the slots, a betweenness cohort of ``fsrcs`` and
-    ``sssp`` from ``fsrcs[0]``, each against the host oracles of the
-    mutated caller graph at PERF.md §2's tolerances."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.ref import betweenness_ref, sssp_ref
+                verbs=EPOCH_VERBS, kernels=EPOCH_KERNELS) -> dict:
+    """After an epoch swap, each of ``verbs`` against the host oracles of
+    the mutated caller graph at PERF.md §2's tolerances: ``levels`` of
+    ``sources``, ``levels_batch`` of ``queries`` (a wave through the
+    slots), ``betweenness_batch`` of the cohort ``fsrcs``, ``sssp`` from
+    ``fsrcs[0]``, ``sssp_batch`` of ``fsrcs`` and ``pagerank()``.  Returns
+    each verb's wall ms and launches under ``verbs`` and the launches
+    summed under ``launches``, where each of ``kernels`` must appear."""
+    from repro_torch.kernels.ref import (betweenness_ref, pagerank_ref,
+                                         sssp_ref)
     t0 = time.perf_counter()
     gc, wc = caller_view(sess.prepared)
     oracle = memo_oracle(rt)
     view_s = time.perf_counter() - t0
-    reset_launch_counts()
-    rows = run_sources(torch, gc, sess.levels, sources, oracle)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lvs = sess.levels_batch(queries)
-    wave_s = time.perf_counter() - t0
-    check_levels(name, gc, queries, lvs, oracle)
-    t0 = time.perf_counter()
-    bc = sess.betweenness_batch(fsrcs)
-    bc_s = time.perf_counter() - t0
-    want = betweenness_ref(gc, fsrcs)
-    err = np.abs(bc - want)
-    if not np.all(np.isfinite(bc)) or \
-            bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
-        fail(f"{name}: betweenness differs from betweenness_ref (max abs "
-             f"err {float(err.max())})")
-    t0 = time.perf_counter()
-    dist = sess.sssp(fsrcs[0])
-    sssp_s = time.perf_counter() - t0
-    if not np.array_equal(dist, sssp_ref(gc, [fsrcs[0]], wc)[0]):
-        fail(f"{name}: sssp differs from Dijkstra on the mutated graph")
-    counts = launch_counts()
-    require_launches(counts, name, ("bvss_pull", "finalize_pack_sweep",
-                                    "bvss_spmm", "bvss_spmm_w",
-                                    "bvss_spmm_t", "bvss_spmm_minplus"))
-    return {"levels_ms_per_bfs": ms_per_bfs(rows),
-            "wave_ms": wave_s * 1e3, "betweenness_ms": bc_s * 1e3,
-            "betweenness_max_abs_err": float(err.max()),
-            "sssp_ms": sssp_s * 1e3, "caller_view_s": view_s,
-            "m": int(gc.m), "launches": counts}
+
+    def levels_of(srcs):
+        return lambda got: check_levels(name, gc, srcs, got, oracle)
+
+    def betweenness(bc):
+        want = betweenness_ref(gc, fsrcs)
+        err = np.abs(bc - want)
+        if not np.all(np.isfinite(bc)) or \
+                bool((err > 1e-4 + 1e-4 * np.abs(want)).any()):
+            fail(f"{name}: betweenness differs from betweenness_ref (max "
+                 f"abs err {float(err.max())})")
+        return {"max_abs_err": float(err.max())}
+
+    def sssp(dist, srcs):
+        want = sssp_ref(gc, srcs, wc)
+        if not np.array_equal(np.reshape(dist, want.shape), want):
+            fail(f"{name}: sssp differs from Dijkstra on the mutated graph "
+                 f"at {int(np.count_nonzero(dist != want))} entries")
+
+    def pagerank(got):
+        want = pagerank_ref(gc)
+        rel = float(np.max(np.abs(got - want) / want))
+        if not rel <= 1e-4 or not abs(float(got.sum()) - 1.0) <= 1e-5:
+            fail(f"{name}: pagerank differs from pagerank_ref ({rel})")
+        return {"max_rel_err": rel}
+
+    table = {
+        "levels": (lambda: [sess.levels(s) for s in sources],
+                   levels_of(sources)),
+        "levels_batch": (lambda: sess.levels_batch(queries),
+                         levels_of(queries)),
+        "betweenness_batch": (lambda: sess.betweenness_batch(fsrcs),
+                              betweenness),
+        "sssp": (lambda: sess.sssp(fsrcs[0]),
+                 lambda d: sssp(d, fsrcs[:1])),
+        "sssp_batch": (lambda: sess.sssp_batch(fsrcs),
+                       lambda d: sssp(d, fsrcs)),
+        "pagerank": (sess.pagerank, pagerank)}
+    rows: dict = {}
+    total: dict = {}
+    for verb in verbs:
+        fn, check = table[verb]
+        got, wall_ms, counts = timed_verb(torch, fn)
+        rows[verb] = {"wall_ms": wall_ms, "launches": counts,
+                      **(check(got) or {})}
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    require_launches(total, name, kernels)
+    return {"verbs": rows, "caller_view_s": view_s, "m": int(gc.m),
+            "launches": total}
 
 
 def update_edges_phase(torch, rt, sess, g, sources, queries, fsrcs,
@@ -2691,7 +2746,7 @@ def update_edges_phase(torch, rt, sess, g, sources, queries, fsrcs,
             fail(f"update_edges_rmat_18 ({tag}): expected the {path} path, "
                  f"got {rep}")
         check = check_epoch(torch, rt, f"update_edges_rmat_18 ({tag})",
-                            sess, sources, queries, fsrcs, card)
+                            sess, sources, queries, fsrcs)
         for k, v in check.pop("launches").items():
             total[k] = total.get(k, 0) + v
         steps.append({"update": tag, "path": rep.path, "epoch": rep.epoch,
@@ -3456,6 +3511,481 @@ def mesh_launch_service_phase(torch, card: str) -> None:
     emit({"phase": "mesh_launch_service", "lines": lines, "card": card})
 
 
+# ---------------------------------------------------------------------------
+# phase 13: edge updates on a mesh, at world size 1
+# ---------------------------------------------------------------------------
+MESH_UPDATE_EDGES = 32           # inserts, and deletes, of the patch
+MESH_UPDATE_SOURCES = 4          # levels() sources after each update
+MESH_UPDATE_SSSP = 4             # the sssp_batch cohort after each update
+BENCH_DIST_SCALE = 10            # bench_dist's suite: rmat(10), grid 32 x 32
+BENCH_DIST_QUERIES = 6
+
+
+def mesh_update_phase(torch, rt, p5, meshes, card: str) -> dict:
+    """Edge updates on a mesh session at world size 1 (ROADMAP.md queue 1
+    item 11e), on phase 5's ordered ``rmat(16)`` (``order=False``: no
+    second ordering pass) with dyadic weights: a weighted mesh session
+    and a single-device one take the same batches — (a) a patch-safe
+    batch of MESH_UPDATE_EDGES inserts and deletes (``patched``), (b) one
+    insert out of a slice set with no slices (``rebuilt``) — and an
+    unweighted 2-D ``(1, 1)`` session takes (c) a patch-safe batch, which
+    a 2-D problem always rebuilds with the reference's reason.  After
+    each: every report equals the single-device one, ``levels`` of
+    MESH_UPDATE_SOURCES, a ``levels_batch`` of SLOTS and (1-D)
+    ``sssp_batch`` of MESH_UPDATE_SSSP and ``pagerank()`` equal the
+    oracles of the updated caller graph on both sessions, and every tile
+    kernel launches on the mesh exactly as on one device."""
+    from repro_torch.core.bvss_delta import apply_edge_updates
+    from repro_torch.kernels import launch_counts
+    rng = np.random.default_rng(SEED + 13)
+    g0 = p5.graph
+    n = g0.n
+    w = (rng.integers(1, 128, g0.m) / 32.0).astype(np.float32)
+    t0 = time.perf_counter()
+    msess = rt.GraphSession(g0, max_batch=SLOTS, mesh=meshes[0],
+                            order=False, weights=w)
+    mesh_prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssess = rt.GraphSession(g0, max_batch=SLOTS, order=False, weights=w)
+    single_prepare_s = time.perf_counter() - t0
+    sources = [0] + [int(s) for s in rng.choice(n, MESH_UPDATE_SOURCES - 1,
+                                                replace=False)]
+    wave = [int(s) for s in rng.choice(n, SLOTS, replace=False)]
+    ssrcs = wave[:MESH_UPDATE_SSSP]
+    same_kernels = ("bvss_pull", "bvss_push_level", "finalize_pack_sweep",
+                    "bvss_spmm", "bvss_spmm_w", "bvss_spmm_minplus")
+    total = {k: 0 for k in launch_counts()}
+    steps = []
+
+    def dyadic(k):
+        return (rng.integers(1, 128, k) / 32.0).astype(np.float32).tolist()
+
+    def step(tag, path, batch, sess, single, weighted, reason=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sess.update_edges(**batch)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srep = single(batch)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        if rep is None or rep.path != path or \
+                (reason is not None and rep.reason != reason):
+            fail(f"mesh_update ({tag}): expected the {path} path"
+                 f"{'' if reason is None else ' (' + reason + ')'}, "
+                 f"got {rep}")
+        if path == "rebuilt" and reason is not None:
+            # the 2-D route: the single device patches the same batch
+            same = all(getattr(rep, f) == getattr(srep, f) for f in (
+                "epoch", "n_inserted", "n_deleted", "n_reweighted",
+                "stale_edges")) and rep.sets_touched == \
+                sess.prepared.bvss.n_sets and rep.vss_rows_rewritten == \
+                sess.prepared.bvss.num_vss
+        else:
+            same = rep == srep
+        if not same:
+            fail(f"mesh_update ({tag}): the mesh's report {rep} differs "
+                 f"from one device's {srep}")
+        verbs = ("levels", "levels_batch") + (
+            ("sssp_batch", "pagerank") if weighted else ())
+        # the 2-D engines pull without the fused sweep
+        kernels = ("bvss_pull", "bvss_spmm") + (
+            ("finalize_pack_sweep", "bvss_spmm_w", "bvss_spmm_minplus")
+            if weighted else ())
+        c = check_epoch(torch, rt, f"mesh_update ({tag})", sess, sources,
+                        wave, ssrcs, verbs, kernels)
+        for k, v in c["launches"].items():
+            total[k] += v
+        rows = c["verbs"]
+        if sess is msess:
+            one = check_epoch(torch, rt, f"mesh_update ({tag}, one device)",
+                              ssess, sources, wave, ssrcs, verbs, kernels)
+            for verb, row in rows.items():
+                row["single_wall_ms"] = one["verbs"][verb]["wall_ms"]
+                row["launches"] = same_launches(
+                    f"mesh_update ({tag}) {verb}", row["launches"],
+                    one["verbs"][verb]["launches"], same_kernels)
+        steps.append({"update": tag, "path": rep.path, "reason": rep.reason,
+                      "epoch": rep.epoch, "sets_touched": rep.sets_touched,
+                      "vss_rows_rewritten": rep.vss_rows_rewritten,
+                      "n_inserted": rep.n_inserted,
+                      "n_deleted": rep.n_deleted,
+                      "report_equal": True, "update_s": mesh_s,
+                      "single_update_s": single_s,
+                      "mesh_over_single": mesh_s / single_s, "verbs": rows})
+
+    def single_step(batch):
+        return ssess.update_edges(**batch)
+
+    ins, dels = patch_safe_batch(msess.prepared, rng, MESH_UPDATE_EDGES,
+                                 MESH_UPDATE_EDGES)
+    masks0 = msess.prepared.problem.dev.masks
+    masks0_copy = masks0.clone()
+    step("patch", "patched", dict(inserts=ins, deletes=dels,
+                                  insert_weights=dyadic(len(ins))),
+         msess, single_step, True)
+    if not torch.equal(masks0, masks0_copy):
+        fail("mesh_update: the epoch-0 shard's masks changed")
+    b = msess.prepared.bvss
+    empty = np.flatnonzero(np.diff(b.real_ptrs) == 0)
+    empty = empty[empty * b.sigma < b.n]
+    if not len(empty):
+        fail("mesh_update: no slice set without slices to grow")
+    s_int = int(empty[0]) * b.sigma
+    grow = (int(msess.inv[s_int]), int(msess.inv[(s_int + b.sigma) % n]))
+    step("grow", "rebuilt", dict(inserts=[grow], insert_weights=dyadic(1)),
+         msess, single_step, True)
+    # the 2-D route, unweighted (weights are 1-D only)
+    t0 = time.perf_counter()
+    msess2 = rt.GraphSession(g0, max_batch=SLOTS, mesh=meshes[1],
+                             order=False)
+    mesh2_prepare_s = time.perf_counter() - t0
+    p1 = rt.prepare(g0, order=False)
+    ins, dels = patch_safe_batch(msess2.prepared, rng, MESH_UPDATE_EDGES,
+                                 MESH_UPDATE_EDGES)
+    step("2d", "rebuilt", dict(inserts=ins, deletes=dels), msess2,
+         lambda batch: apply_edge_updates(p1, **batch).last_update, False,
+         reason="2-D partition relabels columns; no local patch path")
+    del msess2, p1
+    emit({"phase": "mesh_update_rmat_16", "world_size": 1, "n": n,
+          "m": g0.m, "mesh_prepare_s": mesh_prepare_s,
+          "single_prepare_s": single_prepare_s,
+          "mesh2d_prepare_s": mesh2_prepare_s, "steps": steps,
+          "tolerance": "levels and SSSP (dyadic weights) exact; PageRank "
+                       "rel err 1e-4, |sum - 1| 1e-5; reports equal",
+          "launches": total, "card": card})
+    del msess, ssess
+    torch.cuda.empty_cache()
+    return total
+
+
+def bench_dist_phase(torch, mesh, card: str) -> None:
+    """``repro_torch.bench.bench_dist``'s 1-D part at world size 1 on the
+    NCCL rank: the sharded engine, wave and Brandes against one device,
+    every part verified against the oracle (its ``dist2d`` block needs 8
+    ranks, one a card)."""
+    from repro_torch.bench import bench_dist
+    out = bench_dist.run_rank(mesh, scale=BENCH_DIST_SCALE,
+                              n_queries=BENCH_DIST_QUERIES)
+    if not out["summary"]["all_verified"]:
+        fail(f"bench_dist: not all verified: {out['summary']}")
+    emit({"phase": "bench_dist", "world_size": 1, "scale": BENCH_DIST_SCALE,
+          "summary": out["summary"],
+          "graphs": {name: {
+              "n": row["n"], "m": row["m"],
+              "engine_sharded_vs_single":
+                  row["engine_dist"]["ratio_sharded_vs_single"],
+              "wave_speedup": row["serve_dist"]["speedup"],
+              "bc_single_vs_sharded":
+                  row["betweenness_dist"]["single_vs_sharded"],
+              "bc_max_rel_err_vs_single":
+                  row["betweenness_dist"]["max_rel_err_vs_single"]}
+              for name, row in out["graphs"].items()},
+          "card": card})
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the LM serving tier at full width
+# ---------------------------------------------------------------------------
+LM_PREFILL = 16                  # qwen3: prompt tokens of the prefill
+LM_DECODE = 4                    # qwen3: decode steps checked against forward
+LM_SERVE_REQUESTS = 8
+LM_SERVE_NEW = 8
+WINDOW_PREFILL = 520             # gemma3: past its 512-token window
+WINDOW_DECODE = 20
+LM_CHILDREN = {
+    "launch_serve": ["-m", "repro_torch.launch.serve", "--arch",
+                     "qwen3-0.6b"],
+    "example_serve_lm": [str(ROOT / "examples" / "torch_serve_lm.py")],
+}
+
+
+LM_BOUND = 1e-4                  # the tolerance, a fraction of max |logit|
+
+
+def logit_bound(logits) -> float:
+    """The phase's tolerance: LM_BOUND of the largest |logit|."""
+    return LM_BOUND * float(logits.abs().max())
+
+
+class TF32Probe:
+    """What the layers see: while open, the process-wide TF32 flag is on
+    (as a caller may set it), and every ``apply_layer`` call records the
+    flag it runs under; ``control()`` also bypasses ``float32_matmuls``,
+    so the layers run in TF32."""
+
+    def __init__(self, torch, T):
+        self.torch, self.T, self.seen = torch, T, []
+
+    def __enter__(self):
+        import contextlib
+        torch, T = self.torch, self.T
+        self.prev = torch.backends.cuda.matmul.allow_tf32
+        self.apply_layer, self.guard = T.apply_layer, T.float32_matmuls
+        self.off = contextlib.nullcontext
+
+        def spy(*args, **kwargs):
+            self.seen.append(torch.backends.cuda.matmul.allow_tf32)
+            return self.apply_layer(*args, **kwargs)
+
+        T.apply_layer = spy
+        torch.backends.cuda.matmul.allow_tf32 = True
+        return self
+
+    def __exit__(self, *exc):
+        self.T.apply_layer, self.T.float32_matmuls = \
+            self.apply_layer, self.guard
+        self.torch.backends.cuda.matmul.allow_tf32 = self.prev
+
+    def take(self) -> list:
+        """The flags seen since the last take, each once."""
+        out, self.seen[:] = sorted(set(self.seen)), []
+        return out
+
+    def control(self, on: bool) -> None:
+        self.T.float32_matmuls = (lambda dtype: self.off()) if on \
+            else self.guard
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_timed(torch, fn):
+    """``(result, wall ms)`` of ``fn()`` on the card, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_full_width_phase(torch, rt, card: str, device: str = "cuda"
+                        ) -> None:
+    """qwen3-0.6b's ``model_cfg`` (28 layers, d_model 1,024, vocab
+    151,936) from a seed on the card, float32: prefill of LM_PREFILL
+    tokens and LM_DECODE decode steps against ``forward`` over them, the
+    card's prefill logits against the CPU's for the same weights, the
+    server (``ServeEngine``, 4 slots, LM_SERVE_REQUESTS requests) against
+    a standalone B = 1 decode, and one decode step profiled; then
+    gemma3-1b's (5 local : 1 global, window 512), LM_DECODE steps past
+    the window's wrap against ``forward``.  The launcher and
+    ``examples/torch_serve_lm.py`` run as children of the phase."""
+    import os
+
+    from repro_torch.models import transformer as T
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    children = {name: subprocess.Popen(
+        [sys.executable, *argv], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, argv in LM_CHILDREN.items()}
+    f32 = dict(compute_dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 14)
+    with TF32Probe(torch, T) as probe:
+        qwen3_phase(torch, T, probe, rng, f32, device, card)
+        gemma3_phase(torch, T, probe, rng, f32, device, card)
+    lines = {}
+    for name, proc in children.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for other in children.values():
+                other.kill()
+            fail(f"{name} ran past 600 s")
+        lines[name] = out.strip().splitlines()
+        if proc.returncode or not lines[name] or \
+                not lines[name][0].startswith("[serve] arch="):
+            fail(f"{name} (rc {proc.returncode}): {out}\n{err[-3000:]}")
+    emit({"phase": "lm_launchers", "lines": lines, "card": card})
+
+
+def tf32_fields(probe, seen: list) -> dict:
+    """The phase line's precision record: the flag the caller set, the
+    flags the layers ran under, and where the port turns TF32 off."""
+    if seen != [False]:
+        fail(f"the layers ran with allow_tf32 {seen} in float32 mode")
+    return {"matmul_allow_tf32_caller": True,
+            "matmul_allow_tf32_in_layers": seen,
+            "where": "repro_torch.models.transformer.float32_matmuls"}
+
+
+def decode_errs(torch, T, model, toks, n_prefill: int, f32) -> tuple:
+    """``forward`` over ``toks`` (1, S), then a prefill of ``n_prefill``
+    tokens (after a warm one) and a decode step for each of the rest: the
+    largest |logit| difference from ``forward`` at each, the prefill's
+    logits, the caches after the last step, the prefill's ms, the decode
+    steps' ms and the bound from ``forward``'s logits."""
+    total = toks.shape[1]
+    full, _ = T.forward(model, toks, **f32)
+    T.prefill(model, toks[:, :n_prefill], max_len=total, **f32)
+    (lp, caches), prefill_ms = lm_timed(torch, lambda: T.prefill(
+        model, toks[:, :n_prefill], max_len=total, **f32))
+    errs = [float((lp - full[:, n_prefill - 1]).abs().max())]
+    step_ms = []
+    for pos in range(n_prefill, total):
+        (ld, caches), ms = lm_timed(torch, lambda: T.decode_step(
+            model, caches, toks[:, pos:pos + 1], pos, **f32))
+        step_ms.append(ms)
+        errs.append(float((ld - full[:, pos]).abs().max()))
+    return errs, lp, caches, prefill_ms, step_ms, logit_bound(full)
+
+
+def qwen3_phase(torch, T, probe, rng, f32, device, card) -> None:
+    """Phase 14's qwen3-0.6b part (:func:`lm_full_width_phase`), with the
+    TF32 control: the same decode against ``forward`` and prefill against
+    the CPU's with the layers in TF32, both of which the bound must
+    catch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch("qwen3-0.6b").model_cfg
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = lm_timed(torch, lambda: T.init_lm(
+        cfg, torch.Generator(device=device).manual_seed(SEED),
+        device=device))
+    pbytes = param_bytes(model)
+    total = LM_PREFILL + LM_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, total))).to(device)
+    with torch.no_grad():
+        T.forward(model, toks, **f32)                       # warm
+        _, fwd_ms = lm_timed(torch, lambda: T.forward(model, toks, **f32))
+        errs, lp, _, prefill_ms, step_ms, bound = decode_errs(
+            torch, T, model, toks, LM_PREFILL, f32)
+        if not max(errs) <= bound:
+            fail(f"qwen3-0.6b: prefill/decode differ from forward by "
+                 f"{max(errs)} > {bound}")
+        peak = torch.cuda.max_memory_allocated()
+        # the server: 8 requests through 4 slots, against a standalone
+        # B = 1 prefill and decode of the first request
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab,
+                                            rng.integers(4, LM_PREFILL + 1)),
+                        max_new_tokens=LM_SERVE_NEW)
+                for _ in range(LM_SERVE_REQUESTS)]
+        eng = ServeEngine(model, cfg, max_batch=4, prompt_len=LM_PREFILL,
+                          max_len=40)
+        outs, serve_ms = lm_timed(torch, lambda: eng.run(reqs))
+        new_tokens = sum(len(o.tokens) for o in outs) - sum(
+            min(len(r.prompt), LM_PREFILL) for r in reqs)
+        prompt = np.asarray(reqs[0].prompt, np.int64)
+        padded = np.concatenate([np.full(LM_PREFILL - len(prompt),
+                                         prompt[0]), prompt])
+        lg, caches = T.prefill(
+            model, torch.from_numpy(padded[None]).to(device), max_len=40,
+            **f32)
+        alone, margins = [], []
+        pos = LM_PREFILL
+        for i in range(LM_SERVE_NEW):
+            top2 = torch.topk(lg[0], 2)
+            alone.append(int(top2.indices[0]))
+            margins.append(float(top2.values[0] - top2.values[1]))
+            if i + 1 < LM_SERVE_NEW:
+                lg, caches = T.decode_step(
+                    model, caches, torch.tensor([[alone[-1]]]).to(device),
+                    pos, **f32)
+                pos += 1
+        served = [int(x) for x in outs[0].tokens[-LM_SERVE_NEW:]]
+        differ = [i for i, (a, b) in enumerate(zip(served, alone)) if a != b]
+        if differ and not margins[differ[0]] < bound:
+            fail(f"qwen3-0.6b: served tokens {served} differ from the "
+                 f"standalone decode {alone} at step {differ[0]}, top-2 "
+                 f"margin {margins[differ[0]]} (not a near-tie)")
+        # one decode step of 4 slots, profiled
+        dtoks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).to(device)
+        dpos = torch.full((4,), 20, device=device)
+        pool = T.make_cache(cfg, 4, 40, dtype=torch.float32, device=device)
+        profile(torch, lambda: T.decode_step(model, pool, dtoks, dpos, **f32),
+                "lm_decode_qwen3_0_6b", card, batch=4, max_len=40,
+                param_bytes=pbytes)
+        tf32 = tf32_fields(probe, probe.take())
+        # the control: the same checks with the layers in TF32
+        probe.control(True)
+        c_errs, c_lp, *_ = decode_errs(torch, T, model, toks, LM_PREFILL, f32)
+        probe.control(False)
+        c_seen = probe.take()
+        if c_seen != [True]:
+            fail(f"qwen3-0.6b: the TF32 control ran under {c_seen}")
+        # the card against the CPU, the same weights (moved, not copied)
+        model.cpu()
+        t0 = time.perf_counter()
+        lc, _ = T.prefill(model, toks[:, :LM_PREFILL].cpu(), max_len=total,
+                          **f32)
+        cpu_prefill_ms = (time.perf_counter() - t0) * 1e3
+        cpu_err = float((lc - lp.cpu()).abs().max())
+        c_cpu_err = float((lc - c_lp.cpu()).abs().max())
+        if not cpu_err <= bound:
+            fail(f"qwen3-0.6b: card and CPU prefill differ by {cpu_err} > "
+                 f"{bound}")
+        if not (c_cpu_err > bound and max(c_errs) > bound):
+            fail(f"qwen3-0.6b: with TF32 the card's prefill is within "
+                 f"{c_cpu_err} of the CPU's and decode within {max(c_errs)} "
+                 f"of forward, bound {bound}: the bound does not tell TF32 "
+                 f"from float32")
+    emit({"phase": "lm_qwen3_0_6b", "arch": "qwen3-0.6b",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": pbytes // 4, "param_bytes": pbytes,
+          "dtype": "float32", **tf32, "init_ms": init_ms,
+          "forward_ms": fwd_ms, "forward_tokens": total,
+          "prefill_ms": prefill_ms, "prefill_tokens": LM_PREFILL,
+          "decode_ms_per_step": float(np.mean(step_ms)),
+          "decode_tokens_per_s": 1e3 / float(np.mean(step_ms)),
+          "decode_max_abs_err": errs, "bound": bound,
+          "tolerance": f"{LM_BOUND:g} x max |logit|",
+          "cpu_prefill_ms": cpu_prefill_ms, "card_vs_cpu_max_abs_err":
+          cpu_err, "tf32_control": {
+              "matmul_allow_tf32_in_layers": c_seen,
+              "decode_max_abs_err": c_errs,
+              "card_vs_cpu_max_abs_err": c_cpu_err},
+          "max_memory_allocated": peak, "memory_over_params": peak / pbytes,
+          "serve": {"requests": len(outs), "slots": 4,
+                    "new_tokens": new_tokens, "wall_ms": serve_ms,
+                    "tokens_per_s": new_tokens / (serve_ms / 1e3),
+                    "first_request_equal": not differ,
+                    "differ_steps": differ, "top2_margins": margins},
+          "card": card})
+    del model, eng, caches, pool
+    torch.cuda.empty_cache()
+
+
+def gemma3_phase(torch, T, probe, rng, f32, device, card) -> None:
+    """Phase 14's gemma3-1b part (:func:`lm_full_width_phase`): decode
+    past the local layers' window wrap."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("gemma3-1b").model_cfg
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = lm_timed(torch, lambda: T.init_lm(
+        cfg, torch.Generator(device=device).manual_seed(SEED),
+        device=device))
+    pbytes = param_bytes(model)
+    total = WINDOW_PREFILL + WINDOW_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, total))).to(device)
+    with torch.no_grad():
+        _, fwd_ms = lm_timed(torch, lambda: T.forward(model, toks, **f32))
+        errs, _, caches, prefill_ms, step_ms, bound = decode_errs(
+            torch, T, model, toks, WINDOW_PREFILL, f32)
+        if not max(errs) <= bound:
+            fail(f"gemma3-1b: decode past the window differs from forward "
+                 f"by {max(errs)} > {bound}")
+        window_slots = sorted({c["k"].shape[1] for c in caches})
+        peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "lm_window_gemma3_1b", "arch": "gemma3-1b",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "window": cfg.window,
+          "local_global": list(cfg.local_global), "params": pbytes // 4,
+          "param_bytes": pbytes, "dtype": "float32",
+          **tf32_fields(probe, probe.take()),
+          "init_ms": init_ms, "forward_ms": fwd_ms, "forward_tokens": total,
+          "prefill_ms": prefill_ms, "prefill_tokens": WINDOW_PREFILL,
+          "decode_ms_per_step": float(np.mean(step_ms)),
+          "decode_tokens_per_s": 1e3 / float(np.mean(step_ms)),
+          "cache_slots": window_slots,
+          "decode_max_abs_err": max(errs), "bound": bound,
+          "tolerance": f"{LM_BOUND:g} x max |logit|",
+          "max_memory_allocated": peak,
+          "memory_over_params": peak / pbytes, "card": card})
+    del model, caches
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3658,6 +4188,11 @@ def main() -> None:
     by_phase["mesh_serve_faults"] = mesh_faults_phase(
         torch, rt, g, sess.prepared, meshes[0],
         np.random.default_rng(SEED + 12), memo_oracle(rt), card)
+    # phase 13 on this graph: edge updates on mesh sessions, then the
+    # mesh bench, at world size 1
+    by_phase["mesh_update_rmat_16"] = mesh_update_phase(
+        torch, rt, sess.prepared, meshes, card)
+    bench_dist_phase(torch, meshes[0], card)
     mesh_launch_service_phase(torch, card)
     import torch.distributed as dist
     dist.destroy_process_group()
@@ -3722,6 +4257,10 @@ def main() -> None:
 
     # phase 10's last part: the hybrid bench on its own graphs
     by_phase["bench_hybrid"] = bench_hybrid_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # phase 14: the LM serving tier at full width (no BFS kernel)
+    lm_full_width_phase(torch, rt, card)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",

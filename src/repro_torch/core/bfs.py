@@ -54,7 +54,7 @@ import torch
 
 from repro_torch.core.bvss import (BVSS, BVSSDevice, ShardedBVSS,
                                    ShardedBVSS2D, ShardedBVSSDevice,
-                                   build_bvss, resolve_device,
+                                   build_bvss, resolve_device, shard_ptrs,
                                    shard_to_device, shard_to_device_2d,
                                    to_device)
 from repro_torch.core.level_pipeline import (LevelPipeline, global_any,
@@ -171,6 +171,11 @@ class BlestProblem:
     col_axis: str | None = None
     n_col_shards: int = 1
     cols_per_block: int = 0
+    # every shard's per-set VSS offsets on a 1-D mesh, (n_shards, n_sets
+    # + 1) host int64 (row d = shard d's ``real_ptrs``), the same on every
+    # rank: what an edge update decides and patches from (ROADMAP.md
+    # queue 1 item 11e), since ``dev`` holds this rank's block alone
+    shard_ptrs: np.ndarray | None = None
 
     @property
     def device(self) -> torch.device:
@@ -207,7 +212,8 @@ class BlestProblem:
                                                 device=device),
                             mesh=mesh, axis=axis, n_shards=sb.n_shards,
                             rows_per_shard=sb.rows_per_shard,
-                            max_vss_per_set=sb.max_vss_per_set)
+                            max_vss_per_set=sb.max_vss_per_set,
+                            shard_ptrs=shard_ptrs(sb))
 
     @staticmethod
     def build_sharded_2d(sb: ShardedBVSS2D, mesh,

@@ -670,6 +670,17 @@ def _put_block(masks: np.ndarray, row_ids: np.ndarray, v2r: np.ndarray,
                              vss_of_vertex_end=put(vend))
 
 
+def shard_ptrs(sb: ShardedBVSS) -> np.ndarray:
+    """Every shard's ``real_ptrs``, (n_shards, n_sets + 1) int64: row d
+    gives the VSS range ``[ptrs[d, I], ptrs[d, I + 1])`` of slice set I in
+    shard d's block (the per-set view of ``vss_start``/``vss_end``)."""
+    ptrs = np.zeros((sb.n_shards, sb.n_sets + 1), np.int64)
+    if sb.n:
+        ptrs[:, :-1] = sb.vss_start[:, :sb.n:sb.sigma]
+        ptrs[:, -1] = sb.vss_end[:, sb.n - 1]
+    return ptrs
+
+
 def shard_to_device(sb: ShardedBVSS, mesh=None, axis: str = "data", *,
                     shard: int | None = None,
                     device: "str | torch.device | None" = None

@@ -1,6 +1,5 @@
 """Incremental BVSS maintenance: streaming edge updates without a full
-re-``prepare`` (DESIGN §2.10), the single-device port of
-``repro/core/bvss_delta.py``.
+re-``prepare`` (DESIGN §2.10), the port of ``repro/core/bvss_delta.py``.
 
 :func:`apply_edge_updates` evolves a
 :class:`~repro_torch.core.policy.PreparedBFS` through a batch of edge
@@ -16,18 +15,20 @@ rows are recomputed the same way.
 
 Three maintenance paths, cheapest first:
 
-* **patched** — every touched set keeps its VSS count: mask words, row ids
-  and weight-plane entries of the touched VSS rows are rewritten on the
-  host and copied into NEW device tensors (a clone of the old one with the
+* **patched** — every touched set keeps its VSS count (globally and, on a
+  1-D mesh, in every shard): mask words, row ids and weight-plane entries
+  of the touched VSS rows are rewritten on the host and copied into NEW
+  device tensors (a clone of the old one with the
   touched rows replaced, ``index_copy_`` on the clone).  The old epoch's
   tensors are never written — torch tensors are mutable, unlike the
   reference's JAX arrays, so the clone is what keeps waves in flight on
   the previous epoch on exactly the bits they started with.  The
   ``BVSSDevice`` fields a patch cannot change (``virtual_to_real``,
   ``real_ptrs``, ``vss_of_vertex_start/end``) are shared between epochs.
-* **rebuilt** — a touched set's VSS count changed: the BVSS, problem and
-  plane are rebuilt from scratch over the SAME vertex ordering, keeping
-  the caller-id contract and the epoch ledger.
+* **rebuilt** — a touched set's VSS count changed (or the problem is 2-D
+  partitioned, whose interleaved column relabelling makes locality moot):
+  the BVSS, problem and plane are rebuilt from scratch over the SAME vertex
+  ordering, keeping the caller-id contract and the epoch ledger.
 * **reprepared** — the cumulative patched-edge ledger crossed the
   staleness budget: the ordering itself is presumed stale, so the
   ORIGINAL graph is reconstructed in caller ids and the whole static
@@ -39,9 +40,14 @@ through ``prepared.perm`` internally — the same id contract as every query
 verb.  Every path returns a NEW ``PreparedBFS`` with ``epoch + 1`` (the
 input value is never mutated); pass ``expected_epoch`` for a
 compare-and-swap that raises :class:`~repro_torch.errors.StaleEpochError`
-instead of merging onto a superseded base.  The mesh paths of the
-reference (the per-shard patch) come with ROADMAP.md queue 1 item 11e:
-a mesh-sharded preparation raises :class:`~repro_torch.errors.ConfigError`.
+instead of merging onto a superseded base.
+
+On a mesh (SPMD, every rank calling with the same batch) each rank holds
+only its own shard, so it patches only its own block's rows.  The choice
+among patch, rebuild and reprepare comes from host data every rank holds
+alike — the caller graph, the ordering and every shard's VSS offsets
+(``BlestProblem.shard_ptrs``) — so every rank takes the same path, and
+the collectives of the next query line up.
 """
 from __future__ import annotations
 
@@ -52,9 +58,12 @@ import torch
 
 from repro_torch.core.bfs import BlestProblem, make_engine
 from repro_torch.core.bvss import (BVSS, LANES, build_bvss,
+                                   build_sharded_bvss,
+                                   build_sharded_weight_plane,
                                    build_weight_plane, weight_plane_to_device)
 from repro_torch.core.policy import (BVSS_ENGINES, PreparedBFS,
-                                     PrepareOptions, prepare)
+                                     PrepareOptions, build_problem, prepare)
+from repro_torch.distributed.collectives import axis_size
 from repro_torch.errors import (ConfigError, GraphValidationError,
                                 StaleEpochError, check_weights)
 from repro_torch.graphs import Graph, from_edges, src_of_edges
@@ -184,11 +193,6 @@ def apply_edge_updates(prepared: PreparedBFS, inserts=(), deletes=(), *,
             f"but the prepared state is at epoch {prepared.epoch} — "
             f"recompute the delta on the current epoch",
             expected=expected_epoch, actual=prepared.epoch)
-    if prepared.mesh is not None:
-        raise ConfigError(
-            "edge updates on a mesh-sharded preparation are not ported to "
-            "PyTorch yet: the per-shard patch comes with ROADMAP.md queue 1 "
-            "item 11e")
     g_ord = prepared.graph
     n = g_ord.n
     ins = _edge_batch(inserts, n, "inserts")
@@ -280,10 +284,13 @@ def apply_edge_updates(prepared: PreparedBFS, inserts=(), deletes=(), *,
                           len(fresh_keys), len(del_keys), len(reweights),
                           reason=f"staleness ledger {stale} edges over "
                                  f"budget {budget}")
-    if structural is not None:
+    if structural is not None or (prepared.problem is not None
+                                  and prepared.problem.is_2d):
+        reason = structural if structural is not None else \
+            "2-D partition relabels columns; no local patch path"
         return _rebuild(prepared, g_ord2, w_new, opts, stale,
                         len(fresh_keys), len(del_keys), len(reweights),
-                        reason=structural)
+                        reason=reason)
     return _patch(prepared, g_ord2, w_new, opts, stale,
                   fresh_keys, del_keys, reweights)
 
@@ -298,8 +305,10 @@ def _touched_sets(fresh_keys: np.ndarray, del_keys: np.ndarray, n: int,
 
 def _structural_reason(prepared: PreparedBFS, fresh_keys, del_keys,
                        g_ord2: Graph) -> str | None:
-    """None when every touched set keeps its VSS count — the precondition
-    for the bit-identical local patch."""
+    """None when every touched set keeps its VSS count (globally AND per
+    shard) — the precondition for the bit-identical local patch.  The
+    per-shard check reads every shard's offsets, not this rank's block,
+    so every rank of a mesh returns the same answer."""
     b = prepared.bvss
     sigma, tau, n = b.sigma, b.tau, b.n
     sets = _touched_sets(fresh_keys, del_keys, n, sigma)
@@ -316,6 +325,20 @@ def _structural_reason(prepared: PreparedBFS, fresh_keys, del_keys,
         if -(-count // tau) != span:
             return (f"slice set {int(I)} needs {-(-count // tau)} VSSs "
                     f"(has {span}) — realPtrs would shift")
+    pb = prepared.problem
+    if pb is not None and pb.mesh is not None and not pb.is_2d:
+        ptrs = pb.shard_ptrs
+        rps = pb.rows_per_shard
+        for d in range(pb.n_shards):
+            lo, hi = d * rps, min((d + 1) * rps, n)
+            local = (rows >= lo) & (rows < hi)
+            for I in sets:
+                in_set = local & ((cols // sigma) == I)
+                count = len(np.unique(rows[in_set]))
+                span = int(ptrs[d, I + 1] - ptrs[d, I])
+                if -(-count // tau) != span:
+                    return (f"shard {d} slice set {int(I)} needs "
+                            f"{-(-count // tau)} VSSs (has {span})")
     return None
 
 
@@ -390,8 +413,12 @@ def _patch(prepared: PreparedBFS, g_ord2: Graph, w_new, opts: PrepareOptions,
     # tensors (the old epoch's stay as they were) ----
     pb = prepared.problem
     problem2 = pb
+    wplane2 = prepared.wplane
     all_sets = np.union1d(sets, wsets)
-    if pb is not None:
+    if pb is not None and pb.mesh is not None:
+        problem2, wplane2 = _patch_sharded(pb, prepared.wplane, b, all_sets,
+                                           g_ord2, weight_of)
+    elif pb is not None:
         idx = np.concatenate([np.arange(int(b.real_ptrs[I]),
                                         int(b.real_ptrs[I + 1]))
                               for I in sets]) if len(sets) else \
@@ -404,8 +431,7 @@ def _patch(prepared: PreparedBFS, g_ord2: Graph, w_new, opts: PrepareOptions,
                                     masks2[idx].view(np.int32)),
                 row_ids=_replace_rows(dev.row_ids, idx, row_ids2[idx]))
         problem2 = dataclasses.replace(pb, dev=dev)
-    wplane2 = prepared.wplane
-    if prepared.wplane is not None:
+    if prepared.wplane is not None and (pb is None or pb.mesh is None):
         # the plane exists even without a device problem (non-BVSS
         # engine, weighted prep) — patch it in either case
         wplane2 = _patch_wplane(prepared.wplane, b, all_sets, g_ord2,
@@ -441,21 +467,79 @@ def _patch_wplane(wplane: torch.Tensor, b: BVSS, sets, g_ord2: Graph,
     return _replace_rows(wplane, np.concatenate(idx), np.concatenate(rows))
 
 
+def _patch_sharded(pb: BlestProblem, wplane, b: BVSS, sets, g_ord2: Graph,
+                   weight_of) -> tuple[BlestProblem, torch.Tensor | None]:
+    """1-D row-sharded patch of THIS rank's block: per touched set,
+    re-layout against the shard's own VSS range (``pb.shard_ptrs``), rows
+    in LOCAL ids (dummy = rows_per_shard), weight-plane rows through
+    ``w_local``; in new tensors, as on one device."""
+    n, sigma = b.n, b.sigma
+    d = pb.mesh.get_local_rank(pb.axis)
+    rps = pb.rows_per_shard
+    lo, hi = d * rps, min((d + 1) * rps, n)
+    src_t, dst_t = _edges_of_sets(g_ord2, sets, sigma)
+    local = (dst_t >= lo) & (dst_t < hi)
+
+    def w_local(src_global: int, row_local: int) -> float:
+        return weight_of(src_global, row_local + lo)
+
+    idx, masks, row_ids, planes = [], [], [], []
+    for I in sets:
+        p0, p1 = int(pb.shard_ptrs[d, I]), int(pb.shard_ptrs[d, I + 1])
+        in_set = local & ((src_t // sigma) == I)
+        slices: dict[int, int] = {}
+        for s, dd in zip(src_t[in_set], dst_t[in_set]):
+            row = int(dd - lo)
+            slices[row] = slices.get(row, 0) | (1 << int(s % sigma))
+        m, r = _encode_set(slices, p1 - p0, sigma, dummy_row=rps)
+        idx.append(np.arange(p0, p1))
+        masks.append(m)
+        row_ids.append(r)
+        if wplane is not None:
+            planes.append(_weight_rows(slices, p1 - p0, sigma, int(I),
+                                       w_local))
+    dev = pb.dev
+    at = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+    if len(at):
+        dev = dev._replace(
+            masks=_replace_rows(dev.masks, at,
+                                np.concatenate(masks).view(np.int32)),
+            row_ids=_replace_rows(dev.row_ids, at, np.concatenate(row_ids)))
+        if wplane is not None:
+            wplane = _replace_rows(wplane, at, np.concatenate(planes))
+    return dataclasses.replace(pb, dev=dev), wplane
+
+
 def _rebuild(prepared: PreparedBFS, g_ord2: Graph, w_new,
              opts: PrepareOptions, stale: int, n_ins: int, n_del: int,
              n_rew: int, *, reason: str) -> PreparedBFS:
     """Structural fallback: fresh BVSS/problem/plane over the SAME
     ordering (perm/inv/caller contract unchanged), on the prepared
-    device."""
+    device; on a mesh the sharded problem (1-D with its sharded weight
+    plane, or 2-D), each rank keeping its own block."""
     sigma = prepared.bvss.sigma
     device = prepared.device
+    mesh = prepared.mesh
     bvss2 = build_bvss(g_ord2, sigma=sigma)
-    problem2 = BlestProblem.build(bvss2, device) \
-        if prepared.engine_name in BVSS_ENGINES else None
     wplane2 = None
-    if w_new is not None:
+    if mesh is not None and w_new is not None:
+        # weights need a 1-D mesh (prepare refuses them on 2-D)
+        sb = build_sharded_bvss(g_ord2, axis_size(mesh, opts.mesh_axis),
+                                sigma=sigma)
+        problem2 = BlestProblem.build_sharded(sb, mesh, opts.mesh_axis,
+                                              device)
         wplane2 = weight_plane_to_device(
-            build_weight_plane(g_ord2, w_new, sigma=sigma), device)
+            build_sharded_weight_plane(g_ord2, w_new, sb), device,
+            mesh=mesh, axis=opts.mesh_axis)
+    elif mesh is not None:
+        problem2 = build_problem(g_ord2, sigma=sigma, mesh=mesh,
+                                 mesh_axis=opts.mesh_axis, device=device)
+    else:
+        problem2 = BlestProblem.build(bvss2, device) \
+            if prepared.engine_name in BVSS_ENGINES else None
+        if w_new is not None:
+            wplane2 = weight_plane_to_device(
+                build_weight_plane(g_ord2, w_new, sigma=sigma), device)
     report = UpdateReport(
         path="rebuilt", epoch=prepared.epoch + 1, n_inserted=n_ins,
         n_deleted=n_del, n_reweighted=n_rew, sets_touched=bvss2.n_sets,

@@ -1,0 +1,7 @@
+"""The LM serving tier's models, the port of ``repro/models`` (the dense
+GQA transformer; the GNN and recsys models are ROADMAP.md queue 1 item
+13d)."""
+from repro_torch.models import transformer
+from repro_torch.models.layers import LMConfig, MoEConfig
+
+__all__ = ["LMConfig", "MoEConfig", "transformer"]

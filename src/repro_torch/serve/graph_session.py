@@ -48,8 +48,11 @@ on every rank.  The wave pools, the symmetrised twin, the weight plane
 and the verbs' engines are all sharded; the single-source engine is
 ``prepare``'s sharded one.  On a 2-D mesh the weighted verbs (``sssp``,
 ``pagerank``) raise :class:`~repro_torch.errors.ConfigError`, as the
-reference's do, and ``update_edges`` on any mesh is still to be ported
-(ROADMAP.md queue 1 item 11e).
+reference's do.  ``update_edges`` on a mesh patches each rank's own
+shard (1-D) or rebuilds the sharded problem (2-D, or a set whose VSS
+count changes in any shard); every rank makes the same call and takes
+the same path, and the sharded wave pool, symmetrised twin and weight
+plane rebuild lazily against the new epoch.
 """
 from __future__ import annotations
 

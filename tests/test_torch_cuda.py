@@ -801,3 +801,96 @@ def test_cuda_mesh_session_world_one_equals_oracle(cuda_device):
                 np.testing.assert_array_equal(got, sssp_ref(g, srcs, w))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_update_world_one_equals_oracle(cuda_device):
+    """Edge updates on a weighted mesh session on the card at world size
+    1 (one NCCL rank): a new bit of an existing slice patches, an edge out
+    of a slice set with no slices rebuilds, each report equals the
+    single-device session's for the same batch, and afterwards the levels
+    and an SSSP cohort equal the oracles on the updated graph through the
+    hand kernels.  Multi-card NCCL is not exercised here."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import bfs_mesh
+    from repro_torch.graphs import from_edges, src_of_edges
+    from repro_torch.kernels.ref import sssp_ref
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        g = repro_torch.generators.rmat(10, 8, seed=5)
+        w = (np.random.default_rng(6).integers(1, 128, g.m) / 32.0
+             ).astype(np.float32)
+        mesh_sess = repro_torch.GraphSession(g, max_batch=4,
+                                             mesh=bfs_mesh(1), weights=w)
+        single = repro_torch.GraphSession(g, max_batch=4, weights=w)
+        p = mesh_sess.prepared
+        sigma, n = p.bvss.sigma, g.n
+        src, dst = src_of_edges(p.graph), p.graph.indices
+        have = set(zip(src.tolist(), dst.tolist()))
+        # (a ^ 1, b) beside an existing (a, b): a new bit of that slice
+        a, b = next((int(a) ^ 1, int(b)) for a, b in zip(src, dst)
+                    if (int(a) ^ 1, int(b)) not in have
+                    and int(a) ^ 1 not in (b, n))
+        empty = np.flatnonzero(np.diff(p.bvss.real_ptrs) == 0)
+        s0 = int(empty[empty * sigma < n][0]) * sigma
+        batches = [("patched", [(int(p.inv[a]), int(p.inv[b]))]),
+                   ("rebuilt", [(int(p.inv[s0]),
+                                 int(p.inv[(s0 + sigma) % n]))])]
+        for path, ins in batches:
+            rep = mesh_sess.update_edges(inserts=ins, insert_weights=[0.5])
+            assert rep.path == path, rep
+            assert rep == single.update_edges(inserts=ins,
+                                              insert_weights=[0.5])
+            q = mesh_sess.prepared
+            keys = q.inv[src_of_edges(q.graph)] * n + q.inv[q.graph.indices]
+            g_now = from_edges(n, keys // n, keys % n, dedup=True,
+                               drop_loops=False)
+            w_now = q.weights[np.argsort(keys, kind="stable")]
+            before = tk.launch_counts()
+            for s in (0, 17, 1000):
+                np.testing.assert_array_equal(
+                    mesh_sess.levels(s), repro_torch.reference_bfs(g_now, s))
+            np.testing.assert_array_equal(mesh_sess.sssp_batch([0, 17]),
+                                          sssp_ref(g_now, [0, 17], w_now))
+            after = tk.launch_counts()
+            assert after["bvss_pull"] > before["bvss_pull"]
+            assert after["bvss_spmm_minplus"] > before["bvss_spmm_minplus"]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_lm_decode_matches_forward(cuda_device, monkeypatch):
+    """qwen3-0.6b's smoke config on the card in float32, with TF32 turned
+    on for the process (the layers turn it off): prefill and 4 decode
+    steps equal ``forward`` over the same tokens, and the card's prefill
+    logits equal the CPU's for the same weights, each within 1e-4 of the
+    largest logit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    cfg = get_arch("qwen3-0.6b").smoke_cfg
+    model = T.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 20))).cuda()
+    f32 = dict(compute_dtype=torch.float32)
+    full, _ = T.forward(model, toks, **f32)
+    bound = 1e-4 * float(full.abs().max())
+    lp, caches = T.prefill(model, toks[:, :16], max_len=20, **f32)
+    assert float((lp - full[:, 15]).abs().max()) <= bound
+    for pos in range(16, 20):
+        ld, caches = T.decode_step(model, caches, toks[:, pos:pos + 1], pos,
+                                   **f32)
+        assert float((ld - full[:, pos]).abs().max()) <= bound
+    cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    lc, _ = T.prefill(cpu, toks[:, :16].cpu(), max_len=20, **f32)
+    assert float((lc - lp.cpu()).abs().max()) <= bound

@@ -13,14 +13,21 @@ against the JAX reference.
   eager, lazy and BRS engines (kernels and twins, every direction) on
   P = 4; weights, autotune and the refusals.  Every rank's levels must
   equal the reference's single-device levels and ``reference_bfs``, bit
-  for bit.  One level's ledger bytes equal what the reference's
+  for bit.
+* Edge updates on P in {2, 8} (``tests/test_bvss_delta.py``'s sharded
+  rounds, unweighted and weighted, and a batch only the per-shard check
+  rebuilds): every rank's patched block equals a fresh sharded build of
+  the updated graph, weight plane included, and the ``UpdateReport``
+  equals the reference's.  One level's ledger bytes equal what the reference's
   ``frontier_all_gather`` records for one traced level.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -35,7 +42,10 @@ from repro.core import bvss as jbvss
 from repro.core import reference_bfs as jreference_bfs
 from repro.distributed.bfs_dist import frontier_all_gather as j_gather
 from repro.distributed.collectives import comm_ledger as j_ledger
+from repro.graphs import Graph as jgraph
+from repro.graphs import from_edges as jfrom_edges
 from repro.graphs import generators as jgen
+from repro.graphs import src_of_edges
 from repro_torch.core import bvss as tbvss
 from repro_torch.distributed import bfs_mesh
 from repro_torch.errors import ConfigError
@@ -276,18 +286,121 @@ def test_mesh_over_request_raises_config_error(ranks):
 
 
 def test_unported_mesh_paths_name_their_slice(ranks):
-    """Edge updates on a mesh name their slice (item 11e); the
-    multi-source engine and a session, which named item 11c before it
-    was ported, now serve the mesh and equal the reference on every rank."""
-    got = ranks[0]
-    assert got["update_edges"].startswith("ConfigError")
-    assert "item 11e" in got["update_edges"]
+    """Edge updates on a mesh, the multi-source engine and a session,
+    which named their slices (items 11e and 11c) before they were ported,
+    now serve the mesh and equal the reference on every rank: the update's
+    report equals the reference's single-device one, and its levels the
+    oracle's on the updated graph."""
     g = J_ENGINE_GRAPH
+    ins = [tm.missing_edge(tm.engine_graph())]
+    jprep = repro.apply_edge_updates(
+        repro.prepare(g, options=repro.PrepareOptions(w=256)), inserts=ins)
+    g_now = caller_graph(jprep)
+    got = tm.each_rank(ranks, "update_edges", tm.ENGINE_RANKS)
+    assert got["report"] == dataclasses.asdict(jprep.last_update)
+    for lv, s in zip(got["levels"], (0, g.n - 1)):
+        np.testing.assert_array_equal(lv, np.asarray(jreference_bfs(g_now,
+                                                                    s)))
     for rank in ranks[:tm.ENGINE_RANKS]:
         for key in ("multi_source", "session"):
             for lv, s in zip(rank[key], (0, g.n - 1)):
                 np.testing.assert_array_equal(
                     lv, np.asarray(jreference_bfs(g, s)), err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# edge updates on the mesh (tests/test_bvss_delta.py)
+# ---------------------------------------------------------------------------
+def caller_graph(prep):
+    """The caller-id view of a prepared (ordered) graph."""
+    return jfrom_edges(prep.graph.n, prep.inv[src_of_edges(prep.graph)],
+                       prep.inv[prep.graph.indices], dedup=True,
+                       drop_loops=False)
+
+
+def assert_block_is_fresh_build(got: dict, d: int, P: int) -> None:
+    """Rank ``d``'s patched block equals shard ``d`` of the reference's
+    fresh sharded build of the updated graph, weight plane included."""
+    jg2 = jgraph(len(got["indptr"]) - 1, got["indptr"], got["indices"])
+    sb = jbvss.build_sharded_bvss(jg2, P)
+    np.testing.assert_array_equal(got["masks"], sb.masks[d])
+    np.testing.assert_array_equal(got["row_ids"], sb.row_ids[d])
+    if "wplane" in got:
+        plane = jbvss.build_sharded_weight_plane(jg2, got["weights"], sb)
+        np.testing.assert_array_equal(got["wplane"], plane[d])
+
+
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("P", tm.UPDATE_RANKS)
+def test_sharded_update_matches_single_device(ranks, P, weighted):
+    """``test_sharded_update_matches_single_device``: three rounds of
+    inserts on a 1-D mesh.  Each round, on every rank: the patched (or
+    rebuilt) block equals a fresh sharded build of the updated graph bit
+    for bit, the old epoch's masks are untouched, the levels equal the
+    oracle's, and the ``UpdateReport`` equals the reference's on one
+    device (weights included on the weighted preparation)."""
+    jg = jgen.rmat(7, 8, seed=21)
+    tm.same_graph(tm.update_graph(), jg)
+    jprep = repro.prepare(jg, options=repro.PrepareOptions(
+        w=512, seed=0, weights=tm.weights_of(jg) if weighted else None))
+    for i, (ins, w) in enumerate(tm.update_batches(jg.n, weighted)):
+        jprep = repro.apply_edge_updates(jprep, inserts=ins,
+                                         insert_weights=w)
+        g_now = caller_graph(jprep)
+        want = [np.asarray(jreference_bfs(g_now, s)) for s in (0, jg.n // 3)]
+        for d, rank in enumerate(ranks[:P]):
+            got = rank[("update", P, weighted)][i]
+            assert got["report"] == dataclasses.asdict(jprep.last_update)
+            np.testing.assert_array_equal(got["indices"],
+                                          jprep.graph.indices)
+            if weighted:
+                np.testing.assert_array_equal(got["weights"], jprep.weights)
+            assert_block_is_fresh_build(got, d, P)
+            assert got["old_untouched"]
+            for lv, ref in zip(got["levels"], want):
+                np.testing.assert_array_equal(lv, ref)
+
+
+@pytest.mark.parametrize("P", tm.UPDATE_RANKS)
+def test_per_shard_structural_batch_rebuilds(ranks, P):
+    """A slice set that gains its first slice in one shard, keeping its
+    global VSS count: the per-shard check sends the batch to a rebuild,
+    with the reason string the reference's own check gives for the same
+    sharded problem, and the rebuilt block equals a fresh build."""
+    from repro.core import bvss_delta as jdelta
+    jg = jgen.rmat(7, 8, seed=21)
+    jprep = repro.prepare(jg, options=repro.PrepareOptions(w=512, seed=0))
+    got0 = ranks[0][("update_shard", P)]
+    for rank in ranks[:P]:
+        assert rank[("update_shard", P)]["report"] == got0["report"]
+    ins = np.asarray(got0["inserts"])
+    n = jg.n
+    keys = jprep.perm[ins[:, 0]] * n + jprep.perm[ins[:, 1]]
+    old = src_of_edges(jprep.graph) * n + jprep.graph.indices
+    new = np.sort(np.concatenate([old, keys]))
+    jg2 = jfrom_edges(n, new // n, new % n, dedup=True, drop_loops=False)
+    sb = jbvss.build_sharded_bvss(jprep.graph, P)
+    sharded = types.SimpleNamespace(
+        bvss=jprep.bvss, problem=types.SimpleNamespace(
+            mesh=object(), is_2d=False, rows_per_shard=sb.rows_per_shard,
+            n_shards=P, dev=types.SimpleNamespace(
+                vss_of_vertex_start=sb.vss_start,
+                vss_of_vertex_end=sb.vss_end)))
+    reason = jdelta._structural_reason(sharded, keys,
+                                       np.zeros(0, np.int64), jg2)
+    assert reason is not None and reason.startswith("shard ")
+    assert jdelta._structural_reason(jprep, keys, np.zeros(0, np.int64),
+                                     jg2) is None
+    assert got0["report"]["path"] == "rebuilt"
+    assert got0["report"]["reason"] == reason
+    g_now = caller_graph(repro.apply_edge_updates(jprep, inserts=ins))
+    for d, rank in enumerate(ranks[:P]):
+        got = rank[("update_shard", P)]
+        assert_block_is_fresh_build(got, d, P)
+        for lv, s in zip(got["levels"], tm.sources_of(jg)):
+            np.testing.assert_array_equal(
+                lv, np.asarray(jreference_bfs(g_now, s)))
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,9 @@ against the JAX reference, mirroring ``tests/test_distributed_2d.py`` and
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,3 +229,22 @@ def test_2d_brs_and_weights_rejected(ranks, key, match):
 
 def test_2d_mesh_over_request_raises_config_error(ranks):
     assert ranks[0]["over_request"].startswith("ConfigError: requested 12")
+
+
+def test_bench_dist_2d_block_equals_reference(ranks):
+    """``benchmarks/bench_dist.py``'s ``run_2d`` block on the 8 ranks at
+    the reference's scale 9: the 2-D engines verified, and one level's
+    per-rank bytes (butterfly on 2 x 2 and 4 x 2, flat on 4 and 8 ranks)
+    equal to the reference's in ``BENCH_pr10.json``, keys included."""
+    got = ranks[0]["bench_dist_2d"]
+    ref = json.loads((Path(__file__).resolve().parents[1]
+                      / "BENCH_pr10.json").read_text())["dist"]["dist2d"]
+    assert got["verified"] and got["scale"] == ref["scale"] == 9
+    assert got.keys() == ref.keys()
+    assert got["comm"] == ref["comm"]
+    for name, row in ref["meshes"].items():
+        assert got["meshes"][name].keys() == row.keys()
+        for field in ("devices", "rows_per_shard", "cols_per_block",
+                      "frontier_words_local", "comm_bytes_per_level",
+                      "verified"):
+            assert got["meshes"][name][field] == row[field], (name, field)

@@ -78,6 +78,10 @@ def test_launcher_and_benches_never_load_jax_reference_or_benchmarks():
         "out = bench_scale.run(scales=(6,), verbose=False, device='cpu')\n"
         "assert out['summary']['all_verified']\n"
         "table4_footprint.run(6, verbose=False, device='cpu')\n"
+        "from repro_torch.bench import bench_dist\n"
+        "from repro_torch.launch import serve\n"
+        "serve.main(['--requests', '2', '--max-new', '2', '--device',\n"
+        "            'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "print('LOADED', bad)\n")
@@ -97,7 +101,7 @@ SCANNED = sorted(str(p.relative_to(ROOT))
 
 def test_scan_covers_the_wave_slice():
     """The scan below walks the whole package, the wave and float-channel
-    slices included."""
+    slices, the mesh bench and the LM serving tier included."""
     for module in ("core/multi_source.py", "kernels/mxu_pull.py",
                    "serve/graph_session.py", "analytics/components.py",
                    "analytics/eccentricity.py", "analytics/closeness.py",
@@ -108,7 +112,11 @@ def test_scan_covers_the_wave_slice():
                    "launch/analytics.py", "bench/table1a_compression.py",
                    "bench/table1b_divergence.py", "bench/table4_footprint.py",
                    "bench/fig3_window.py", "bench/bench_scale.py",
-                   "bench/bench_analytics.py"):
+                   "bench/bench_analytics.py", "bench/bench_dist.py",
+                   "models/layers.py", "models/transformer.py",
+                   "configs/base.py", "configs/qwen3_0_6b.py",
+                   "configs/gemma3_1b.py", "configs/h2o_danube_1_8b.py",
+                   "serve/engine.py", "launch/serve.py"):
         assert f"src/repro_torch/{module}" in SCANNED, module
 
 

@@ -7,6 +7,7 @@ the reference's graphs and variant table; ``--service`` with
 launcher asks for the card.
 The bench scripts (``repro_torch.bench``) run end to end at a small size,
 each checking its engines or kernels against the oracles or twins."""
+import json
 import os
 import subprocess
 import sys
@@ -219,3 +220,22 @@ def test_hybrid_bench_runs_verified(tmp_path):
         assert go["tuned"]["source"] in ("tuned", "cached")
     assert json.loads(path.read_text())["summary"] == out["summary"]
     autotune.clear_cache()
+
+
+def test_bench_dist_cli_spawns_gloo_ranks(tmp_path):
+    """``python -m repro_torch.bench.bench_dist --devices 2 --device
+    cpu``: the 1-D part on 2 spawned gloo ranks and the ``dist2d`` block
+    on 8, every part verified, the JSON written by rank 0."""
+    out = tmp_path / "dist.json"
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.bench_dist", "--devices",
+         "2", "--device", "cpu", "--scale", "6", "--queries", "4",
+         "--json", str(out)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(out.read_text())
+    assert got["devices"] == 2 and got["device"] == "cpu"
+    assert got["summary"]["all_verified"]
+    assert got["dist2d"]["verified"]
+    assert got["dist2d"]["comm"]["butterfly_shrink_4_to_8"] > 1.0

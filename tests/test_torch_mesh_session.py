@@ -29,6 +29,10 @@ PageRank 1e-6 relative.  Every rank's answers must equal rank 0's.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,6 +45,7 @@ from repro.core import build_bvss as jbuild_bvss
 from repro.core import reference_bfs as jbfs
 from repro.graphs import from_edges as jfrom_edges
 from repro.graphs import generators as jgen
+from repro.graphs import src_of_edges
 from repro.kernels.ref import (betweenness_ref, closeness_ref,
                                connected_components_ref, eccentricity_ref,
                                pagerank_ref, sssp_ref)
@@ -103,9 +108,23 @@ def test_every_verb_on_a_mesh_equals_reference(ranks, verbs_reference, P):
     jm.open_session("verbs", jg, max_batch=3, w=256, weights=w)
     assert got["bytes"] == jm.bytes_used()
     assert got["problems_sharded"]
-    # the one mesh refusal left: edge updates (queue 1 item 11e)
-    assert got["update_edges"].startswith("ConfigError")
-    assert "item 11e" in got["update_edges"]
+    # edge updates on the mesh session (once refused, queue 1 item 11e):
+    # through the manager, then a wave, sssp_batch and pagerank on the new
+    # epoch, against the reference's single-device session under the same
+    # batch
+    up = got["update_edges"]
+    ins, wi, dels = tm.session_update_batch(tm.verbs_graph())
+    jm.open_session("updated", jg, max_batch=3, w=256, weights=w)
+    report = jm.update_edges("updated", ins, dels, insert_weights=wi)
+    assert up["report"] == dataclasses.asdict(report)
+    assert up["epoch"] == 1
+    js = jm._sessions["updated"].session
+    for lv, want in zip(up["wave"], jm.levels_batch("updated", q)):
+        np.testing.assert_array_equal(lv, want)
+    assert_dist_equal(up["sssp_batch"], js.sssp_batch(q[:3]))
+    want = js.pagerank(tol=1e-10, max_iter=500)
+    rel = np.max(np.abs(up["pagerank"] - want) / np.maximum(want, 1e-30))
+    assert rel <= 1e-6, rel
 
 
 @pytest.mark.parametrize("P", tm.SESSION_RANKS)
@@ -269,3 +288,48 @@ def test_queue_over_a_mesh_session(ranks):
     assert got["stats"]["degraded"] == 0
     assert got["manager"]["quarantines"] == 0
     assert got["manager"]["verified"] == len(tm.QUEUE_QUERIES)
+
+
+def test_queue_passes_a_mesh_update_through(ranks):
+    """``GraphSessionManager.update_edges`` on the queue's mesh session
+    between two drains: the report equals the reference's single-device
+    one, and the second drain's futures are the updated graph's oracle
+    answers, verified, on every rank."""
+    got = tm.each_rank(ranks, "queue_update")
+    jg = jgen.rmat(7, 8, seed=2)
+    jprep = repro.apply_edge_updates(
+        repro.prepare(jg), inserts=[tm.missing_edge(jg)])
+    assert got["report"] == dataclasses.asdict(jprep.last_update)
+    g_now = jfrom_edges(jg.n, jprep.inv[src_of_edges(jprep.graph)],
+                        jprep.inv[jprep.graph.indices], dedup=True,
+                        drop_loops=False)
+    for s, lv in zip(tm.QUEUE_QUERIES[:4], got["levels"]):
+        np.testing.assert_array_equal(lv, jbfs(g_now, s), err_msg=f"src {s}")
+    assert got["manager"]["quarantines"] == 0
+    assert got["manager"]["verified"] == len(tm.QUEUE_QUERIES) + 4
+
+
+# ---------------------------------------------------------------------------
+# benchmarks/bench_dist.py on 2 ranks
+# ---------------------------------------------------------------------------
+def _keys(d: dict) -> dict:
+    """The nested key structure of a JSON object (its values dropped)."""
+    return {k: _keys(v) if isinstance(v, dict) else None
+            for k, v in d.items()}
+
+
+def test_bench_dist_on_two_ranks_verified(ranks):
+    """The port's ``bench_dist`` at scale 6 on 2 gloo ranks: every part
+    verified against the oracle on both ranks, with the reference's keys
+    (``BENCH_pr10.json``'s ``dist`` block) but for the envelope."""
+    got = ranks[0]["bench_dist"]
+    assert ranks[1]["bench_dist"]["summary"]["all_verified"]
+    assert got["summary"]["all_verified"]
+    assert got["devices"] == 2
+    ref = json.loads((Path(__file__).resolve().parents[1]
+                      / "BENCH_pr10.json").read_text())["dist"]
+    assert _keys(got["graphs"]) == _keys(ref["graphs"])
+    assert _keys(got["summary"]) == _keys(ref["summary"])
+    for gname, row in got["graphs"].items():
+        for part in ("engine_dist", "serve_dist", "betweenness_dist"):
+            assert row[part]["verified"], (gname, part)

@@ -14,7 +14,9 @@ reference's 2-D mesh cases:
 * ``tests/test_weighted_verbs.py``: weights on a 2-D mesh are a
   ConfigError;
 * ``tests/test_faults.py``: the stalled butterfly stage on a (2, 1) mesh,
-  quarantined under full verification and changing answers without it.
+  quarantined under full verification and changing answers without it;
+* ``core/bvss_delta.py``'s 2-D route: an edge update on a 2-D session
+  rebuilds, with the reference's reason, and answers the updated graph.
 
 Every rank's answers must equal rank 0's.
 """
@@ -26,7 +28,9 @@ import pytest
 import repro
 import torch_mesh as tm
 from repro.core import reference_bfs as jbfs
+from repro.graphs import from_edges as jfrom_edges
 from repro.graphs import generators as jgen
+from repro.graphs import src_of_edges
 from repro.kernels.ref import (betweenness_ref, closeness_ref,
                                eccentricity_ref)
 from torch_one_thread import one_torch_thread  # noqa: F401
@@ -71,6 +75,37 @@ def test_2d_session_transparency_and_sigma_parity(ranks, single, shape):
         "2-D" in got["pagerank"]
     assert got["push"].startswith("ConfigError") and \
         "pull-only" in got["push"]
+
+
+@pytest.mark.parametrize("shape", tm.SESSION_MESHES_2D,
+                         ids=[f"{r}x{c}" for r, c in tm.SESSION_MESHES_2D])
+def test_2d_session_update_rebuilds(ranks, shape):
+    """An edge update on a 2-D session always rebuilds, with the
+    reference's reason; the report equals the reference's single-device
+    counts, and the new epoch's wave and single-source levels equal the
+    oracle on the updated graph."""
+    jg = jgen.clustered(3, 23, seed=4)
+    jprep = repro.apply_edge_updates(
+        repro.prepare(jg, options=repro.PrepareOptions(w=256)),
+        inserts=tm.UPDATE_2D)
+    got = tm.each_rank(ranks, ("update", shape), shape[0] * shape[1])
+    rep = got["report"]
+    assert rep["path"] == "rebuilt"
+    assert rep["reason"] == \
+        "2-D partition relabels columns; no local patch path"
+    want = jprep.last_update
+    for field in ("epoch", "n_inserted", "n_deleted", "n_reweighted",
+                  "stale_edges"):
+        assert rep[field] == getattr(want, field), field
+    assert rep["sets_touched"] == jprep.bvss.n_sets
+    assert rep["vss_rows_rewritten"] == jprep.bvss.num_vss
+    g_now = jfrom_edges(jg.n, jprep.inv[src_of_edges(jprep.graph)],
+                        jprep.inv[jprep.graph.indices], dedup=True,
+                        drop_loops=False)
+    q = tm.SESSION_QUERIES_2D
+    for s, lv in zip(q, got["levels_batch"]):
+        np.testing.assert_array_equal(lv, jbfs(g_now, s), err_msg=f"src {s}")
+    np.testing.assert_array_equal(got["levels"], jbfs(g_now, q[2]))
 
 
 def test_2d_mesh_weighted_session_is_typed_config_error(ranks):

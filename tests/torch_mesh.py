@@ -14,6 +14,7 @@ package, so each rank starts with torch and the port alone.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import pickle
 import socket
@@ -179,9 +180,76 @@ def sources_of(g) -> tuple[int, int, int]:
     return (0, g.n // 3, g.n - 1)
 
 
+UPDATE_RANKS = (2, 8)
+UPDATE_ROUNDS = 3
+
+
+def update_graph():
+    """``tests/test_bvss_delta.py``'s graph."""
+    from repro_torch.graphs import generators as gen
+    return gen.rmat(7, 8, seed=21)
+
+
+def update_batches(n: int, weighted: bool) -> list:
+    """``test_sharded_update_matches_single_device``'s three rounds of
+    inserts (caller ids), with dyadic weights on a weighted preparation."""
+    rng = np.random.default_rng(6)
+    out = []
+    for _ in range(UPDATE_ROUNDS):
+        ins = sorted({(int(a), int(b))
+                      for a, b in rng.integers(0, n, (4, 2)) if a != b})
+        out.append((ins, (np.arange(1, len(ins) + 1) / 8.0).astype(
+            np.float32) if weighted else None))
+    return out
+
+
+def missing_edge(g) -> tuple[int, int]:
+    """The first ``(a, b)``, ``a != b``, that is not an edge of ``g``
+    (``tests/test_bvss_delta.py``'s ``_missing_edge``)."""
+    from repro_torch.graphs import src_of_edges
+    have = set(zip(src_of_edges(g).tolist(), g.indices.tolist()))
+    return next((a, b) for a in range(g.n) for b in range(g.n)
+                if a != b and (a, b) not in have)
+
+
+def rank_block(prep) -> dict:
+    """This rank's sharded block of ``prep`` on the host (the appended
+    dummy VSS cut off) and the ordered graph it encodes."""
+    dev = prep.problem.dev
+    out = {"masks": dev.masks[:-1].numpy().view(np.uint32),
+           "row_ids": dev.row_ids[:-1].numpy(),
+           "indptr": prep.graph.indptr, "indices": prep.graph.indices,
+           "report": dataclasses.asdict(prep.last_update)
+           if prep.last_update is not None else None}
+    if prep.wplane is not None:
+        out["wplane"] = prep.wplane[:-1].numpy()
+        out["weights"] = prep.weights
+    return out
+
+
+def shard_structural_batch(prep) -> list:
+    """One insert (caller ids) from a slice set that has no slice in the
+    last shard holding rows but keeps its global VSS count: the per-shard
+    check alone sends it to a rebuild."""
+    b, pb = prep.bvss, prep.problem
+    sigma, n = b.sigma, b.n
+    d = (n - 1) // pb.rows_per_shard
+    lo = d * pb.rows_per_shard
+    t_indptr, t_indices = prep.graph.t_csr
+    rows = np.repeat(np.arange(n), np.diff(t_indptr))
+    for I in range(b.n_sets):
+        count = len(np.unique(rows[(t_indices // sigma) == I]))
+        if pb.shard_ptrs[d, I + 1] == pb.shard_ptrs[d, I] and count \
+                and count % b.tau and I * sigma != lo:
+            return [(int(prep.inv[I * sigma]), int(prep.inv[lo]))]
+    raise AssertionError("no set leaves the last shard empty")
+
+
 def program_1d(rank: int, world: int) -> dict:
     """Every 1-D case, on sub-meshes of the first P ranks; results keyed by
     case, from every rank of the case's mesh."""
+    import torch
+
     import repro_torch as rt
     from repro_torch.core.bfs import make_blest_bfs, make_engine
     from repro_torch.distributed import bfs_mesh, comm_ledger
@@ -210,6 +278,33 @@ def program_1d(rank: int, world: int) -> dict:
                                 engine=eng)
                 out[("sweep_engine", P, name, eng)] = [
                     pb.levels(s) for s in sources_of(g)]
+    for P in UPDATE_RANKS:
+        if rank >= P:
+            continue
+        # tests/test_bvss_delta.py's sharded rounds, unweighted and weighted
+        g = update_graph()
+        for weighted in (False, True):
+            prep = rt.prepare(g, w=512, seed=0, mesh=meshes[P], device="cpu",
+                              weights=weights_of(g) if weighted else None)
+            rounds = []
+            for ins, w in update_batches(g.n, weighted):
+                before = prep.problem.dev.masks.clone()
+                old = prep
+                prep = rt.apply_edge_updates(prep, inserts=ins,
+                                             insert_weights=w)
+                rounds.append({
+                    **rank_block(prep),
+                    "old_untouched": bool(torch.equal(old.problem.dev.masks,
+                                                      before)),
+                    "levels": [prep.levels(s) for s in (0, g.n // 3)]})
+            out[("update", P, weighted)] = rounds
+        # a batch only the per-shard check sends to a rebuild
+        prep = rt.prepare(g, w=512, seed=0, mesh=meshes[P], device="cpu")
+        ins = shard_structural_batch(prep)
+        prep = rt.apply_edge_updates(prep, inserts=ins)
+        out[("update_shard", P)] = {
+            "inserts": ins, **rank_block(prep),
+            "levels": [prep.levels(s) for s in sources_of(g)]}
     if rank < ENGINE_RANKS:
         mesh, g = meshes[ENGINE_RANKS], engine_graph()
         for eng in ("blest", "blest_lazy", "brs"):
@@ -230,8 +325,11 @@ def program_1d(rank: int, world: int) -> dict:
         out["device_mismatch"] = _raises(rt.prepare, g, mesh=mesh)
         out["bad_axis"] = _raises(rt.prepare, g, mesh=mesh, device="cpu",
                                   mesh_axis="rows")
-        out["update_edges"] = _raises(rt.apply_edge_updates, pb,
-                                      inserts=[(0, 1)])
+        # edge updates on the mesh (once refused here, queue 1 item 11e)
+        pb2 = rt.apply_edge_updates(pb, inserts=[missing_edge(g)])
+        out["update_edges"] = {
+            "report": dataclasses.asdict(pb2.last_update),
+            "levels": [pb2.levels(s) for s in (0, g.n - 1)]}
         # the multi-source engine and a session on the mesh (once refused
         # here, queue 1 item 11c): levels in caller ids
         ms = make_engine(g, "multi_source", problem=pb.problem, n_sources=2)
@@ -303,6 +401,9 @@ def program_2d(rank: int, world: int) -> dict:
     flat = {n: bfs_mesh(n, "x", device_type="cpu") for n in BUTTERFLY_RANKS}
     meshes = {s: bfs_mesh2d(*s, device_type="cpu") for s in MESHES_2D}
     out["over_request"] = _raises(bfs_mesh2d, 4, 3, device_type="cpu")
+    # benchmarks/bench_dist.py's run_2d block, on all 8 ranks
+    from repro_torch.bench import bench_dist
+    out["bench_dist_2d"] = bench_dist.run_2d_rank(scale=9, device="cpu")
     for n, mesh in flat.items():
         if rank >= n:
             continue
@@ -417,6 +518,31 @@ def bad_weight_cases(m: int) -> dict:
             "negative": neg, "zero": zero, "inf": inf}
 
 
+def session_update_batch(g) -> tuple:
+    """An update of the verbs graph (caller ids): two fresh inserts and a
+    reweight of an existing edge (with dyadic weights), two deletes."""
+    from repro_torch.graphs import src_of_edges
+    src, dst = src_of_edges(g), g.indices
+    have = set(zip(src.tolist(), dst.tolist()))
+    fresh = [(a, b) for a, b in ((0, 1), (5, 77), (100, 3), (9, 120))
+             if (a, b) not in have][:2]
+    inserts = fresh + [(int(src[7]), int(dst[7]))]
+    deletes = [(int(src[k]), int(dst[k])) for k in (3, 40)]
+    return inserts, np.array([0.25, 1.5, 0.0625], np.float32), deletes
+
+
+def _mesh_update(rt, mgr, name: str, sess, g) -> dict:
+    """``update_edges`` through the manager on a weighted mesh session,
+    then a wave, ``sssp_batch`` and ``pagerank`` on the new epoch."""
+    ins, w, dels = session_update_batch(g)
+    report = mgr.update_edges(name, ins, dels, insert_weights=w)
+    q = VERB_QUERIES
+    return {"report": dataclasses.asdict(report), "epoch": sess.epoch,
+            "wave": mgr.levels_batch(name, q),
+            "sssp_batch": sess.sssp_batch(q[:3]),
+            "pagerank": sess.pagerank(tol=1e-10, max_iter=500)}
+
+
 def _faulted(rt, g, opts, plan) -> dict:
     """A stall plan through a verifying manager, and on a bare session."""
     import warnings
@@ -475,7 +601,7 @@ def program_session_1d(rank: int, world: int) -> dict:
             "problems_sharded": all(
                 v.mesh is not None for v in sess._analytics_cache.values()
                 if isinstance(v, BlestProblem)),
-            "update_edges": _raises(sess.update_edges, inserts=[(0, 1)])}
+            "update_edges": _mesh_update(rt, mgr, "verbs", sess, g)}
         # Brandes across device counts, the kernel path and the twins'
         for gi, gb in enumerate(bc_graphs()):
             pD = BlestProblem.build_sharded(build_sharded_bvss(gb, P),
@@ -508,6 +634,10 @@ def program_session_1d(rank: int, world: int) -> dict:
     if rank >= 2:
         return out
     mesh2 = meshes[2]
+    # benchmarks/bench_dist.py's 1-D part, small
+    from repro_torch.bench import bench_dist
+    out["bench_dist"] = bench_dist.run_rank(mesh2, scale=6, n_queries=4,
+                                            device="cpu")
     # the reference's two-device parity cases (tests/test_analytics.py)
     g = gen.rmat(6, 8, seed=1)
     sess = rt.GraphSession(g, max_batch=4, options=opts(2))
@@ -584,6 +714,15 @@ def program_session_1d(rank: int, world: int) -> dict:
     queue.stop(drain=True)
     out["queue"] = {"levels": [f.result(0) for f in futs],
                     "stats": queue.stats(), "manager": mgr.stats()}
+    # an edge update through the manager between two drains of a queue
+    # over the mesh session: the second drain answers the new epoch
+    report = mgr.update_edges("q", inserts=[missing_edge(g)])
+    queue = rt.RequestQueue(mgr)
+    futs = [queue.submit("q", src) for src in QUEUE_QUERIES[:4]]
+    queue.drain(wait=True)
+    out["queue_update"] = {"report": dataclasses.asdict(report),
+                           "levels": [f.result(0) for f in futs],
+                           "manager": mgr.stats()}
     return out
 
 
@@ -592,6 +731,7 @@ def program_session_1d(rank: int, world: int) -> dict:
 # ---------------------------------------------------------------------------
 SESSION_MESHES_2D = ((1, 1), (2, 2), (4, 2))
 SESSION_QUERIES_2D = [0, 7, 23, 7, 68]
+UPDATE_2D = [(0, 50), (7, 3), (60, 2)]
 BC_SOURCES_2D = [0, 5, 23, 41]
 
 
@@ -627,6 +767,12 @@ def program_session_2d(rank: int, world: int) -> dict:
             "pagerank": _raises(sess.pagerank),
             "push": _raises(make_ms_engine, sess._problem, 2,
                             direction="push")}
+        # an edge update on the 2-D session: always a rebuild
+        report = sess.update_edges(inserts=UPDATE_2D)
+        out[("update", shape)] = {
+            "report": dataclasses.asdict(report),
+            "levels_batch": sess.levels_batch(q),
+            "levels": sess.levels(q[2])}
     if rank < 4:
         g = gen.rmat(6, 4, seed=23)
         out["weighted_prepare"] = _raises(
