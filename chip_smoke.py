@@ -94,10 +94,11 @@ Phases (any failure exits non-zero before the result line):
    1a, 1b and 4 at the reference's sizes, their derived columns equal to
    the JAX package's (``PAPER_TABLE_DERIVED``; ``paper_tables_host``);
    Figure 3, compression and ms per BFS for windows 8 ... 4096 on
-   ``clustered(128, 64)`` (``fig3_clustered_16``, cut to scale 13); the
-   RMAT scale sweep at scales 14, 16 and 18, MTEPS and the
+   ``clustered(64, 64)`` (``fig3_clustered_16``, cut to scale 12); the
+   RMAT scale sweep at scales 14 and 16 (18 since PR 18, cut for
+   phases 15-16), MTEPS and the
    ``memory_bytes`` model beside ``torch.cuda.max_memory_allocated``
-   (``bench_scale_rmat``); and ``bench_analytics.run(scale=12)``, the
+   (``bench_scale_rmat``); and ``bench_analytics.run(scale=11)``, the
    wave verbs against sequential baselines and the oracles;
 9. the hardened serving tier: ``rmat(18)`` opened once through
    ``GraphSessionManager(verify_fraction=1.0)`` (Jaccard, eager ``blest``,
@@ -131,7 +132,8 @@ Phases (any failure exits non-zero before the result line):
    engine=p.engine_name, autotune=True)`` on phase 3's ordered grid and
    phase 4's ``rmat(18)`` (``autotune_grid``, ``autotune_rmat_18``: the
    TileConfig, ``tune``'s seconds and ``bvss_pull``/``bvss_push``
-   launches, the 4 sources' levels equal to the oracle, ms per BFS and push
+   launches, the sources' levels (2 on the grid, 4 on ``rmat(18)``) equal
+   to the oracle, ms per BFS and push
    levels against the defaults', and a second prepare of the class with no
    tuning run, one cache hit and no launch); ``update_edges`` on phase 4's
    weighted session (``update_edges_rmat_18``: 256 inserts with dyadic
@@ -144,7 +146,7 @@ Phases (any failure exits non-zero before the result line):
    5's ``rmat(16)`` with ``staleness_budget=1`` (``update_reprepare_
    rmat_16``, the reprepared path); phase 9's manager, verified, an update
    then a queued drain (``update_serving_rmat_18``); and ``bench_hybrid``
-   at scale 18, the tuned hybrid against the pull-only engine, every graph
+   at scale 17, the tuned hybrid against the pull-only engine, every graph
    verified in all three directions (``bench_hybrid``);
 11. the mesh-native BFS on ``torch.distributed`` at world size 1 (one
    NCCL rank: a card holds one, so multi-card NCCL is not exercised),
@@ -213,7 +215,33 @@ Phases (any failure exits non-zero before the result line):
    (a control with the layers in TF32 must fail both qwen3 checks), with
    prefill ms, ms a decode step, tokens/s and ``max_memory_allocated``
    beside the parameter bytes; and ``python -m repro_torch.launch.serve``
-   and ``examples/torch_serve_lm.py`` as children (``lm_launchers``).
+   and ``examples/torch_serve_lm.py`` as children (``lm_launchers``);
+15. MoE, MLA and MTP at full width, float32 from a seed on the card, the
+   layers under phase 14's TF32 record: OLMoE-1B-7B's ``model_cfg`` (16
+   layers, 64 experts, top-8) at its published capacity factor 1.25 —
+   its first attention and MoE layers against the host's for the same
+   weights and input (routes, keeps and outputs), the dropped (token, k)
+   pairs of ``forward`` over 20 tokens, ``ServeEngine`` (4 slots, 8
+   requests of 8 tokens) with the drops of each decode step, one decode
+   step of 4 slots profiled (``lm_moe_olmoe_1b_7b``,
+   ``profile_lm_decode_olmoe_1b_7b``); then through a view at factor 8
+   (= E / K: nothing drops) prefill of 16 and 4 decode steps against
+   ``forward`` and the served tokens against a standalone decode;
+   DeepSeek-V3's at full width with its depth cut to 2 layers (one dense,
+   one MoE of 256 experts, and the MTP head) at factor 32: prefill and
+   decode against ``forward``, the latent caches' shapes, the MLA layer
+   and ``mtp_hidden`` against the host's, the ``sigmoid_ds3`` router's
+   choices against the host's (``lm_mla_deepseek_v3_671b``);
+16. LM training at full width: qwen3-0.6b's ``model_cfg`` with AdamW in
+   float32 over ``TokenPipeline`` batches of 4 x 256 tokens, 8 steps,
+   deterministic algorithms on; the same 8 steps under ``RestartManager``
+   with a checkpoint every 4 and a failure injected at step 6 end with
+   parameters equal bit for bit; the loss goes down; a checkpoint of the
+   final state saved and restored, timed (``lm_train_qwen3_0_6b``); and
+   ``python -m repro_torch.launch.train --arch olmoe-1b-7b`` and
+   ``--arch deepseek-v3-671b`` and ``examples/torch_train_lm.py`` (its
+   chaos drill) as children, each loss going down
+   (``lm_train_launchers``).  Phases 14-16 launch no hand kernel.
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -243,8 +271,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 L2_BYTES = 50 * 2 ** 20          # H100 L2: timed inputs rotate past it
 INF = (1 << 31) - 1
 SIGMAS = (1, 4, 8, 32)
-PROFILE_LEVELS = 1024            # levels of the grid BFS under the profiler
-WAVE_PROFILE_LEVELS = 256        # levels of the grid wave under the profiler
+PROFILE_LEVELS = 512             # levels of the grid BFS under the profiler
+                                 # (1,024 until PR 24)
+WAVE_PROFILE_LEVELS = 128        # levels of the grid wave under the profiler
+                                 # (256 until PR 24)
 SLOTS = 8                        # GraphSession.max_batch of both regimes
 SPMM_S = 8                       # = SLOTS: the wave's stacked columns
 TABLE2_SOURCES = 2               # timed BFSs per Table-2 variant and graph
@@ -1776,9 +1806,11 @@ def cli_phase(torch, card: str) -> dict:
 # room for phase 10 within the script's time limit
 ANALYTICS_ARGS = ["--graph", "rmat", "--scale", "14", "--sources", "8",
                   "--max-batch", "8", "--verify"]
-FIG3_SCALE = 13                  # clustered(128, 64); cut from 16 (PERF.md)
-SCALE_SWEEP = (14, 16, 18)       # the RMAT scale sweep's scales
-ANALYTICS_BENCH_SCALE = 12       # bench_analytics' graph suite scale
+FIG3_SCALE = 12                  # clustered(64, 64); cut from 16 (PERF.md)
+SCALE_SWEEP = (14, 16)           # the RMAT scale sweep's scales (18 until
+                                 # PR 24)
+ANALYTICS_BENCH_SCALE = 11       # bench_analytics' graph suite scale (12
+                                 # until PR 24)
 
 
 def bench_call(fn, *args, **kwargs):
@@ -2479,7 +2511,8 @@ def serve_bench_phase(torch, name: str, module, kernels: tuple,
 # ---------------------------------------------------------------------------
 # phase 10: autotuning and streaming edge updates
 # ---------------------------------------------------------------------------
-HYBRID_SCALE = 18                # bench_hybrid's suite: n = 262,144
+HYBRID_SCALE = 17                # bench_hybrid's suite: n = 131,072 (18
+                                 # until PR 24)
 HYBRID_REPS = 2                  # timed sweeps an engine and graph
 PATCH_EDGES = 256                # inserts, and deletes, of the patched update
 REWEIGHTS = 64                   # existing edges of the reweight
@@ -2942,6 +2975,8 @@ def bench_hybrid_phase(torch, card: str) -> dict:
 # phase 11: the mesh-native BFS on torch.distributed, at world size 1
 # ---------------------------------------------------------------------------
 MESH_GRID_SOURCES = 2            # the grid's eager and lazy mesh sources
+AUTOTUNE_GRID_SOURCES = 2        # the grid's tuned and default sources (4
+                                 # until PR 24)
 MESH_PROFILE_LEVELS = 256        # the grid's profiled and sync-counted levels
 MESH_LAUNCH_ARGS = ["--graph", "road", "--scale", str(CLI_SCALE),
                     "--engine", "blest_full", "--sources", "2"]
@@ -3831,13 +3866,58 @@ def decode_errs(torch, T, model, toks, n_prefill: int, f32) -> tuple:
     return errs, lp, caches, prefill_ms, step_ms, logit_bound(full)
 
 
+def serve_vs_alone(torch, T, model, rng, f32, device, bound: float,
+                   name: str) -> dict:
+    """``ServeEngine`` with 4 slots over LM_SERVE_REQUESTS requests of
+    LM_SERVE_NEW new tokens, against a standalone B = 1 prefill and decode
+    of the first request: its greedy tokens must be equal, unless they
+    part at a near-tie (a top-2 margin under ``bound``)."""
+    from repro_torch.serve import Request, ServeEngine
+    cfg = model.cfg
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab,
+                                        rng.integers(4, LM_PREFILL + 1)),
+                    max_new_tokens=LM_SERVE_NEW)
+            for _ in range(LM_SERVE_REQUESTS)]
+    eng = ServeEngine(model, cfg, max_batch=4, prompt_len=LM_PREFILL,
+                      max_len=40)
+    outs, serve_ms = lm_timed(torch, lambda: eng.run(reqs))
+    new_tokens = sum(len(o.tokens) for o in outs) - sum(
+        min(len(r.prompt), LM_PREFILL) for r in reqs)
+    prompt = np.asarray(reqs[0].prompt, np.int64)
+    padded = np.concatenate([np.full(LM_PREFILL - len(prompt), prompt[0]),
+                             prompt])
+    lg, caches = T.prefill(model, torch.from_numpy(padded[None]).to(device),
+                           max_len=40, **f32)
+    alone, margins = [], []
+    pos = LM_PREFILL
+    for i in range(LM_SERVE_NEW):
+        top2 = torch.topk(lg[0], 2)
+        alone.append(int(top2.indices[0]))
+        margins.append(float(top2.values[0] - top2.values[1]))
+        if i + 1 < LM_SERVE_NEW:
+            lg, caches = T.decode_step(
+                model, caches, torch.tensor([[alone[-1]]]).to(device), pos,
+                **f32)
+            pos += 1
+    served = [int(x) for x in outs[0].tokens[-LM_SERVE_NEW:]]
+    differ = [i for i, (a, b) in enumerate(zip(served, alone)) if a != b]
+    if differ and not margins[differ[0]] < bound:
+        fail(f"{name}: served tokens {served} differ from the standalone "
+             f"decode {alone} at step {differ[0]}, top-2 margin "
+             f"{margins[differ[0]]} (not a near-tie)")
+    return {"requests": len(outs), "slots": 4, "new_tokens": new_tokens,
+            "wall_ms": serve_ms,
+            "tokens_per_s": new_tokens / (serve_ms / 1e3),
+            "first_request_equal": not differ, "differ_steps": differ,
+            "top2_margins": margins}
+
+
 def qwen3_phase(torch, T, probe, rng, f32, device, card) -> None:
     """Phase 14's qwen3-0.6b part (:func:`lm_full_width_phase`), with the
     TF32 control: the same decode against ``forward`` and prefill against
     the CPU's with the layers in TF32, both of which the bound must
     catch."""
     from repro_torch.configs import get_arch
-    from repro_torch.serve import Request, ServeEngine
     cfg = get_arch("qwen3-0.6b").model_cfg
     torch.cuda.reset_peak_memory_stats()
     model, init_ms = lm_timed(torch, lambda: T.init_lm(
@@ -3857,38 +3937,8 @@ def qwen3_phase(torch, T, probe, rng, f32, device, card) -> None:
         peak = torch.cuda.max_memory_allocated()
         # the server: 8 requests through 4 slots, against a standalone
         # B = 1 prefill and decode of the first request
-        reqs = [Request(prompt=rng.integers(0, cfg.vocab,
-                                            rng.integers(4, LM_PREFILL + 1)),
-                        max_new_tokens=LM_SERVE_NEW)
-                for _ in range(LM_SERVE_REQUESTS)]
-        eng = ServeEngine(model, cfg, max_batch=4, prompt_len=LM_PREFILL,
-                          max_len=40)
-        outs, serve_ms = lm_timed(torch, lambda: eng.run(reqs))
-        new_tokens = sum(len(o.tokens) for o in outs) - sum(
-            min(len(r.prompt), LM_PREFILL) for r in reqs)
-        prompt = np.asarray(reqs[0].prompt, np.int64)
-        padded = np.concatenate([np.full(LM_PREFILL - len(prompt),
-                                         prompt[0]), prompt])
-        lg, caches = T.prefill(
-            model, torch.from_numpy(padded[None]).to(device), max_len=40,
-            **f32)
-        alone, margins = [], []
-        pos = LM_PREFILL
-        for i in range(LM_SERVE_NEW):
-            top2 = torch.topk(lg[0], 2)
-            alone.append(int(top2.indices[0]))
-            margins.append(float(top2.values[0] - top2.values[1]))
-            if i + 1 < LM_SERVE_NEW:
-                lg, caches = T.decode_step(
-                    model, caches, torch.tensor([[alone[-1]]]).to(device),
-                    pos, **f32)
-                pos += 1
-        served = [int(x) for x in outs[0].tokens[-LM_SERVE_NEW:]]
-        differ = [i for i, (a, b) in enumerate(zip(served, alone)) if a != b]
-        if differ and not margins[differ[0]] < bound:
-            fail(f"qwen3-0.6b: served tokens {served} differ from the "
-                 f"standalone decode {alone} at step {differ[0]}, top-2 "
-                 f"margin {margins[differ[0]]} (not a near-tie)")
+        serve = serve_vs_alone(torch, T, model, rng, f32, device, bound,
+                               "qwen3-0.6b")
         # one decode step of 4 slots, profiled
         dtoks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).to(device)
         dpos = torch.full((4,), 20, device=device)
@@ -3936,13 +3986,8 @@ def qwen3_phase(torch, T, probe, rng, f32, device, card) -> None:
               "decode_max_abs_err": c_errs,
               "card_vs_cpu_max_abs_err": c_cpu_err},
           "max_memory_allocated": peak, "memory_over_params": peak / pbytes,
-          "serve": {"requests": len(outs), "slots": 4,
-                    "new_tokens": new_tokens, "wall_ms": serve_ms,
-                    "tokens_per_s": new_tokens / (serve_ms / 1e3),
-                    "first_request_equal": not differ,
-                    "differ_steps": differ, "top2_margins": margins},
-          "card": card})
-    del model, eng, caches, pool
+          "serve": serve, "card": card})
+    del model, pool
     torch.cuda.empty_cache()
 
 
@@ -3986,7 +4031,492 @@ def gemma3_phase(torch, T, probe, rng, f32, device, card) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: MoE, MLA and MTP at full width
+# ---------------------------------------------------------------------------
+MOE_TOKENS = 20                  # OLMoE: the forward whose drops are counted
+DEEPSEEK_DEPTH = dict(n_layers=2, n_dense_layers=1)   # cut from 61 and 3
+
+
+class DropProbe:
+    """While open, every ``moe_route`` call records its group's tokens,
+    its capacity and the (token, k) pairs it dropped (a device count, read
+    when taken, so the probe adds no synchronisation)."""
+
+    def __init__(self, L):
+        self.L, self.calls = L, []
+
+    def __enter__(self):
+        route = self.route = self.L.moe_route
+
+        def spy(p, cfg, xt):
+            r = route(p, cfg, xt)
+            self.calls.append((xt.shape[0] * xt.shape[1], r.capacity,
+                               (~r.keep).sum()))
+            return r
+
+        self.L.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route = self.route
+
+    def take(self) -> list:
+        """(tokens, capacity, dropped pairs) a call since the last take."""
+        out = [(t, c, int(d)) for t, c, d in self.calls]
+        self.calls.clear()
+        return out
+
+
+def host_copy(torch, module):
+    """A copy of ``module`` with its parameters on the host."""
+    import copy
+    return copy.deepcopy(module, memo={
+        id(p): torch.nn.Parameter(p.detach().cpu(), requires_grad=False)
+        for p in module.parameters()})
+
+
+def selection_scores(torch, ffn, cfg, zt):
+    """The scores a router chooses its top-k by (softmax probabilities, or
+    sigmoid plus the bias), on the host."""
+    logits = torch.einsum("gtd,de->gte", zt, ffn.router.cpu()).float()
+    if cfg.moe.router == "sigmoid_ds3":
+        return torch.sigmoid(logits) + ffn.router_bias.cpu()
+    return torch.softmax(logits, dim=-1)
+
+
+def compare_routes(torch, name: str, card, host, scores, k: int) -> dict:
+    """The card's routes against the host's for the same weights and
+    input: top-k indices and keeps must be equal; the margin between the
+    k-th and (k+1)-th score is reported where they differ, and its
+    smallest value over all tokens."""
+    top = torch.sort(scores, dim=-1, descending=True).values
+    margin = top[..., k - 1] - top[..., k]
+    differ = (card.top_idx.cpu() != host.top_idx).any(-1)
+    keep_equal = torch.equal(card.keep.cpu(), host.keep)
+    out = {"tokens": int(differ.numel()), "capacity": card.capacity,
+           "routes_equal": not bool(differ.any()), "keep_equal": keep_equal,
+           "differ_margins": [float(x) for x in margin[differ]],
+           "min_kth_margin": float(margin.min()),
+           "dropped_pairs": int((~host.keep).sum())}
+    if differ.any() or not keep_equal or card.capacity != host.capacity:
+        fail(f"{name}: the card routes otherwise than the host: {out}")
+    return out
+
+
+def host_err(name: str, card, host) -> dict:
+    """The card's output against the host's, within LM_BOUND of the
+    largest |output|."""
+    bound = LM_BOUND * float(host.abs().max())
+    err = float((card.cpu() - host).abs().max())
+    if not err <= bound:
+        fail(f"{name}: the card differs from the host by {err} > {bound}")
+    return {"max_abs_err": err, "bound": bound}
+
+
+def lm_moe_mla_phase(torch, rt, card: str, device: str = "cuda") -> None:
+    """OLMoE-1B-7B at full width and depth, then DeepSeek-V3 at full width
+    with its depth cut to DEEPSEEK_DEPTH, from a seed on the card in
+    float32 with TF32 off in the layers (phase 14's probe turns it on for
+    the process).  No hand kernel runs."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    f32 = dict(compute_dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 15)
+    reset_launch_counts()
+    with TF32Probe(torch, T) as probe, torch.no_grad():
+        olmoe_phase(torch, T, L, probe, rng, f32, device, card)
+        deepseek_phase(torch, T, L, probe, rng, f32, device, card)
+    no_hand_kernels(launch_counts(), "phase 15")
+
+
+def no_hand_kernels(counts: dict, phase: str) -> None:
+    if any(counts.values()):
+        fail(f"{phase} launched a hand kernel: {counts}")
+
+
+def olmoe_phase(torch, T, L, probe, rng, f32, device, card) -> None:
+    """OLMoE-1B-7B's ``model_cfg`` (16 layers, 64 experts, top-8): at the
+    published capacity factor 1.25, its first attention layer and MoE
+    layer against the host's, the drops of ``forward`` over MOE_TOKENS
+    tokens, ``ServeEngine`` (4 slots, LM_SERVE_REQUESTS requests) with the
+    drops of each decode step, and one decode step of 4 slots profiled;
+    then through a view at factor E / K = 8, where nothing drops, prefill
+    and LM_DECODE decode steps against ``forward`` and the server against
+    a standalone B = 1 decode."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_arch("olmoe-1b-7b").model_cfg
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = lm_timed(torch, lambda: T.init_lm(
+        cfg, torch.Generator(device=device).manual_seed(SEED),
+        device=device))
+    pbytes = param_bytes(model)
+    n_moe = sum(isinstance(b.ffn, L.MoE) for b in model.blocks)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (1, MOE_TOKENS))).to(device)
+    # layer 0's attention and MoE on the card against the host
+    blk = model.blocks[0]
+    q_pos = torch.arange(MOE_TOKENS, device=device)[None]
+    with T.float32_matmuls(torch.float32):
+        x = model.embed[toks]
+        xa = L.rms_norm(x, blk.ln1, cfg.norm_eps)
+        attn, _ = L.apply_gqa(blk.attn, cfg, xa, q_pos, window=0)
+        z = L.rms_norm(x + attn, blk.ln2, cfg.norm_eps)
+        route = L.moe_route(blk.ffn, cfg, z.reshape(1, MOE_TOKENS, -1))
+        moe = L.apply_moe(blk.ffn, cfg, z)
+    h_attn_mod, h_ffn = host_copy(torch, blk.attn), host_copy(torch, blk.ffn)
+    h_attn, _ = L.apply_gqa(h_attn_mod, cfg, xa.cpu(), q_pos.cpu(),
+                            window=0)
+    zt = z.cpu().reshape(1, MOE_TOKENS, -1)
+    layers = {"attention": host_err("olmoe attention layer", attn, h_attn),
+              "moe": {**host_err("olmoe MoE layer", moe,
+                                 L.apply_moe(h_ffn, cfg, z.cpu())),
+                      **compare_routes(
+                          torch, "olmoe MoE layer", route,
+                          L.moe_route(h_ffn, cfg, zt),
+                          selection_scores(torch, h_ffn, cfg, zt),
+                          cfg.moe.top_k)}}
+    del h_attn_mod, h_ffn
+    with DropProbe(L) as drops:
+        _, fwd_ms = lm_timed(torch, lambda: T.forward(model, toks, **f32))
+        fwd_drops = [d for _, _, d in drops.take()]
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab,
+                                            rng.integers(4, LM_PREFILL + 1)),
+                        max_new_tokens=LM_SERVE_NEW)
+                for _ in range(LM_SERVE_REQUESTS)]
+        eng = ServeEngine(model, cfg, max_batch=4, prompt_len=LM_PREFILL,
+                          max_len=40)
+        outs, serve_ms = lm_timed(torch, lambda: eng.run(reqs))
+        calls = drops.take()
+    decode = [d for t, _, d in calls if t == 4]
+    new_tokens = sum(len(o.tokens) for o in outs) - sum(
+        min(len(r.prompt), LM_PREFILL) for r in reqs)
+    published = {
+        "capacity_factor": cfg.moe.capacity_factor,
+        "forward_tokens": MOE_TOKENS, "forward_ms": fwd_ms,
+        "forward_capacity": L.moe_capacity(cfg, MOE_TOKENS),
+        "forward_dropped_pairs_by_layer": fwd_drops,
+        "forward_pairs": MOE_TOKENS * cfg.moe.top_k * n_moe,
+        "serve": {"requests": len(outs), "slots": 4,
+                  "new_tokens": new_tokens, "wall_ms": serve_ms,
+                  "tokens_per_s": new_tokens / (serve_ms / 1e3),
+                  "decode_capacity": L.moe_capacity(cfg, 4),
+                  "decode_dropped_pairs_per_step": [
+                      sum(decode[i:i + n_moe])
+                      for i in range(0, len(decode), n_moe)],
+                  "prefill_dropped_pairs": [
+                      sum(d for t, _, d in calls[i:i + n_moe])
+                      for i in range(0, len(calls), n_moe)
+                      if calls[i][0] == LM_PREFILL]}}
+    # one decode step of 4 slots at the published factor, profiled
+    dtoks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).to(device)
+    dpos = torch.full((4,), 20, device=device)
+    pool = T.make_cache(cfg, 4, 40, dtype=torch.float32, device=device)
+    profile(torch, lambda: T.decode_step(model, pool, dtoks, dpos, **f32),
+            "lm_decode_olmoe_1b_7b", card, batch=4, max_len=40,
+            param_bytes=pbytes, capacity_factor=cfg.moe.capacity_factor)
+    tf32 = tf32_fields(probe, probe.take())
+    # the raised factor: every expert holds its whole group
+    view = T.with_capacity_factor(model, cfg.moe.n_experts / cfg.moe.top_k)
+    total = LM_PREFILL + LM_DECODE
+    vtoks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, total))).to(device)
+    with DropProbe(L) as drops:
+        T.forward(view, vtoks, **f32)                       # warm
+        errs, _, _, prefill_ms, step_ms, bound = decode_errs(
+            torch, T, view, vtoks, LM_PREFILL, f32)
+        if not max(errs) <= bound:
+            fail(f"olmoe-1b-7b at factor {view.cfg.moe.capacity_factor}: "
+                 f"prefill/decode differ from forward by {max(errs)} > "
+                 f"{bound}")
+        serve = serve_vs_alone(torch, T, view, rng, f32, device, bound,
+                               "olmoe-1b-7b")
+        raised_drops = sum(d for _, _, d in drops.take())
+    if raised_drops:
+        fail(f"olmoe-1b-7b dropped {raised_drops} pairs at factor "
+             f"{view.cfg.moe.capacity_factor}")
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "lm_moe_olmoe_1b_7b", "arch": "olmoe-1b-7b",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "experts": cfg.moe.n_experts,
+          "top_k": cfg.moe.top_k, "d_expert": cfg.moe.d_expert,
+          "params": pbytes // 4, "param_bytes": pbytes, "dtype": "float32",
+          **tf32, "init_ms": init_ms, "layers_vs_host": layers,
+          "published_factor": published,
+          "raised_factor": {
+              "capacity_factor": view.cfg.moe.capacity_factor,
+              "dropped_pairs": raised_drops,
+              "prefill_ms": prefill_ms, "prefill_tokens": LM_PREFILL,
+              "decode_ms_per_step": float(np.mean(step_ms)),
+              "decode_tokens_per_s": 1e3 / float(np.mean(step_ms)),
+              "decode_max_abs_err": errs, "bound": bound,
+              "tolerance": f"{LM_BOUND:g} x max |logit|", "serve": serve},
+          "max_memory_allocated": peak, "memory_over_params": peak / pbytes,
+          "hand_kernel_launches": 0, "card": card})
+    del model, view, eng, pool
+    torch.cuda.empty_cache()
+
+
+def deepseek_phase(torch, T, L, probe, rng, f32, device, card) -> None:
+    """DeepSeek-V3's ``model_cfg`` at full width, depth cut to one dense
+    MLA layer and one MoE MLA layer (256 routed experts and 1 shared) plus
+    the MTP head, through a view at factor E / K = 32: prefill and
+    LM_DECODE decode steps against ``forward``, the latent caches' shapes,
+    the MLA layer and ``mtp_hidden`` against the host's for the same
+    weights, and the ``sigmoid_ds3`` router's choices against the
+    host's."""
+    import dataclasses
+    import types
+    from repro_torch.configs import get_arch
+    published = get_arch("deepseek-v3-671b").model_cfg
+    cfg = dataclasses.replace(published, **DEEPSEEK_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = lm_timed(torch, lambda: T.init_lm(
+        cfg, torch.Generator(device=device).manual_seed(SEED),
+        device=device))
+    pbytes = param_bytes(model)
+    view = T.with_capacity_factor(model, cfg.moe.n_experts / cfg.moe.top_k)
+    vcfg = view.cfg
+    total = LM_PREFILL + LM_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, total))).to(device)
+    with DropProbe(L) as drops:
+        T.forward(view, toks, **f32)                        # warm
+        (_, h), fwd_ms = lm_timed(torch, lambda: T.forward(
+            view, toks, **f32))
+        errs, _, caches, prefill_ms, step_ms, bound = decode_errs(
+            torch, T, view, toks, LM_PREFILL, f32)
+        dropped = sum(d for _, _, d in drops.take())
+    if not max(errs) <= bound or dropped:
+        fail(f"deepseek-v3-671b: prefill/decode differ from forward by "
+             f"{max(errs)} (bound {bound}), {dropped} pairs dropped")
+    shapes = {name: list(t.shape) for name, t in caches[0].items()}
+    if shapes != {"c_kv": [1, total, cfg.kv_lora_rank],
+                  "k_rope": [1, total, 1, cfg.qk_rope_dim]}:
+        fail(f"deepseek-v3-671b: latent caches of {shapes}")
+    # the MLA layer, the router and the MTP trunk against the host
+    blk0, blk1 = view.blocks
+    q_pos = torch.arange(total, device=device)[None]
+    with T.float32_matmuls(torch.float32):
+        x = view.embed[toks]
+        xa = L.rms_norm(x, blk0.ln1, cfg.norm_eps)
+        mla, _ = L.apply_mla(blk0.attn, vcfg, xa, q_pos, window=0)
+        x1, _ = T.apply_layer(blk0, vcfg, x, q_pos, 0)
+        h1, _ = L.apply_mla(blk1.attn, vcfg,
+                            L.rms_norm(x1, blk1.ln1, cfg.norm_eps), q_pos,
+                            window=0)
+        z = L.rms_norm(x1 + h1, blk1.ln2, cfg.norm_eps).reshape(1, total, -1)
+        route = L.moe_route(blk1.ffn, vcfg, z)
+    mtp = T.mtp_hidden(view, h, toks, **f32)
+    h_mla = L.apply_mla(host_copy(torch, blk0.attn), vcfg, xa.cpu(),
+                        q_pos.cpu(), window=0)[0]
+    router = types.SimpleNamespace(router=blk1.ffn.router.detach().cpu(),
+                                   router_bias=blk1.ffn.router_bias.detach().cpu())
+    host_model = types.SimpleNamespace(
+        cfg=vcfg, mtp=host_copy(torch, view.mtp),
+        embed=view.embed.detach().cpu(),
+        final_norm=view.final_norm.detach().cpu())
+    zt = z.cpu()
+    checks = {
+        "mla_layer": host_err("deepseek MLA layer", mla, h_mla),
+        "mtp_hidden": host_err("deepseek mtp_hidden", mtp, T.mtp_hidden(
+            host_model, h.cpu(), toks.cpu(), **f32)),
+        "router": compare_routes(torch, "deepseek sigmoid_ds3 router", route,
+                                 L.moe_route(router, vcfg, zt),
+                                 selection_scores(torch, router, vcfg, zt),
+                                 cfg.moe.top_k)}
+    del host_model
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "lm_mla_deepseek_v3_671b", "arch": "deepseek-v3-671b",
+          "n_layers": cfg.n_layers, "n_dense_layers": cfg.n_dense_layers,
+          "reduced": {"n_layers": [published.n_layers, cfg.n_layers],
+                      "n_dense_layers": [published.n_dense_layers,
+                                         cfg.n_dense_layers]},
+          "d_model": cfg.d_model, "vocab": cfg.vocab,
+          "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+          "capacity_factor": vcfg.moe.capacity_factor, "mtp": cfg.mtp,
+          "params": pbytes // 4, "param_bytes": pbytes, "dtype": "float32",
+          **tf32_fields(probe, probe.take()), "init_ms": init_ms,
+          "forward_ms": fwd_ms, "forward_tokens": total,
+          "prefill_ms": prefill_ms, "prefill_tokens": LM_PREFILL,
+          "decode_ms_per_step": float(np.mean(step_ms)),
+          "decode_tokens_per_s": 1e3 / float(np.mean(step_ms)),
+          "decode_max_abs_err": errs, "bound": bound,
+          "tolerance": f"{LM_BOUND:g} x max |logit|",
+          "cache_shapes": shapes, "vs_host": checks,
+          "max_memory_allocated": peak, "memory_over_params": peak / pbytes,
+          "hand_kernel_launches": 0, "card": card})
+    del model, view, caches, blk0, blk1
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 16: LM training at full width, checkpoints and a restart
+# ---------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ = 4, 256  # cut from train_4k's 256 x 4,096
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = 6
+TRAIN_LR = 1e-3
+TRAIN_CHILDREN = {
+    "launch_train_olmoe": ["-m", "repro_torch.launch.train", "--arch",
+                           "olmoe-1b-7b"],
+    "launch_train_deepseek": ["-m", "repro_torch.launch.train", "--arch",
+                              "deepseek-v3-671b"],
+    "example_train_lm": [str(ROOT / "examples" / "torch_train_lm.py")],
+}
+
+
+def start_children(children: dict) -> dict:
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return {name: subprocess.Popen(
+        [sys.executable, *argv], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, argv in children.items()}
+
+
+def child_lines(procs: dict, prefix: str) -> dict:
+    """Each child's standard output lines; a child that fails, runs past
+    600 s or prints no line starting ``prefix`` fails the phase."""
+    lines = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+            fail(f"{name} ran past 600 s")
+        lines[name] = out.strip().splitlines()
+        if proc.returncode or not lines[name] or \
+                not lines[name][0].startswith(prefix):
+            fail(f"{name} (rc {proc.returncode}): {out}\n{err[-3000:]}")
+    return lines
+
+
+def lm_train_phase(torch, rt, card: str, device: str = "cuda") -> None:
+    """qwen3-0.6b's ``model_cfg`` at full width, float32, trained with
+    AdamW over ``TokenPipeline`` batches of TRAIN_BATCH x TRAIN_SEQ tokens
+    with deterministic algorithms on: TRAIN_STEPS steps uninterrupted,
+    then the same under ``RestartManager`` with a checkpoint every
+    TRAIN_CKPT_EVERY steps and a failure injected at TRAIN_FAIL_AT, whose
+    final parameters must equal the first run's bit for bit; the loss
+    must go down; one checkpoint of the final state saved and restored,
+    timed.  The launcher for OLMoE's and DeepSeek-V3's smoke configs and
+    ``examples/torch_train_lm.py`` (its chaos drill) run as children, each
+    printing its ``[train]`` lines with the loss going down."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.ft import (FailureInjector, RestartManager,
+                                restore_checkpoint, save_checkpoint)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, train
+    children = start_children(TRAIN_CHILDREN)
+    cfg = get_arch("qwen3-0.6b").model_cfg
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model = T.init_lm(cfg, torch.Generator(device=device).manual_seed(SEED),
+                      device=device)
+    pbytes = param_bytes(model)
+    leaves = T.reference_leaves(model)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=SEED))
+
+    def loss_fn(p, b):
+        return T.lm_loss(T.bind(model, p),
+                         torch.from_numpy(b).long().to(device),
+                         compute_dtype=torch.float32)
+
+    base = dict(steps=TRAIN_STEPS, peak_lr=TRAIN_LR, warmup=2, log_every=1)
+    stamps, resumed = [], []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        stamps.append(time.perf_counter())
+        # a log line a step, once the step's loss reached the host
+        r1 = train(loss_fn, leaves, pipe.batch, TrainConfig(**base),
+                   log_fn=lambda line: stamps.append(time.perf_counter()))
+        peak_one = torch.cuda.max_memory_allocated()
+        mgr = RestartManager(max_restarts=1)
+        inj = FailureInjector((TRAIN_FAIL_AT,))
+        with tempfile.TemporaryDirectory() as d:
+            tcfg = TrainConfig(**base, ckpt_every=TRAIN_CKPT_EVERY,
+                               ckpt_dir=d, keep_ckpts=1)
+            r2, restart_ms = lm_timed(torch, lambda: mgr.run(
+                lambda resume: train(loss_fn, leaves, pipe.batch, tcfg,
+                                     injector=inj, log_fn=resumed.append)))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    unequal = [k for k, a in r1.final_state.params.items()
+               if not torch.equal(a, r2.final_state.params[k])]
+    if mgr.stats.restarts != 1 or unequal:
+        fail(f"qwen3-0.6b training: {mgr.stats.restarts} restarts; after the "
+             f"restart {len(unequal)} leaves differ from the uninterrupted "
+             f"run: {unequal[:5]}")
+    losses = [loss for _, loss in r1.losses]
+    if not losses[-1] < losses[0]:
+        fail(f"qwen3-0.6b training: the loss went {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, TRAIN_STEPS, r2.final_state)
+        save_s = time.perf_counter() - t0
+        (restored, _), restore_ms = lm_timed(torch, lambda:
+                                             restore_checkpoint(
+                                                 path, r2.final_state))
+        ck_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    if any(not torch.equal(a, restored.params[k])
+           for k, a in r2.final_state.params.items()):
+        fail("qwen3-0.6b training: a restored checkpoint differs")
+    no_hand_kernels(launch_counts(), "phase 16")
+    steady = float(np.median(step_ms[1:]))
+    emit({"phase": "lm_train_qwen3_0_6b", "arch": "qwen3-0.6b",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": pbytes // 4, "param_bytes": pbytes,
+          "dtype": "float32", "optimizer": "adamw", "remat": True,
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "reduced": {"train_4k": "global batch 256 x 4,096 tokens -> "
+                                  f"{TRAIN_BATCH} x {TRAIN_SEQ}"},
+          "steps": TRAIN_STEPS, "peak_lr": TRAIN_LR, "losses": losses,
+          "step_ms": step_ms, "ms_per_step": steady,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
+          "deterministic_algorithms": True,
+          "restart": {"fail_at": TRAIN_FAIL_AT,
+                      "ckpt_every": TRAIN_CKPT_EVERY,
+                      "restarts": mgr.stats.restarts,
+                      "resume_log": [x for x in resumed if "resumed" in x],
+                      "wall_ms": restart_ms, "params_bit_equal": True,
+                      "leaves": len(r2.final_state.params)},
+          "checkpoint": {"save_s": save_s, "restore_s": restore_ms / 1e3,
+                         "bytes": ck_bytes},
+          "max_memory_allocated_one_run": peak_one,
+          "one_run_over_params": peak_one / pbytes,
+          "max_memory_allocated": peak, "memory_over_params": peak / pbytes,
+          "memory_note": "the peak over both runs holds the first run's "
+                         "final state while the second trains",
+          "hand_kernel_launches": 0, "card": card})
+    del model, leaves, r1, r2, restored
+    torch.cuda.empty_cache()
+    lines = child_lines(children, "[train] arch=")
+    for name, out in lines.items():
+        first, last = (float(v) for v in out[-1].split("loss ")[1]
+                       .split(" (")[0].split(" -> "))
+        if not last < first:
+            fail(f"{name}: the loss went {first} -> {last}")
+    emit({"phase": "lm_train_launchers",
+          "lines": {name: out[:2] + out[-3:] for name, out in lines.items()},
+          "card": card})
+
+
 def main() -> None:
+    import os
+    # cuBLAS's deterministic workspace, for phase 16's bit-exact restart
+    # (read when the first handle is made)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -4103,8 +4633,8 @@ def main() -> None:
             levels_cap=WAVE_PROFILE_LEVELS)
     # phase 10 on this graph: autotuning against the default knobs
     by_phase["autotune_grid"], by_phase["autotune_grid_tune"] = \
-        autotune_phase(torch, rt, "autotune_grid", p, g, sources, oracle,
-                       card)
+        autotune_phase(torch, rt, "autotune_grid", p, g,
+                       sources[:AUTOTUNE_GRID_SOURCES], oracle, card)
     # phase 11 on this graph: the mesh-native BFS at world size 1
     meshes = mesh_init(torch)
     by_phase["mesh_grid2d_2048"] = mesh_phase(
@@ -4261,6 +4791,9 @@ def main() -> None:
 
     # phase 14: the LM serving tier at full width (no BFS kernel)
     lm_full_width_phase(torch, rt, card)
+    # phase 15: MoE, MLA and MTP at full width; phase 16: LM training
+    lm_moe_mla_phase(torch, rt, card)
+    lm_train_phase(torch, rt, card)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",

@@ -1,5 +1,5 @@
 """Arch config registry of the port, a copy of ``repro/configs`` over the
-ported (dense GQA LM) architectures."""
+ported (LM) architectures."""
 from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, REC_SHAPES,
                                       ArchSpec, all_archs, get_arch,
                                       list_archs)

@@ -2,10 +2,10 @@
 
 Every ported architecture gets one module in this package exposing an
 ``ARCH: ArchSpec``.  ``get_arch(id)`` / ``list_archs()`` are the CLI entry
-points (``--arch <id>``).  The port has the three dense GQA LMs; the
-reference's other architectures raise
-:class:`~repro_torch.errors.ConfigError` naming the ROADMAP.md item that
-ports them.
+points (``--arch <id>``).  The port has the reference's five LMs (the
+dense GQA ones, OLMoE's MoE and DeepSeek-V3's MLA, MoE and MTP); its GNN
+and recsys architectures raise :class:`~repro_torch.errors.ConfigError`
+naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -64,12 +64,12 @@ class ArchSpec:
     notes: str = ""
 
 
-_ARCH_MODULES = ["qwen3_0_6b", "gemma3_1b", "h2o_danube_1_8b"]
+_ARCH_MODULES = ["olmoe_1b_7b", "deepseek_v3_671b", "qwen3_0_6b",
+                 "gemma3_1b", "h2o_danube_1_8b"]
 
 #: the reference's architectures not ported yet, and the ROADMAP.md queue 1
 #: item that ports each
 UNPORTED = {
-    "olmoe-1b-7b": "13b", "deepseek-v3-671b": "13b",
     "dimenet": "13d", "gin-tu": "13d", "nequip": "13d", "egnn": "13d",
     "fm": "13d",
 }

@@ -1,17 +1,19 @@
-"""Transformer building blocks of the LM serving tier, the port of the
-serving half of ``repro/models/layers.py``: RMSNorm, RoPE, GQA attention
-(optional qk-norm, sliding window, causal and slot-validity masks) and the
-SwiGLU MLP, as ``nn.Module``s with plain functions beside them.
+"""Transformer building blocks of the LM tier, the port of
+``repro/models/layers.py``: RMSNorm, RoPE, GQA and MLA attention
+(optional qk-norm, sliding window, causal and slot-validity masks), the
+SwiGLU MLP and the capacity-based MoE, as ``nn.Module``s with plain
+functions beside them.
 
-The reference's attention is plain ``einsum`` and softmax, not a Pallas
-kernel, and so is the port's: this module owes no hand kernel.  MLA and
-the capacity-based MoE (the reference's ``init_mla``/``apply_mla``,
-``init_moe``/``apply_moe``) are ROADMAP.md queue 1 item 13b; a model
-whose config asks for them raises :class:`~repro_torch.errors.ConfigError`
-(``transformer.TransformerLM``).
+The reference's attention, experts and router are plain ``einsum``,
+softmax and ``top_k``, not Pallas kernels, and so are the port's: this
+module owes no hand kernel.  The MoE's GShard capacity dispatch is the
+reference's, slot for slot: the same routes (``top_k`` in JAX's order,
+ties to the lower expert), the same capacity, the same drops.  The
+reference's ``moe_spec`` sharding constraint belongs to the model mesh
+(ROADMAP.md queue 1 item 13e) and is left out.
 
-Parameters are float32, initialised from an explicit
-:class:`torch.Generator` (truncated normal at ±2σ, scaled by
+Parameters are float32, require gradients, and are initialised from an
+explicit :class:`torch.Generator` (truncated normal at ±2σ, scaled by
 1/√fan_in, the reference's ``dense_init``); the reference's weights load
 through :func:`repro_torch.models.transformer.load_reference_params`.
 """
@@ -19,9 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
+
+from repro_torch.errors import ConfigError
 
 NEG_INF = -1e30
 
@@ -102,7 +107,7 @@ def dense_init(generator: torch.Generator, shape, in_axis_size: int,
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def _zeros(n: int, device) -> nn.Parameter:
@@ -243,6 +248,73 @@ def apply_gqa(p: GQA, cfg: LMConfig, x, q_pos, *, window, kv_cache=None,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3): low-rank Q, compressed KV latent and one
+# shared RoPE key a token.  The latent (c_kv, k_rope) is what decode caches.
+# ---------------------------------------------------------------------------
+class MLA(nn.Module):
+    """Multi-head latent attention's parameters; the constructor is the
+    reference's ``init_mla`` (the same pytree): ``wq_a`` (d, q_lora),
+    ``q_a_norm`` (q_lora,), ``wq_b`` (q_lora, H, qk_nope + qk_rope),
+    ``wkv_a`` (d, kv_lora + qk_rope), ``kv_a_norm`` (kv_lora,),
+    ``wk_b`` (kv_lora, H, qk_nope), ``wv_b`` (kv_lora, H, v_head) and
+    ``wo`` (H, v_head, d)."""
+
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        qk_d = cfg.qk_nope_dim + cfg.qk_rope_dim
+        self.wq_a = _param(dense_init(generator, (d, qr), d, device))
+        self.q_a_norm = _zeros(qr, device)
+        self.wq_b = _param(dense_init(generator, (qr, H, qk_d), qr, device))
+        self.wkv_a = _param(dense_init(
+            generator, (d, kvr + cfg.qk_rope_dim), d, device))
+        self.kv_a_norm = _zeros(kvr, device)
+        self.wk_b = _param(dense_init(generator, (kvr, H, cfg.qk_nope_dim),
+                                      kvr, device))
+        self.wv_b = _param(dense_init(generator, (kvr, H, cfg.v_head_dim),
+                                      kvr, device))
+        self.wo = _param(dense_init(generator, (H, cfg.v_head_dim, d),
+                                    H * cfg.v_head_dim, device))
+
+
+def apply_mla(p: MLA, cfg: LMConfig, x, q_pos, *, window=None,
+              kv_cache=None, capture_kv: bool = False):
+    """x (B, S, d).  The cache payload is the normed latent ``c_kv``
+    (B, S, kv_lora) and the rotated shared key ``k_rope`` (B, S, 1,
+    qk_rope); both ``kv_cache`` and ``capture_kv`` work as in
+    :func:`apply_gqa`.  Every call re-expands the latent to per-head keys
+    and values through ``wk_b``/``wv_b`` (matrix absorption is a later
+    performance item, not the reference's)."""
+    dt = x.dtype
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p.wq_a.to(dt)),
+                  p.q_a_norm, cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, p.wq_b.to(dt))
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
+                                 dim=-1)
+    q_full = torch.cat([q_nope, apply_rope(q_rope, q_pos, cfg.rope_theta)],
+                       dim=-1)
+    kv_a = torch.einsum("bsd,dr->bsr", x, p.wkv_a.to(dt))
+    c_kv, k_rope = torch.split(kv_a, [cfg.kv_lora_rank, cfg.qk_rope_dim],
+                               dim=-1)
+    c_kv = rms_norm(c_kv, p.kv_a_norm, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], q_pos, cfg.rope_theta)
+    if kv_cache is not None:
+        c_kv, k_rope, k_pos, k_valid, new_cache = kv_cache(c_kv, k_rope)
+    else:
+        k_pos, k_valid = q_pos, None
+        new_cache = (c_kv, k_rope) if capture_kv else None
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.wk_b.to(dt))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p.wv_b.to(dt))
+    k_full = torch.cat([k_nope, k_rope.to(dt).expand(
+        *k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
+    out = attend(q_full, k_full, v, q_pos, k_pos, window, k_valid,
+                 mixed=cfg.mp_attn)
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(dt))
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
@@ -265,3 +337,134 @@ def apply_mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     u = torch.einsum("bsd,df->bsf", x, p.w_up.to(x.dtype))
     h = nn.functional.silu(g) * u
     return torch.einsum("bsf,fd->bsd", h, p.w_down.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# capacity-based MoE (GShard-style dispatch)
+# ---------------------------------------------------------------------------
+class MoE(nn.Module):
+    """The experts' parameters; the constructor is the reference's
+    ``init_moe``: ``router`` (d, E), ``w_gate``/``w_up`` (E, d, F),
+    ``w_down`` (E, F, d), ``router_bias`` (E,) with the ``sigmoid_ds3``
+    router (it steers the choice only, so it gets no gradient), and
+    ``shared``, an :class:`MLP` of width ``F · n_shared``, with shared
+    experts."""
+
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+        super().__init__()
+        mc = cfg.moe
+        d, E, F = cfg.d_model, mc.n_experts, mc.d_expert
+        self.router = _param(dense_init(generator, (d, E), d, device))
+        self.w_gate = _param(dense_init(generator, (E, d, F), d, device))
+        self.w_up = _param(dense_init(generator, (E, d, F), d, device))
+        self.w_down = _param(dense_init(generator, (E, F, d), F, device))
+        if mc.router == "sigmoid_ds3":
+            self.router_bias = _zeros(E, device)
+        if mc.n_shared:
+            self.shared = MLP(d, F * mc.n_shared, generator, device)
+
+
+class Routing(NamedTuple):
+    """Where each (token, k) pair of a group goes: ``top_w`` (G, Tg, K)
+    its combine weight, ``top_idx`` (G, Tg, K) its expert (in
+    ``jax.lax.top_k``'s order), ``pos`` (G, Tg, K) its slot in that
+    expert's buffer (from the cumulative count over the flattened
+    (token, k) order), ``keep`` (G, Tg, K) whether ``pos < capacity``;
+    ``capacity`` is the buffer's slots an expert and group."""
+    top_w: torch.Tensor
+    top_idx: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest values along the last axis and their indices,
+    largest first and the lower index first on a tie, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no tie
+    order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: LMConfig, tokens_per_group: int) -> int:
+    """Slots an expert and group: ``max(1, ceil(Tg · K / E · factor))``."""
+    mc = cfg.moe
+    return max(1, int(math.ceil(tokens_per_group * mc.top_k / mc.n_experts
+                                * mc.capacity_factor)))
+
+
+def moe_route(p: MoE, cfg: LMConfig, xt: torch.Tensor) -> Routing:
+    """Route xt (G, Tg, d): the softmax router takes the top-k
+    probabilities, renormalised; ``sigmoid_ds3`` chooses by sigmoid score
+    plus ``router_bias`` and weighs by the raw scores, renormalised and
+    scaled by ``routed_scale``."""
+    mc = cfg.moe
+    G, Tg, _ = xt.shape
+    E, K = mc.n_experts, mc.top_k
+    logits = torch.einsum("gtd,de->gte", xt, p.router.to(xt.dtype)).float()
+    if mc.router == "sigmoid_ds3":
+        scores = torch.sigmoid(logits)
+        _, top_idx = top_k(scores + p.router_bias[None, None, :], K)
+        top_raw = torch.take_along_dim(scores, top_idx, dim=2)
+        top_w = top_raw / (top_raw.sum(dim=2, keepdim=True) + 1e-9)
+        top_w = top_w * mc.routed_scale
+    else:
+        top_w, top_idx = top_k(torch.softmax(logits, dim=-1), K)
+        top_w = top_w / (top_w.sum(dim=2, keepdim=True) + 1e-9)
+    C = moe_capacity(cfg, Tg)
+    onehot = nn.functional.one_hot(top_idx, E)                # (G, Tg, K, E)
+    pos_in_e = (torch.cumsum(onehot.reshape(G, Tg * K, E), dim=1) - 1
+                ).reshape(G, Tg, K, E)
+    pos = (pos_in_e * onehot).sum(-1)                         # (G, Tg, K)
+    return Routing(top_w, top_idx, pos, pos < C, C)
+
+
+def apply_moe(p: MoE, cfg: LMConfig, x: torch.Tensor, *,
+              n_groups: int = 1) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d).  GShard-style capacity dispatch with
+    groups: the B·S tokens are cut into ``n_groups`` groups (which must
+    divide B·S), each routing into its own per-expert buffer of
+    ``capacity`` slots; a (token, k) pair past its expert's capacity is
+    dropped (its weight counts for nothing).  Unused slots enter the
+    experts as zeros; the combine scatter-adds each slot's output, times
+    its weight, back onto its token (``index_add``)."""
+    mc = cfg.moe
+    B, S, d = x.shape
+    E, K, G = mc.n_experts, mc.top_k, n_groups
+    if (B * S) % G:
+        raise ConfigError(f"moe_groups={G} does not divide the {B * S} "
+                          f"tokens of the batch")
+    Tg = B * S // G
+    xt = x.reshape(G, Tg, d)
+    r = moe_route(p, cfg, xt)
+    C = r.capacity
+    dev = x.device
+    # slot of each (token, k): its expert's buffer, or a spare slot of its
+    # own past the E·C live ones when dropped (so no two pairs share one)
+    spare = E * C + torch.arange(Tg * K, device=dev)
+    slot = torch.where(r.keep.reshape(G, Tg * K),
+                       (r.top_idx * C + r.pos).reshape(G, Tg * K), spare)
+    size = E * C + Tg * K
+    tok = torch.arange(Tg, device=dev).repeat_interleave(K).expand(G, -1)
+    token_of_slot = torch.zeros((G, size), dtype=torch.int64, device=dev
+                                ).scatter(1, slot, tok)[:, :E * C]
+    used = torch.zeros((G, size), dtype=torch.bool, device=dev).scatter(
+        1, slot, r.keep.reshape(G, Tg * K))[:, :E * C]
+    w_k = torch.where(r.keep, r.top_w, 0.0).to(x.dtype).reshape(G, Tg * K)
+    w_slot = torch.zeros((G, size), dtype=x.dtype, device=dev).scatter(
+        1, slot, w_k)[:, :E * C]
+    g_idx = torch.arange(G, device=dev)[:, None]
+    xe = xt[g_idx, token_of_slot] * used[..., None].to(x.dtype)  # (G, EC, d)
+    # the experts: one batched matmul an expert over its G·C slots
+    xe = xe.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    h = nn.functional.silu(xe @ p.w_gate.to(x.dtype)) * \
+        (xe @ p.w_up.to(x.dtype))
+    ye = (h @ p.w_down.to(x.dtype)).reshape(E, G, C, d).transpose(0, 1)
+    contrib = ye.reshape(G, E * C, d) * w_slot[..., None]
+    rows = (token_of_slot + g_idx * Tg).reshape(-1)
+    yt = torch.zeros((G * Tg, d), dtype=x.dtype, device=dev).index_add(
+        0, rows, contrib.reshape(-1, d)).reshape(G, Tg, d)
+    if mc.n_shared:
+        yt = yt + apply_mlp(p.shared, xt)
+    return yt.reshape(B, S, d)

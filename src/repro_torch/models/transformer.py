@@ -1,26 +1,37 @@
-"""Transformer LM, the serving half of ``repro/models/transformer.py``:
-the dense GQA configurations (qk-norm optional, sliding-window and
-local:global attention, SwiGLU FFN, tied or separate head).
+"""Transformer LM, the port of ``repro/models/transformer.py``: GQA
+(qk-norm optional) and MLA attention, sliding-window and local:global
+patterns, dense SwiGLU or capacity-based MoE FFNs (shared experts, the
+DeepSeek-V3 sigmoid router), the optional MTP head, tied or separate
+embeddings; serving (:func:`prefill`, :func:`decode_step`) and training
+(:func:`lm_loss`).
 
 :class:`TransformerLM` is an ``nn.Module`` holding the parameters (one
-``nn.ModuleList`` of blocks); the plain functions :func:`forward`,
-:func:`prefill` and :func:`decode_step` run it, and :func:`make_cache`
-builds the per-layer KV caches (a rotating window cache for each local
-layer).  The reference scans over stacked layers (``lax.scan``, its
+``nn.ModuleList`` of blocks, dense layers first as the reference's
+``layer_groups`` orders them, and the ``mtp`` head); the plain functions
+run it, and :func:`make_cache` builds the per-layer caches (a rotating
+window cache for each local layer, the compressed latent for MLA).  The
+reference scans over stacked layers (``lax.scan``, its
 ``_uniform_cache`` choosing where); the port loops over its blocks in
-Python for every config, and leaves out the reference's
-training and dry-run knobs (``jax.checkpoint`` remat, ``set_act_spec``,
-``set_unroll``; ROADMAP.md §3 E).  ``lm_loss``, ``_chunked_nll`` and
-``mtp_hidden`` belong to training (ROADMAP.md queue 1 item 13c); MLA,
-MoE and MTP configurations raise :class:`~repro_torch.errors.ConfigError`
-(item 13b).
+Python for every config.  Remat (``forward(remat=True)``) runs each layer
+under ``torch.utils.checkpoint``; the reference's dry-run knobs
+(``set_act_spec``, ``set_unroll``, ``moe_spec``) belong to the model mesh
+(ROADMAP.md queue 1 item 13e).
+
+Training works on the reference's pytree layout: :func:`reference_leaves`
+gives the parameters as ``{path: tensor}`` with each layer group stacked
+on a leading axis (``"blocks/0/attn/wq"``), :func:`param_paths` is the map
+from the port's parameter names to those paths, and :func:`bind` runs the
+model on such leaves (autograd flows to them), so the optimizers,
+checkpoints and gradients of ``repro_torch.train`` see the reference's
+leaves one for one.
 
 Device: :class:`TransformerLM`, :func:`init_lm` and :func:`make_cache`
 put their tensors on the card unless the caller asks for the CPU
 (``device="cpu"``); with no card the default is a
 :class:`~repro_torch.errors.ConfigError`
 (:func:`~repro_torch.core.bvss.resolve_device`).  The functions that run
-a model run where its parameters are.
+a model run where its parameters are; :func:`prefill` and
+:func:`decode_step` build no autograd graph.
 
 Precision: in float32 mode (``compute_dtype=torch.float32``) the
 functions run their matmuls with TF32 off (:func:`float32_matmuls`),
@@ -32,16 +43,20 @@ compute the same function.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.bvss import resolve_device
 from repro_torch.errors import ConfigError
-from repro_torch.models.layers import (GQA, MLP, LMConfig, apply_gqa,
-                                       apply_mlp, dense_init, rms_norm)
+from repro_torch.models.layers import (GQA, MLA, MLP, LMConfig, MoE,
+                                       _zeros, apply_gqa, apply_mla,
+                                       apply_mlp, apply_moe, dense_init,
+                                       rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,18 +77,6 @@ def layer_groups(cfg: LMConfig) -> list[GroupSpec]:
 def _window_code(cfg: LMConfig, layer: int) -> int:
     w = cfg.layer_window(layer)
     return 0 if w is None else w  # 0 = global
-
-
-def check_ported(cfg: LMConfig) -> None:
-    """Refuse the configurations of ROADMAP.md queue 1 item 13b."""
-    what = [name for name, on in (("attn='mla'", cfg.attn == "mla"),
-                                  ("moe", cfg.is_moe), ("mtp", cfg.mtp))
-            if on]
-    if what:
-        raise ConfigError(
-            f"LM config {cfg.name!r} uses {', '.join(what)}: MLA, MoE and "
-            f"MTP are not ported to PyTorch yet (ROADMAP.md queue 1 item "
-            f"13b); the dense GQA configurations are")
 
 
 @contextlib.contextmanager
@@ -99,42 +102,79 @@ def float32_matmuls(compute_dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 class Block(nn.Module):
     """One layer (the reference's ``init_layer``): ``attn``
-    (:class:`~repro_torch.models.layers.GQA`), ``ffn``
-    (:class:`~repro_torch.models.layers.MLP`), ``ln1``, ``ln2``."""
+    (:class:`~repro_torch.models.layers.MLA` or
+    :class:`~repro_torch.models.layers.GQA`), ``ffn``
+    (:class:`~repro_torch.models.layers.MoE` in the MoE group, else an
+    :class:`~repro_torch.models.layers.MLP` of ``dense_d_ff`` in an MoE
+    config that sets it, of ``d_ff`` otherwise), ``ln1``, ``ln2``."""
 
-    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device,
+                 is_moe: bool = False):
         super().__init__()
-        self.attn = GQA(cfg, generator, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, generator, device)
-        self.ln1 = nn.Parameter(torch.zeros(cfg.d_model, device=device),
-                                requires_grad=False)
-        self.ln2 = nn.Parameter(torch.zeros(cfg.d_model, device=device),
-                                requires_grad=False)
+        self.attn = (MLA if cfg.attn == "mla" else GQA)(cfg, generator,
+                                                        device)
+        if is_moe:
+            self.ffn = MoE(cfg, generator, device)
+        else:
+            d_ff = cfg.dense_d_ff if (cfg.is_moe and cfg.dense_d_ff) \
+                else cfg.d_ff
+            self.ffn = MLP(cfg.d_model, d_ff, generator, device)
+        self.ln1 = _zeros(cfg.d_model, device)
+        self.ln2 = _zeros(cfg.d_model, device)
 
 
 def apply_layer(p: Block, cfg: LMConfig, x, q_pos, window, *,
-                kv_cache=None, capture_kv: bool = False):
-    h, new_cache = apply_gqa(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
-                             q_pos, window=window, kv_cache=kv_cache,
-                             capture_kv=capture_kv)
+                kv_cache=None, moe_groups: int = 1,
+                capture_kv: bool = False):
+    attn_fn = apply_mla if isinstance(p.attn, MLA) else apply_gqa
+    h, new_cache = attn_fn(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
+                           q_pos, window=window, kv_cache=kv_cache,
+                           capture_kv=capture_kv)
     x = x + h
     z = rms_norm(x, p.ln2, cfg.norm_eps)
+    if isinstance(p.ffn, MoE):
+        return x + apply_moe(p.ffn, cfg, z, n_groups=moe_groups), new_cache
     return x + apply_mlp(p.ffn, z), new_cache
+
+
+def _remat_layer(p: Block, cfg: LMConfig, x, q_pos, window,
+                 moe_groups: int):
+    """One layer under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): only its input is kept for the backward pass,
+    which runs the layer again."""
+    return checkpoint(
+        lambda x_: apply_layer(p, cfg, x_, q_pos, window,
+                               moe_groups=moe_groups)[0],
+        x, use_reentrant=False, preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token-prediction head: ``proj`` (2d, d),
+    ``norm_h``, ``norm_e`` and a dense :class:`Block`."""
+
+    def __init__(self, cfg: LMConfig, generator: torch.Generator, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = nn.Parameter(dense_init(generator, (2 * d, d), 2 * d,
+                                            device))
+        self.norm_h = _zeros(d, device)
+        self.norm_e = _zeros(d, device)
+        self.block = Block(cfg, generator, device, is_moe=False)
+
+
 class TransformerLM(nn.Module):
-    """A dense GQA LM's parameters: ``embed`` (V, d), ``final_norm`` (d,),
-    ``head`` (d, V) unless the embeddings are tied, and ``blocks``, one
-    :class:`Block` a layer; drawn from ``generator``, which lives on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    """An LM's parameters: ``embed`` (V, d), ``final_norm`` (d,),
+    ``head`` (d, V) unless the embeddings are tied, ``blocks``, one
+    :class:`Block` a layer in :func:`layer_groups`' order, and ``mtp``
+    (:class:`MTP`) with ``cfg.mtp``; drawn from ``generator``, which lives
+    on ``device`` (the card unless the caller asks for the CPU)."""
 
     def __init__(self, cfg: LMConfig, generator: torch.Generator,
                  device=None):
         super().__init__()
-        check_ported(cfg)
         device = resolve_device(device)
         if generator.device.type != device.type:
             raise ConfigError(
@@ -143,16 +183,16 @@ class TransformerLM(nn.Module):
                 f"model's device")
         self.cfg = cfg
         self.embed = nn.Parameter(dense_init(
-            generator, (cfg.vocab, cfg.d_model), cfg.d_model, device),
-            requires_grad=False)
-        self.final_norm = nn.Parameter(
-            torch.zeros(cfg.d_model, device=device), requires_grad=False)
+            generator, (cfg.vocab, cfg.d_model), cfg.d_model, device))
+        self.final_norm = _zeros(cfg.d_model, device)
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(dense_init(
-                generator, (cfg.d_model, cfg.vocab), cfg.d_model, device),
-                requires_grad=False)
+                generator, (cfg.d_model, cfg.vocab), cfg.d_model, device))
         self.blocks = nn.ModuleList(
-            Block(cfg, generator, device) for _ in range(cfg.n_layers))
+            Block(cfg, generator, device, grp.is_moe)
+            for grp in layer_groups(cfg) for _ in range(grp.count))
+        if cfg.mtp:
+            self.mtp = MTP(cfg, generator, device)
 
     @property
     def device(self) -> torch.device:
@@ -169,23 +209,58 @@ def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
     for the CPU; with no card the default raises
     :class:`~repro_torch.errors.ConfigError`), its weights drawn from
     ``generator`` (a fresh seed-0 generator on that device when None)."""
-    check_ported(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     return TransformerLM(cfg, generator, device)
 
 
+def _view(module: nn.Module) -> nn.Module:
+    """A copy of ``module``'s tree of modules that shares its tensors:
+    replacing a parameter or attribute of the copy leaves ``module`` as
+    it is."""
+    new = copy.copy(module)
+    new.__dict__["_parameters"] = dict(module._parameters)
+    new.__dict__["_modules"] = {name: _view(child)
+                                for name, child in module._modules.items()}
+    return new
+
+
+def with_capacity_factor(model: TransformerLM, factor: float
+                         ) -> TransformerLM:
+    """A view of an MoE ``model`` that shares its parameters and routes
+    with ``capacity_factor`` ``factor`` (the reference passes ``cfg``
+    beside its params; the port binds it to the model).  At ``factor``
+    ≥ E / K every expert's buffer holds the whole group, so nothing is
+    dropped."""
+    cfg = model.cfg
+    if not cfg.is_moe:
+        raise ConfigError(f"{cfg.name!r} has no MoE layer")
+    view = _view(model)
+    view.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    return view
+
+
 def forward(model: TransformerLM, tokens: torch.Tensor, *,
-            compute_dtype=torch.bfloat16, skip_logits: bool = False):
-    """tokens (B, S) int -> (logits (B, S, V) float32 | None, h)."""
+            compute_dtype=torch.bfloat16, moe_groups: int = 1,
+            remat: bool = True, skip_logits: bool = False):
+    """tokens (B, S) int -> (logits (B, S, V) float32 | None, h).  With
+    ``remat`` (and autograd recording) each layer runs under
+    ``torch.utils.checkpoint``."""
     cfg = model.cfg
     B, S = tokens.shape
+    remat = remat and torch.is_grad_enabled()
     with float32_matmuls(compute_dtype):
         x = model.embed[tokens].to(compute_dtype)
         q_pos = torch.arange(S, device=x.device).expand(B, S)
         for layer, blk in enumerate(model.blocks):
-            x, _ = apply_layer(blk, cfg, x, q_pos, _window_code(cfg, layer))
+            win = _window_code(cfg, layer)
+            if remat:
+                x = _remat_layer(blk, cfg, x, q_pos, win, moe_groups)
+            else:
+                x, _ = apply_layer(blk, cfg, x, q_pos, win,
+                                   moe_groups=moe_groups)
         x = rms_norm(x, model.final_norm, cfg.norm_eps)
         if skip_logits:
             return None, x
@@ -194,23 +269,98 @@ def forward(model: TransformerLM, tokens: torch.Tensor, *,
     return logits.float(), x
 
 
+def mtp_hidden(model: TransformerLM, h: torch.Tensor, tokens: torch.Tensor,
+               *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """DeepSeek-V3's MTP trunk: hidden states predicting token t+2 from
+    the backbone's state at t and the embedding of token t+1.  Returns
+    (B, S-1, d), final-normed; the shared head and the streaming
+    cross-entropy make the logits."""
+    cfg, mp = model.cfg, model.mtp
+    B, S, _ = h.shape
+    with float32_matmuls(compute_dtype):
+        h_in = rms_norm(h[:, :-1], mp.norm_h, cfg.norm_eps)
+        e_in = rms_norm(model.embed[tokens[:, 1:]].to(compute_dtype),
+                        mp.norm_e, cfg.norm_eps)
+        z = torch.einsum("bsd,dk->bsk", torch.cat([h_in, e_in], dim=-1),
+                         mp.proj.to(compute_dtype))
+        q_pos = torch.arange(S - 1, device=h.device).expand(B, S - 1)
+        z, _ = apply_layer(mp.block, cfg, z, q_pos, 0)
+        return rms_norm(z, model.final_norm, cfg.norm_eps)
+
+
+CE_CHUNK = 512  # sequence-chunk size for streaming cross-entropy
+
+
+def _chunked_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+                 chunk: int = CE_CHUNK) -> torch.Tensor:
+    """Mean next-token NLL without keeping (B, S, V) logits: the head
+    matmul, log-softmax and gather run per sequence chunk under
+    ``torch.utils.checkpoint``, so peak memory is one chunk's logits."""
+    B, S, _ = x.shape
+
+    def one(xc, tc):
+        logits = torch.einsum("bsd,dv->bsv", xc, head).float()
+        lp = torch.log_softmax(logits, dim=-1)
+        return -torch.take_along_dim(lp, tc[..., None], dim=-1).sum()
+
+    def run(xc, tc):
+        if not torch.is_grad_enabled():
+            return one(xc, tc)
+        return checkpoint(one, xc, tc, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    if S <= chunk:
+        return run(x, targets) / (B * S)
+    main = S // chunk * chunk
+    total = torch.stack([run(x[:, i:i + chunk], targets[:, i:i + chunk])
+                         for i in range(0, main, chunk)]).sum()
+    if S > main:  # the remainder chunk (e.g. the MTP trunk's S-2 positions)
+        total = total + run(x[:, main:], targets[:, main:])
+    return total / (B * S)
+
+
+def lm_loss(model: TransformerLM, tokens: torch.Tensor, *,
+            compute_dtype=torch.bfloat16, moe_groups: int = 1,
+            remat: bool = True, mtp_weight: float = 0.3) -> torch.Tensor:
+    """Next-token cross-entropy (plus ``mtp_weight`` times the MTP head's
+    t+2 cross-entropy with ``cfg.mtp``), streaming over sequence chunks
+    so full-vocabulary logits never stay in memory."""
+    cfg = model.cfg
+    with float32_matmuls(compute_dtype):
+        _, h = forward(model, tokens, compute_dtype=compute_dtype,
+                       moe_groups=moe_groups, remat=remat, skip_logits=True)
+        head = model.head_weight().to(compute_dtype)
+        loss = _chunked_nll(h[:, :-1], head, tokens[:, 1:])
+        if cfg.mtp:
+            hm = mtp_hidden(model, h, tokens, compute_dtype=compute_dtype)
+            loss = loss + mtp_weight * _chunked_nll(hm[:, :-1], head,
+                                                    tokens[:, 2:])
+    return loss
+
+
 # ---------------------------------------------------------------------------
-# serving: heterogeneous per-layer KV caches
+# serving: heterogeneous per-layer caches
 # ---------------------------------------------------------------------------
 def make_cache(cfg: LMConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> list[dict]:
     """One cache dict per layer, on ``device`` (the card unless the caller
-    asks for the CPU); local layers get a rotating window cache of
-    ``min(max_len, window)`` slots."""
-    check_ported(cfg)
+    asks for the CPU): ``k``/``v`` (B, L, Hkv, Dh) for GQA, the latent
+    ``c_kv`` (B, L, kv_lora) and ``k_rope`` (B, L, 1, qk_rope) for MLA;
+    local layers get a rotating window cache of ``min(max_len, window)``
+    slots."""
     device = resolve_device(device)
     caches = []
     for layer in range(cfg.n_layers):
         w = cfg.layer_window(layer)
         L = max_len if w is None else min(max_len, w)
-        shape = (batch, L, cfg.n_kv_heads, cfg.d_head)
-        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+        if cfg.attn == "mla":
+            shapes = {"c_kv": (batch, L, cfg.kv_lora_rank),
+                      "k_rope": (batch, L, 1, cfg.qk_rope_dim)}
+        else:
+            kv = (batch, L, cfg.n_kv_heads, cfg.d_head)
+            shapes = {"k": kv, "v": kv}
+        caches.append({name: torch.zeros(shape, dtype=dtype, device=device)
+                       for name, shape in shapes.items()})
     return caches
 
 
@@ -224,13 +374,18 @@ def _slot_positions(pos: torch.Tensor, L: int
     return p, p >= 0
 
 
+def _cache_names(cache: dict) -> tuple[str, str]:
+    """The payload's names in the order the attention returns them."""
+    return ("c_kv", "k_rope") if "c_kv" in cache else ("k", "v")
+
+
 def cache_len(cache: dict) -> int:
-    return cache["k"].shape[1]
+    return cache[_cache_names(cache)[0]].shape[1]
 
 
 def _cache_cb(cache: dict, pos: torch.Tensor, batch: int):
     """pos (B,): per-slot decode positions (continuous batching).  The
-    callback writes the new (k, v) at each example's slot ``pos % L`` of
+    callback writes the new payload at each example's slot ``pos % L`` of
     NEW tensors (the given cache is never written)."""
     L = cache_len(cache)
     wi = torch.remainder(pos, L)
@@ -239,7 +394,7 @@ def _cache_cb(cache: dict, pos: torch.Tensor, batch: int):
     def cb(*new):
         new_cache = {}
         outs = []
-        for name, arr in zip(("k", "v"), new):
+        for name, arr in zip(_cache_names(cache), new):
             upd = cache[name].index_put(
                 (b_idx, wi), arr[:, 0].to(cache[name].dtype))
             new_cache[name] = upd
@@ -250,11 +405,13 @@ def _cache_cb(cache: dict, pos: torch.Tensor, batch: int):
     return cb
 
 
+@torch.no_grad()
 def decode_step(model: TransformerLM, caches: list[dict],
                 tokens: torch.Tensor, pos, *, compute_dtype=torch.bfloat16):
     """One decode step: tokens (B, 1), ``pos`` an int or (B,) ints (the
     0-based position of each slot's new token — per-slot positions enable
-    continuous batching).  Returns (logits (B, V) float32, new caches)."""
+    continuous batching).  The MoE layers route the B tokens as one
+    group.  Returns (logits (B, V) float32, new caches)."""
     cfg = model.cfg
     B = tokens.shape[0]
     pos = torch.as_tensor(pos, device=tokens.device).to(torch.int64)
@@ -274,8 +431,9 @@ def decode_step(model: TransformerLM, caches: list[dict],
     return logits[:, 0].float(), new_caches
 
 
+@torch.no_grad()
 def prefill(model: TransformerLM, tokens: torch.Tensor, *, max_len: int = 0,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, moe_groups: int = 1):
     """Run the prompt through the model once, capturing per-layer caches
     (full attention over the prompt; only each layer's cache-length tail
     is kept, in rotating-slot order).  ``max_len`` (>= S) sizes the caches
@@ -292,7 +450,7 @@ def prefill(model: TransformerLM, tokens: torch.Tensor, *, max_len: int = 0,
         q_pos = torch.arange(S, device=x.device).expand(B, S)
         for layer, blk in enumerate(model.blocks):
             x, kv = apply_layer(blk, cfg, x, q_pos, _window_code(cfg, layer),
-                                capture_kv=True)
+                                capture_kv=True, moe_groups=moe_groups)
             new_caches.append(_fill_cache(caches[layer], kv, S))
         x = rms_norm(x, model.final_norm, cfg.norm_eps)
         logits = torch.einsum("bsd,dv->bsv", x[:, -1:],
@@ -308,7 +466,7 @@ def _fill_cache(cache: dict, kv: tuple, S: int) -> dict:
     start = S - T
     slots = torch.remainder(start + torch.arange(T, device=kv[0].device), L)
     out = {}
-    for name, arr in zip(("k", "v"), kv):
+    for name, arr in zip(_cache_names(cache), kv):
         upd = cache[name].clone()
         upd[:, slots] = arr[:, -T:].to(upd.dtype)
         out[name] = upd
@@ -316,7 +474,7 @@ def _fill_cache(cache: dict, kv: tuple, S: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the reference's weights
+# the reference's pytree layout
 # ---------------------------------------------------------------------------
 def _flatten(tree, prefix=()) -> dict:
     if isinstance(tree, dict):
@@ -332,51 +490,114 @@ def _flatten(tree, prefix=()) -> dict:
     return {prefix: tree}
 
 
+def reference_paths(tree) -> dict[str, object]:
+    """A nested pytree of dicts and lists (the reference's ``init_lm``
+    params or grads) as ``{"/"-joined path: leaf}``."""
+    return {"/".join(map(str, path)): leaf
+            for path, leaf in _flatten(tree).items()}
+
+
+def param_paths(model: TransformerLM) -> dict[str, tuple[str, int | None]]:
+    """Each parameter name of the port (``blocks.3.attn.wq``) -> its
+    reference pytree path (``blocks/1/attn/wq`` when layer 3 is the
+    second of group 1) and its index on that group's leading layer axis,
+    None outside the blocks (``embed``, ``mtp/block/attn/wq``, ...)."""
+    in_group = []
+    for gi, grp in enumerate(layer_groups(model.cfg)):
+        in_group += [(gi, i) for i in range(grp.count)]
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            gi, i = in_group[int(parts[1])]
+            out[name] = ("/".join(["blocks", str(gi), *parts[2:]]), i)
+        else:
+            out[name] = ("/".join(parts), None)
+    return out
+
+
+def _leaf_shapes(model: TransformerLM) -> dict[str, tuple]:
+    """Each reference path's leaf shape (with its group's layer axis)."""
+    params = dict(model.named_parameters())
+    shapes: dict[str, tuple] = {}
+    counts: dict[str, int] = {}
+    for name, (path, i) in param_paths(model).items():
+        shapes[path] = tuple(params[name].shape)
+        if i is not None:
+            counts[path] = counts.get(path, 0) + 1
+    return {path: ((counts[path],) if path in counts else ()) + shape
+            for path, shape in shapes.items()}
+
+
+def reference_leaves(model: TransformerLM) -> dict[str, torch.Tensor]:
+    """The model's parameters in the reference's pytree layout, as new
+    tensors: ``{path: tensor}``, each layer group's leaves stacked on a
+    leading layer axis."""
+    paths = param_paths(model)
+    groups: dict[str, list] = {}
+    for name, p in model.named_parameters():
+        groups.setdefault(paths[name][0], []).append((paths[name][1], p))
+    with torch.no_grad():
+        return {path: ps[0][1].detach().clone() if ps[0][0] is None
+                else torch.stack([p.detach() for _, p in ps])
+                for path, ps in groups.items()}
+
+
+def bind(model: TransformerLM, leaves: dict[str, torch.Tensor]
+         ) -> TransformerLM:
+    """A view of ``model`` whose parameters are ``leaves`` (the reference's
+    layout, :func:`reference_leaves`), each stacked leaf cut into its
+    layers; autograd through the view reaches ``leaves``.  ``model``
+    itself is left as it is."""
+    paths = param_paths(model)
+    want = {path for path, _ in paths.values()}
+    if set(leaves) != want:
+        raise ConfigError(
+            f"leaves do not match the {model.cfg.name!r} model: missing "
+            f"{sorted(want - set(leaves))}, extra {sorted(set(leaves) - want)}")
+    layers = {}
+    view = _view(model)
+    for name, (path, i) in paths.items():
+        owner, _, attr = name.rpartition(".")
+        if i is None:
+            t = leaves[path]
+        else:
+            if path not in layers:
+                layers[path] = leaves[path].unbind(0)
+            t = layers[path][i]
+        # a plain tensor where a parameter was, as torch.func does
+        view.get_submodule(owner)._parameters[attr] = t
+    return view
+
+
 def load_reference_params(model: TransformerLM, tree) -> TransformerLM:
     """Fill ``model`` from the reference's ``init_lm`` pytree given as
-    numpy arrays: ``embed``, ``final_norm``, the optional ``head``, and
+    numpy arrays: ``embed``, ``final_norm``, the optional ``head``,
     ``blocks[g]`` (stacked on a leading layer axis), unstacked onto the
-    port's blocks.  Every leaf must match the model's shape and dtype
-    exactly; a missing or extra leaf raises
-    :class:`~repro_torch.errors.ConfigError`.  Returns ``model``."""
+    port's blocks, and the optional ``mtp`` subtree.  Every leaf must
+    match the model's shape and dtype exactly; a missing or extra leaf
+    raises :class:`~repro_torch.errors.ConfigError`.  Returns ``model``."""
     cfg = model.cfg
-    want: dict = {("embed",): (model.embed, None),
-                  ("final_norm",): (model.final_norm, None)}
-    if not cfg.tie_embeddings:
-        want[("head",)] = (model.head, None)
-    layer0 = 0
-    for gi, grp in enumerate(layer_groups(cfg)):
-        names = {name for blk in model.blocks[layer0:layer0 + grp.count]
-                 for name, _ in blk.named_parameters()}
-        for name in sorted(names):
-            path = ("blocks", gi) + tuple(name.split("."))
-            want[path] = ([model.blocks[layer0 + i].get_parameter(name)
-                           for i in range(grp.count)], grp.count)
-        layer0 += grp.count
-    got = _flatten(tree)
-    missing = sorted(set(want) - set(got), key=str)
-    extra = sorted(set(got) - set(want), key=str)
+    got = reference_paths(tree)
+    shapes = _leaf_shapes(model)
+    missing = sorted(set(shapes) - set(got))
+    extra = sorted(set(got) - set(shapes))
     if missing or extra:
         raise ConfigError(
             f"reference params do not match the {cfg.name!r} model: "
-            f"missing {['/'.join(map(str, p)) for p in missing]}, "
-            f"extra {['/'.join(map(str, p)) for p in extra]}")
+            f"missing {missing}, extra {extra}")
+    params = dict(model.named_parameters())
+    for path, shape in shapes.items():
+        arr = np.asarray(got[path])
+        dtype = model.embed.dtype
+        if arr.shape != shape or torch.from_numpy(
+                np.zeros(0, arr.dtype)).dtype != dtype:
+            raise ConfigError(
+                f"reference param {path} is {arr.dtype}{arr.shape}, "
+                f"the model's is {dtype}{shape}")
+    host = {path: torch.from_numpy(np.array(got[path]))  # writable copies
+            for path in shapes}
     with torch.no_grad():
-        for path, (dst, count) in want.items():
-            arr = np.asarray(got[path])
-            name = "/".join(map(str, path))
-            shape = tuple(dst.shape) if count is None else \
-                (count,) + tuple(dst[0].shape)
-            dtype = (dst if count is None else dst[0]).dtype
-            if arr.shape != shape or torch.from_numpy(
-                    np.zeros(0, arr.dtype)).dtype != dtype:
-                raise ConfigError(
-                    f"reference param {name} is {arr.dtype}{arr.shape}, "
-                    f"the model's is {dtype}{shape}")
-            t = torch.from_numpy(np.array(arr))     # a writable copy
-            if count is None:
-                dst.copy_(t)
-            else:
-                for i, p in enumerate(dst):
-                    p.copy_(t[i])
+        for name, (path, i) in param_paths(model).items():
+            params[name].copy_(host[path] if i is None else host[path][i])
     return model

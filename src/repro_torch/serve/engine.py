@@ -10,7 +10,10 @@ preallocated at ``max_len``, so no paged KV is needed at this scale).
 Greedy decoding takes the ``argmax``; sampling draws with
 ``torch.multinomial`` on the softmax from a ``torch.Generator`` seeded
 with ``seed``, which cannot reproduce ``jax.random.categorical``'s draws
-(ROADMAP.md §3 E).  The engine runs where the model's parameters live.
+(ROADMAP.md §3 E).  The engine runs where the model's parameters live,
+with autograd off.  Like the reference it decodes every slot each step,
+idle ones too: with MoE layers an idle slot's token takes expert capacity,
+so a request's tokens can depend on what the other slots hold.
 """
 from __future__ import annotations
 
@@ -98,6 +101,7 @@ class ServeEngine:
         return torch.multinomial(torch.softmax(logits, dim=-1), 1,
                                  generator=self.generator)[:, 0].cpu().numpy()
 
+    @torch.no_grad()
     def run(self, requests: Sequence[Request]) -> list[Completion]:
         queue = list(requests)
         results: dict[int, Completion] = {}

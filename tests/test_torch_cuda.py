@@ -894,3 +894,85 @@ def test_cuda_lm_decode_matches_forward(cuda_device, monkeypatch):
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     lc, _ = T.prefill(cpu, toks[:, :16].cpu(), max_len=20, **f32)
     assert float((lc - lp.cpu()).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_cuda_moe_mla_decode_matches_forward(cuda_device, arch):
+    """The MoE (and DeepSeek-V3's MLA and MTP) smoke configs on the card in
+    float32, routed through a view at capacity factor E / K (nothing
+    dropped, so a token's output depends on itself alone): prefill and 4
+    decode steps equal ``forward``, and the card's prefill logits equal
+    the CPU's for the same weights, each within 1e-4 of the largest
+    logit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(arch).smoke_cfg
+    model = T.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    view = T.with_capacity_factor(model, cfg.moe.n_experts / cfg.moe.top_k)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 20))).cuda()
+    f32 = dict(compute_dtype=torch.float32)
+    with torch.no_grad():
+        full, h = T.forward(view, toks, **f32)
+        if cfg.mtp:
+            assert T.mtp_hidden(view, h, toks, **f32).shape == \
+                (2, 19, cfg.d_model)
+    bound = 1e-4 * float(full.abs().max())
+    lp, caches = T.prefill(view, toks[:, :16], max_len=20, **f32)
+    assert float((lp - full[:, 15]).abs().max()) <= bound
+    for pos in range(16, 20):
+        ld, caches = T.decode_step(view, caches, toks[:, pos:pos + 1], pos,
+                                   **f32)
+        assert float((ld - full[:, pos]).abs().max()) <= bound
+    cpu = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    lc, _ = T.prefill(T.with_capacity_factor(cpu, view.cfg.moe
+                                             .capacity_factor),
+                      toks[:, :16].cpu(), max_len=20, **f32)
+    assert float((lc - lp.cpu()).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_train_restart_bit_exact(cuda_device, monkeypatch, tmp_path):
+    """qwen3-0.6b's smoke config trained on the card for 8 steps with
+    deterministic algorithms: a failure injected at step 6 and the restart
+    from the step-4 checkpoint end with parameters equal bit for bit to
+    the uninterrupted run's, and the loss goes down."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.ft import FailureInjector, RestartManager
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, train
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_arch("qwen3-0.6b").smoke_cfg
+    model = T.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=32,
+                                             global_batch=4))
+
+    def loss_fn(p, b):
+        return T.lm_loss(T.bind(model, p), torch.from_numpy(b).long().cuda(),
+                         compute_dtype=torch.float32)
+
+    leaves = T.reference_leaves(model)
+    tcfg = TrainConfig(steps=8, peak_lr=1e-2, warmup=2, log_every=1,
+                       ckpt_every=4, ckpt_dir=str(tmp_path / "b"))
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        r1 = train(loss_fn, leaves, pipe.batch,
+                   TrainConfig(steps=8, peak_lr=1e-2, warmup=2, log_every=1),
+                   log_fn=lambda s: None)
+        mgr = RestartManager(max_restarts=1)
+        inj = FailureInjector((6,))
+        r2 = mgr.run(lambda resume: train(loss_fn, leaves, pipe.batch, tcfg,
+                                          injector=inj,
+                                          log_fn=lambda s: None))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert mgr.stats.restarts == 1
+    for k, a in r1.final_state.params.items():
+        assert torch.equal(a, r2.final_state.params[k]), k
+    assert r1.losses[-1][1] < r1.losses[0][1]

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone and never falls back.
 
 * ``repro_torch`` and ``chip_smoke.py`` import neither ``jax``, nor the JAX
-  package ``repro``, nor its ``benchmarks``: a fresh interpreter that
-  imports the port and runs a CPU BFS, the launcher and the bench scripts
-  has none of them in ``sys.modules``, and no source file names them.
+  package ``repro``, nor its ``benchmarks``, nor ``ml_dtypes`` (the card's
+  machine has none): a fresh interpreter that imports the port and runs a
+  CPU BFS, the launchers and the bench scripts has none of them in
+  ``sys.modules``, and no source file names them.
 * Entry points run on the card unless the caller asks for the CPU: without
   a card, ``prepare`` raises instead of quietly running on the CPU.
 * A CUDA operand goes through its kernel or the call raises: a kernel that
@@ -25,8 +26,9 @@ from repro_torch.kernels import _build, ops
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro|benchmarks)\b(?!_)|"
-                       r"from\s+(jax|repro|benchmarks)\b(?!_))", re.MULTILINE)
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro|benchmarks|ml_dtypes)\b(?!_)|"
+                       r"from\s+(jax|repro|benchmarks|ml_dtypes)\b(?!_))",
+                       re.MULTILINE)
 
 
 def test_port_process_never_loads_jax_or_reference():
@@ -82,8 +84,11 @@ def test_launcher_and_benches_never_load_jax_reference_or_benchmarks():
         "from repro_torch.launch import serve\n"
         "serve.main(['--requests', '2', '--max-new', '2', '--device',\n"
         "            'cpu'])\n"
+        "from repro_torch.launch import train\n"
+        "train.main(['--arch', 'deepseek-v3-671b', '--steps', '2',\n"
+        "            '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+        "             ('jax', 'jaxlib', 'repro', 'benchmarks', 'ml_dtypes'))\n"
         "print('LOADED', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
@@ -101,7 +106,7 @@ SCANNED = sorted(str(p.relative_to(ROOT))
 
 def test_scan_covers_the_wave_slice():
     """The scan below walks the whole package, the wave and float-channel
-    slices, the mesh bench and the LM serving tier included."""
+    slices, the mesh bench, the LM serving tier and LM training included."""
     for module in ("core/multi_source.py", "kernels/mxu_pull.py",
                    "serve/graph_session.py", "analytics/components.py",
                    "analytics/eccentricity.py", "analytics/closeness.py",
@@ -116,7 +121,11 @@ def test_scan_covers_the_wave_slice():
                    "models/layers.py", "models/transformer.py",
                    "configs/base.py", "configs/qwen3_0_6b.py",
                    "configs/gemma3_1b.py", "configs/h2o_danube_1_8b.py",
-                   "serve/engine.py", "launch/serve.py"):
+                   "serve/engine.py", "launch/serve.py",
+                   "configs/olmoe_1b_7b.py", "configs/deepseek_v3_671b.py",
+                   "data/tokens.py", "train/optim.py", "train/compression.py",
+                   "train/loop.py", "ft/checkpoint.py", "ft/manager.py",
+                   "launch/train.py"):
         assert f"src/repro_torch/{module}" in SCANNED, module
 
 
@@ -129,6 +138,7 @@ def test_no_source_imports_jax_or_reference(path):
 def test_import_pattern_catches_what_it_must():
     for bad in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                 "import repro", "from repro.core import bfs",
+                "import ml_dtypes", "from ml_dtypes import bfloat16",
                 "  from repro import prepare", "import benchmarks",
                 "from benchmarks.common import graph_suite"):
         assert FORBIDDEN.search(bad), bad
