@@ -89,7 +89,7 @@ Phases (any failure exits non-zero before the result line):
    ``python -m repro_torch.launch.bfs`` in process for every variant on a
    small road graph, each ending ``VERIFIED vs oracle``;
 8. the analytics launcher ``python -m repro_torch.launch.analytics`` in
-   process on rmat(14), every verb of its ``WHAT`` (all but ``extremes``
+   process on rmat(13), every verb of its ``WHAT`` (all but ``extremes``
    ending ``VERIFIED``; ``launch_analytics``); the paper's host Tables
    1a, 1b and 4 at the reference's sizes, their derived columns equal to
    the JAX package's (``PAPER_TABLE_DERIVED``; ``paper_tables_host``);
@@ -98,7 +98,7 @@ Phases (any failure exits non-zero before the result line):
    RMAT scale sweep at scales 14 and 16 (18 since PR 18, cut for
    phases 15-16), MTEPS and the
    ``memory_bytes`` model beside ``torch.cuda.max_memory_allocated``
-   (``bench_scale_rmat``); and ``bench_analytics.run(scale=11)``, the
+   (``bench_scale_rmat``); and ``bench_analytics.run(scale=10)``, the
    wave verbs against sequential baselines and the oracles;
 9. the hardened serving tier: ``rmat(18)`` opened once through
    ``GraphSessionManager(verify_fraction=1.0)`` (Jaccard, eager ``blest``,
@@ -136,8 +136,8 @@ Phases (any failure exits non-zero before the result line):
    to the oracle, ms per BFS and push
    levels against the defaults', and a second prepare of the class with no
    tuning run, one cache hit and no launch); ``update_edges`` on phase 4's
-   weighted session (``update_edges_rmat_18``: 256 inserts with dyadic
-   weights and 256 deletes on the patched path, 64 reweights, one insert
+   weighted session (``update_edges_rmat_18``: 128 inserts with dyadic
+   weights and 128 deletes on the patched path, 64 reweights, one insert
    that grows a slice set's VSS count on the rebuilt path; after each swap
    ``levels`` of 4 sources, a wave of 24 through 8 slots, a betweenness
    cohort of 8 and ``sssp`` against the oracles of the mutated graph; the
@@ -146,7 +146,7 @@ Phases (any failure exits non-zero before the result line):
    5's ``rmat(16)`` with ``staleness_budget=1`` (``update_reprepare_
    rmat_16``, the reprepared path); phase 9's manager, verified, an update
    then a queued drain (``update_serving_rmat_18``); and ``bench_hybrid``
-   at scale 17, the tuned hybrid against the pull-only engine, every graph
+   at scale 16, the tuned hybrid against the pull-only engine, every graph
    verified in all three directions (``bench_hybrid``);
 11. the mesh-native BFS on ``torch.distributed`` at world size 1 (one
    NCCL rank: a card holds one, so multi-card NCCL is not exercised),
@@ -241,7 +241,29 @@ Phases (any failure exits non-zero before the result line):
    ``python -m repro_torch.launch.train --arch olmoe-1b-7b`` and
    ``--arch deepseek-v3-671b`` and ``examples/torch_train_lm.py`` (its
    chaos drill) as children, each loss going down
-   (``lm_train_launchers``).  Phases 14-16 launch no hand kernel.
+   (``lm_train_launchers``);
+17. the GNN and recsys models at their ``model_cfg`` widths, float32
+   from a seed on the card with the process-wide TF32 flag on (the
+   models turn it off), each output within 1e-4 of the largest |output|
+   of the host's on the same weights and inputs: GIN-TU (5 x 64, d_in
+   1,433, 64 classes) on ``full_graph_sm``'s n and m
+   (``random_digraph(2708, 10556)``) — logits, the remat forward against
+   the plain one, 8 AdamW steps — and on a ``NeighborSampler`` minibatch
+   (fanouts (15, 10), 1,024 seeds, the reference's one-device
+   ``max_nodes`` 170,112 and ``max_edges`` 169,088) over
+   ``erdos_renyi(232965, 64)`` (cut from ``minibatch_lg``'s 114,615,892
+   edges), the sampler's seconds, logits, 4 steps and peak memory
+   (``gnn_gin_tu``); EGNN, NequIP and DimeNet on the ``molecule`` shape
+   (``molecule_batch(128, 30, 64)``, 256 triplets a graph, read with
+   ``n_graphs = 128``): energies, rotation and translation invariance
+   on the card (EGNN's coordinates equivariant) at rtol 1e-3, 8 steps,
+   graphs/s (``gnn_molecule``); FM at 39 x 2^20 rows: serve_p99 logits,
+   ``apply_fm_bags`` against ``apply_fm`` - b, serve_bulk and 1-query
+   retrieval over 1,000,000 candidates timed, 8 steps on one
+   train_batch beside their byte bound, peak memory (``recsys_fm``); and
+   ``python -m repro_torch.launch.train --arch`` for the five archs as
+   children, every loss finite (``gnn_train_launchers``).  Phases 14-17
+   launch no hand kernel.
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -1803,14 +1825,15 @@ def cli_phase(torch, card: str) -> dict:
 # RMAT scale sweep and the analytics bench
 # ---------------------------------------------------------------------------
 # cut from rmat(16), where extremes() alone took 74.6 s (PERF.md), to make
-# room for phase 10 within the script's time limit
-ANALYTICS_ARGS = ["--graph", "rmat", "--scale", "14", "--sources", "8",
+# room for phase 10 within the script's time limit (and from rmat(14) for
+# phase 17)
+ANALYTICS_ARGS = ["--graph", "rmat", "--scale", "13", "--sources", "8",
                   "--max-batch", "8", "--verify"]
 FIG3_SCALE = 12                  # clustered(64, 64); cut from 16 (PERF.md)
 SCALE_SWEEP = (14, 16)           # the RMAT scale sweep's scales (18 until
                                  # PR 24)
-ANALYTICS_BENCH_SCALE = 11       # bench_analytics' graph suite scale (12
-                                 # until PR 24)
+ANALYTICS_BENCH_SCALE = 10       # bench_analytics' graph suite scale (cut
+                                 # from 12 for phases 15-17)
 
 
 def bench_call(fn, *args, **kwargs):
@@ -1824,7 +1847,7 @@ def bench_call(fn, *args, **kwargs):
 
 def analytics_cli_phase(torch, card: str) -> dict:
     """``python -m repro_torch.launch.analytics`` in process, on the card
-    (its default device), every verb of ``WHAT`` on rmat(14): each checked
+    (its default device), every verb of ``WHAT`` on rmat(13): each checked
     verb must end in its ``VERIFIED`` suffix, through the four tiles."""
     import contextlib
     import io
@@ -2511,10 +2534,11 @@ def serve_bench_phase(torch, name: str, module, kernels: tuple,
 # ---------------------------------------------------------------------------
 # phase 10: autotuning and streaming edge updates
 # ---------------------------------------------------------------------------
-HYBRID_SCALE = 17                # bench_hybrid's suite: n = 131,072 (18
-                                 # until PR 24)
+HYBRID_SCALE = 16                # bench_hybrid's suite: n = 65,536 (cut
+                                 # from 18 for phases 15-17)
 HYBRID_REPS = 2                  # timed sweeps an engine and graph
-PATCH_EDGES = 256                # inserts, and deletes, of the patched update
+PATCH_EDGES = 128                # inserts, and deletes, of the patched
+                                 # update (cut from 256 for phase 17)
 REWEIGHTS = 64                   # existing edges of the reweight
 
 
@@ -4512,6 +4536,442 @@ def lm_train_phase(torch, rt, card: str, device: str = "cuda") -> None:
           "card": card})
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the GNN and recsys models at full width, and their training
+# ---------------------------------------------------------------------------
+GNN_STEPS = 8                    # AdamW steps a model (the minibatch's 4)
+MINIBATCH_STEPS = 4
+GNN_LR = 1e-3
+GNN_BOUND = 1e-4                 # the tolerance, a fraction of max |output|
+SAMPLER_GRAPH = (232_965, 64)    # erdos_renyi (n, degree), cut from
+                                 # minibatch_lg's 114,615,892 edges
+MOLECULE = (128, 30, 64, 256)    # graphs, max nodes, max edges, triplet cap
+RETRIEVAL_FIELDS = (20, 19)      # query and candidate fields
+RETRIEVAL_CHECKED = 10_000       # candidates checked against the host
+GNN_TRAIN_CHILDREN = {
+    f"launch_train_{arch}": ["-m", "repro_torch.launch.train", "--arch",
+                             arch]
+    for arch in ("gin-tu", "egnn", "nequip", "dimenet", "fm")}
+
+
+def check_rel(name: str, got, want) -> dict:
+    """max |got - want| on the host, which must be within the phase's
+    bound, GNN_BOUND of the largest |want|."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} against {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    bound = GNN_BOUND * float(want.abs().max())
+    if not err <= bound:
+        fail(f"{name}: {err} from the host's (bound {bound})")
+    return {"max_abs_err": err, "bound": bound}
+
+
+def warm_timed(torch, fn):
+    """``(result, wall ms)`` of a second ``fn()`` on the card, the first
+    call (cuBLAS handles, allocator growth) untimed."""
+    fn()
+    return lm_timed(torch, fn)
+
+
+def host_model(torch, build, model):
+    """``build("cpu")`` holding ``model``'s weights."""
+    cpu = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def on_device(torch, arrays: dict, device) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrays.items()}
+
+
+def timed_train(torch, loss_fn, leaves, batch_fn, steps: int) -> dict:
+    """``steps`` AdamW steps of ``train()`` at GNN_LR: the losses, ms a
+    step (one log line a step, once its loss reached the host) and the
+    median past the first step; fails unless the loss went down."""
+    from repro_torch.train import TrainConfig, train
+    stamps = [time.perf_counter()]
+    res = train(loss_fn, leaves, batch_fn,
+                TrainConfig(steps=steps, peak_lr=GNN_LR, warmup=2,
+                            log_every=1),
+                log_fn=lambda line: stamps.append(time.perf_counter()))
+    losses = [loss for _, loss in res.losses]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"training: the loss went {losses}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return {"steps": steps, "losses": losses, "step_ms": step_ms,
+            "ms_per_step": float(np.median(step_ms[1:]))}
+
+
+def gnn_phase(torch, rt, card: str, device: str = "cuda") -> None:
+    """Phase 17: GIN-TU, EGNN, NequIP, DimeNet and FM at their
+    ``model_cfg`` widths from a seed on the card, float32 with the
+    process-wide TF32 flag on (the models turn it off), each checked
+    against the host on the same weights and inputs within GNN_BOUND of
+    the largest |output|, and trained with AdamW; the train launcher for
+    the five archs' smoke configs runs as children."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    children = start_children(GNN_TRAIN_CHILDREN)
+    minibatch = sampled_minibatch(rt)
+    reset_launch_counts()
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gin_phase(torch, rt, card, device, minibatch)
+        molecule_phase(torch, rt, card, device)
+        fm_phase(torch, rt, card, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    no_hand_kernels(launch_counts(), "phase 17")
+    lines = child_lines(children, "[train] arch=")
+    for name, out in lines.items():
+        losses = [float(v) for v in out[-1].split("loss ")[1]
+                  .split(" (")[0].split(" -> ")]
+        if not np.isfinite(losses).all():
+            fail(f"{name}: the loss went {losses}")
+    emit({"phase": "gnn_train_launchers",
+          "lines": {name: out[:1] + out[-2:] for name, out in lines.items()},
+          "card": card})
+
+
+def pad_columns(feat: np.ndarray, width: int) -> np.ndarray:
+    """Features zero-padded to the model's ``d_in`` (the reference's data
+    pipeline pads a smaller ``d_feat``)."""
+    out = np.zeros((feat.shape[0], width), np.float32)
+    out[:, :feat.shape[1]] = feat
+    return out
+
+
+def sampled_minibatch(rt) -> tuple[dict, dict]:
+    """GIN-TU's ``minibatch_lg`` batch on the host: a ``NeighborSampler``
+    minibatch (fanouts (15, 10), 1,024 seeds) at the reference's
+    one-device ``max_nodes``/``max_edges`` over ``erdos_renyi`` of
+    SAMPLER_GRAPH, features of ``d_feat`` 100 gathered by node id and
+    zero-padded to ``d_in``.  Returns (the batch's arrays, its record)."""
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.data import NeighborSampler, full_graph_batch
+    cfg = get_arch("gin-tu").model_cfg
+    shape = GNN_SHAPES["minibatch_lg"]
+    n_seeds, fanout = shape.batch_nodes, shape.fanout
+    hops = int(np.cumprod(fanout).sum())
+    max_nodes = -(-(n_seeds * (1 + hops) + 8) // 128) * 128
+    max_edges = -(-(n_seeds * hops + 8) // 128) * 128
+    t0 = time.perf_counter()
+    g = rt.generators.erdos_renyi(*SAMPLER_GRAPH, seed=SEED)
+    graph_s = time.perf_counter() - t0
+    seeds = np.random.default_rng(SEED + 17).choice(g.n, n_seeds,
+                                                   replace=False)
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g, fanout, seed=SEED)
+    sb = sampler.sample(seeds, max_nodes=max_nodes, max_edges=max_edges)
+    sampler_s = time.perf_counter() - t0
+    feats = full_graph_batch(g, d_feat=shape.d_feat or 100,
+                             n_classes=cfg.n_classes, seed=SEED)
+    real = sb.node_ids[:sb.n_real_nodes]
+    node_feat = np.zeros((max_nodes + 1, cfg.d_in), np.float32)
+    node_feat[:sb.n_real_nodes] = pad_columns(feats.node_feat[real],
+                                              cfg.d_in)
+    labels = np.zeros(max_nodes + 1, np.int32)
+    labels[:sb.n_real_nodes] = feats.labels[real]
+    batch = {"node_feat": node_feat, "senders": sb.senders,
+             "receivers": sb.receivers, "labels": labels,
+             "train_mask": np.append(sb.seed_mask, False)}
+    return batch, {
+        "graph": f"erdos_renyi{SAMPLER_GRAPH}", "graph_n": g.n,
+        "graph_m": g.m, "graph_build_s": graph_s, "sampler_s": sampler_s,
+        "seeds": n_seeds, "fanouts": list(fanout), "max_nodes": max_nodes,
+        "max_edges": max_edges, "real_nodes": sb.n_real_nodes,
+        "real_edges": sb.n_real_edges, "node_feat_bytes": node_feat.nbytes,
+        "reduced": {"minibatch_lg": f"{shape.n_edges:,} edges of Reddit's "
+                                    f"{shape.n_nodes:,} nodes -> "
+                                    f"erdos_renyi degree {SAMPLER_GRAPH[1]}"
+                                    f" (both fanout caps bind as there)"}}
+
+
+def gin_phase(torch, rt, card: str, device: str, minibatch: tuple) -> None:
+    """GIN-TU's ``model_cfg`` (5 x 64, d_in 1,433, 64 classes) on
+    ``full_graph_sm`` (n 2,708, m 10,556) and on ``minibatch``
+    (:func:`sampled_minibatch`)."""
+    import dataclasses
+    from repro_torch.configs import GNN_SHAPES, get_arch
+    from repro_torch.configs.families import gnn_init, gnn_single_loss
+    from repro_torch.data import full_graph_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.models import transformer as T
+    arch = get_arch("gin-tu")
+    cfg = arch.model_cfg
+    build = lambda dev: gnn_init(arch, torch.Generator(device=dev)
+                                 .manual_seed(SEED), dev)
+    model = build(device)
+    cpu = host_model(torch, build, model)
+    pbytes = param_bytes(model)
+    loss1 = gnn_single_loss(arch, remat=False)
+
+    def loss_fn(params, b):
+        return loss1(T.bind(model, params), b)
+
+    def forward(m, b, **kw):
+        return G.apply_gin(m, cfg, b["node_feat"], b["senders"],
+                           b["receivers"], **kw)
+
+    # full graph: full_graph_sm's n and m, random edges from the seed
+    shape = GNN_SHAPES["full_graph_sm"]
+    g = rt.generators.random_digraph(shape.n_nodes, shape.n_edges, seed=SEED)
+    fb = dataclasses.asdict(full_graph_batch(g, d_feat=shape.d_feat,
+                                             n_classes=cfg.n_classes,
+                                             seed=SEED))
+    fb["node_feat"] = pad_columns(fb["node_feat"], cfg.d_in)
+    b, hb = on_device(torch, fb, device), on_device(torch, fb, "cpu")
+    with torch.no_grad():
+        logits, ms = warm_timed(torch, lambda: forward(model, b))
+        full = {"vs_host": check_rel("gin full graph", logits,
+                                     forward(cpu, hb)),
+                "forward_ms": ms}
+    with torch.enable_grad():
+        remat = forward(model, b, remat=True)
+    full["remat_vs_plain"] = check_rel("gin remat", remat, logits)
+    full.update(timed_train(torch, loss_fn, T.reference_leaves(model),
+                            lambda step: b, GNN_STEPS))
+    full.update(n=g.n, m=g.m, d_feat=shape.d_feat)
+    del b, remat, logits
+
+    mb, mini = minibatch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = on_device(torch, mb, device)
+    with torch.no_grad():
+        logits, ms = warm_timed(torch, lambda: forward(model, b))
+        mini.update(vs_host=check_rel("gin minibatch", logits, forward(
+            cpu, on_device(torch, mb, "cpu"))), forward_ms=ms)
+    del logits
+    mini.update(timed_train(torch, loss_fn, T.reference_leaves(model),
+                            lambda step: b, MINIBATCH_STEPS))
+    mini["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "gnn_gin_tu", "arch": "gin-tu", "n_layers": cfg.n_layers,
+          "d_hidden": cfg.d_hidden, "d_in": cfg.d_in,
+          "n_classes": cfg.n_classes, "params": pbytes // 4,
+          "param_bytes": pbytes, "dtype": "float32",
+          "matmul_allow_tf32_caller": True,
+          "where": "repro_torch.models.transformer.float32_matmuls",
+          "full_graph_sm": full, "minibatch_lg": mini,
+          "hand_kernel_launches": 0, "card": card})
+    del model, cpu, b
+    torch.cuda.empty_cache()
+
+
+def random_rotation(rng) -> np.ndarray:
+    """A seeded rotation (det +1) from the QR of a normal matrix."""
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))[None, :]
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q.astype(np.float32)
+
+
+def molecule_phase(torch, rt, card: str, device: str) -> None:
+    """EGNN, NequIP and DimeNet at their ``model_cfg`` widths on the
+    ``molecule`` shape (128 graphs of at most 30 nodes and 64 edges, 256
+    triplets a graph), read with ``n_graphs = 128``: energies against the
+    host, rotation and translation invariance on the card (EGNN's
+    coordinates equivariant), GNN_STEPS AdamW steps."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.families import gnn_init, gnn_single_loss
+    from repro_torch.data import molecule_batch
+    from repro_torch.models import dimenet as DM
+    from repro_torch.models import gnn as G
+    from repro_torch.models import nequip as NQ
+    from repro_torch.models import transformer as T
+    B, max_n, max_e, t_cap = MOLECULE
+    mb = molecule_batch(B, max_n, max_e, triplet_cap_per_graph=t_cap,
+                        seed=SEED)
+    rng = np.random.default_rng(SEED + 171)
+    R, shift = random_rotation(rng), rng.normal(size=3).astype(np.float32)
+    moved = mb.pos.copy()
+    moved[:-1] = mb.pos[:-1] @ R.T + shift
+    base = {"species": mb.species, "senders": mb.senders,
+            "receivers": mb.receivers, "graph_ids": mb.graph_ids,
+            "targets": mb.targets, "t_kj": mb.t_kj, "t_ji": mb.t_ji}
+    rows = {}
+    for arch_id in ("egnn", "nequip", "dimenet"):
+        arch = get_arch(arch_id)
+        cfg = dataclasses.replace(arch.model_cfg, n_graphs=B)
+        arch = dataclasses.replace(arch, model_cfg=cfg)
+        build = lambda dev: gnn_init(arch, torch.Generator(device=dev)
+                                     .manual_seed(SEED), dev)
+        model = build(device)
+        cpu = host_model(torch, build, model)
+
+        def batch(pos, dev):
+            b = on_device(torch, {**base, "pos": pos}, dev)
+            if arch.gnn_kind == "egnn":
+                b["node_feat"] = G.one_hot(b.pop("species") % cfg.d_in,
+                                           cfg.d_in)
+            return b
+
+        def energy(m, b):
+            if arch.gnn_kind == "egnn":
+                return G.apply_egnn(m, cfg, b["node_feat"], b["pos"],
+                                    b["senders"], b["receivers"],
+                                    b["graph_ids"])
+            if arch.gnn_kind == "nequip":
+                return NQ.apply_nequip(m, cfg, b["species"], b["pos"],
+                                       b["senders"], b["receivers"],
+                                       b["graph_ids"])
+            return DM.apply_dimenet(m, cfg, b["species"], b["pos"],
+                                    b["senders"], b["receivers"], b["t_kj"],
+                                    b["t_ji"], b["graph_ids"])
+
+        b = batch(mb.pos, device)
+        with torch.no_grad():
+            out, ms = warm_timed(torch, lambda: energy(model, b))
+            host = energy(cpu, batch(mb.pos, "cpu"))
+            moved_out = energy(model, batch(moved, device))
+        e, e_host, e_moved = [o[0] if isinstance(o, tuple) else o
+                              for o in (out, host, moved_out)]
+        if e.shape != (B,):
+            fail(f"{arch_id}: energies of shape {tuple(e.shape)}")
+        row = {"vs_host": check_rel(f"{arch_id} energies", e, e_host),
+               "forward_ms": ms}
+        # the reference tests' rtol and atol, and the same rtol of the
+        # largest |E| (NequIP's energies at its initialisation are far
+        # below the atol)
+        inv = (e_moved - e).abs()
+        rel = float(inv.max()) / float(e.abs().max())
+        if not (bool((inv <= 1e-5 + 1e-3 * e.abs()).all()) and rel <= 1e-3):
+            fail(f"{arch_id}: not rotation invariant (max |dE| "
+                 f"{float(inv.max())}, {rel} of the largest |E|)")
+        row["rotation"] = {"max_abs_diff": float(inv.max()),
+                           "of_max_abs_energy": rel,
+                           "max_abs_energy": float(e.abs().max()),
+                           "rtol": 1e-3, "atol": 1e-5}
+        if arch.gnn_kind == "egnn":
+            # the rotated coordinates on the host: the process runs its
+            # own matmuls in TF32 here
+            x, x_moved = out[1][:-1].cpu(), moved_out[1][:-1].cpu()
+            want = x @ torch.from_numpy(R.T) + torch.from_numpy(shift)
+            dx = (x_moved - want).abs()
+            if not bool((dx <= 1e-3 + 1e-3 * want.abs()).all()):
+                fail(f"egnn: coordinates not equivariant (max "
+                     f"{float(dx.max())})")
+            row["equivariance"] = {"max_abs_diff": float(dx.max()),
+                                   "max_abs_coordinate":
+                                       float(want.abs().max()),
+                                   "rtol": 1e-3, "atol": 1e-3}
+        loss1 = gnn_single_loss(arch, remat=False)
+        row.update(timed_train(
+            torch, lambda p, bb: loss1(T.bind(model, p), bb),
+            T.reference_leaves(model), lambda step: b, GNN_STEPS))
+        row["graphs_per_s"] = B / (row["ms_per_step"] / 1e3)
+        row.update(params=param_bytes(model) // 4,
+                   cfg={k: v for k, v in dataclasses.asdict(cfg).items()
+                        if k != "name"})
+        rows[arch_id] = row
+        del model, cpu, b
+    emit({"phase": "gnn_molecule", "batch": B, "max_nodes": max_n,
+          "max_edges": max_e, "triplet_cap_per_graph": t_cap,
+          "n_graphs_read": B, "dtype": "float32",
+          "live_triplets": int(((mb.t_kj < len(mb.senders))
+                                & (mb.t_ji < len(mb.senders))).sum()),
+          "live_edges": int((mb.senders < len(mb.species) - 1).sum()),
+          "models": rows, "hand_kernel_launches": 0, "card": card})
+    torch.cuda.empty_cache()
+
+
+def fm_phase(torch, rt, card: str, device: str) -> None:
+    """FM at full width (39 fields x 2^20 rows, k = 10) from a seed on the
+    card at ``REC_SHAPES``' batches: serve_p99's logits against the host,
+    ``apply_fm_bags`` against ``apply_fm`` - b, serve_bulk timed,
+    retrieval of 1 query against 1,000,000 candidates timed (its first
+    RETRIEVAL_CHECKED against the host), GNN_STEPS AdamW steps on one
+    train_batch beside their byte bound, and peak memory."""
+    from repro_torch.configs import REC_SHAPES, get_arch
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import fm as FM
+    from repro_torch.models import transformer as T
+    cfg = get_arch("fm").model_cfg
+    torch.cuda.reset_peak_memory_stats()
+    model = FM.init_fm(cfg, torch.Generator(device=device).manual_seed(SEED),
+                       device)
+    pbytes = param_bytes(model)
+    host = T.bind(model, {k: v.detach().cpu()
+                          for k, v in T.reference_leaves(model).items()})
+    rng = np.random.default_rng(SEED + 172)
+    out = {}
+    with torch.no_grad():
+        B = REC_SHAPES["serve_p99"].batch
+        ids, _ = recsys_batch(B, cfg.n_fields, cfg.rows_per_field, seed=SEED)
+        tids = torch.from_numpy(ids).to(device)
+        logits, ms = warm_timed(torch, lambda: FM.apply_fm(model, cfg,
+                                                           tids))
+        out["serve_p99"] = {"batch": B, "ms": ms, "vs_host": check_rel(
+            "fm serve_p99", logits, FM.apply_fm(host, cfg,
+                                                torch.from_numpy(ids)))}
+        rows = FM._flatten_ids(cfg, tids).reshape(-1)
+        bags = FM.apply_fm_bags(model, cfg, rows, torch.arange(
+            rows.numel(), device=device), rows.numel())
+        out["bags"] = {"batch": B, "b": float(model.b),
+                       "vs_apply_fm_minus_b": check_rel(
+                           "fm bags", bags, logits - model.b)}
+        B = REC_SHAPES["serve_bulk"].batch
+        ids, _ = recsys_batch(B, cfg.n_fields, cfg.rows_per_field,
+                              seed=SEED + 1)
+        tids = torch.from_numpy(ids).to(device)
+        samples = [lm_timed(torch, lambda: FM.apply_fm(model, cfg, tids))[1]
+                   for _ in range(5)]
+        ms = float(np.median(samples[1:]))
+        out["serve_bulk"] = {"batch": B, "ms": ms, "samples_ms": samples,
+                             "examples_per_s": B / (ms / 1e3)}
+        fq, fc = RETRIEVAL_FIELDS
+        n_cand = REC_SHAPES["retrieval_cand"].n_candidates
+        q = rng.integers(0, cfg.rows_per_field, fq).astype(np.int32)
+        c = rng.integers(0, cfg.rows_per_field, (n_cand, fc)).astype(np.int32)
+        tq, tc = torch.from_numpy(q).to(device), torch.from_numpy(c).to(device)
+        samples = [lm_timed(torch, lambda: FM.fm_retrieval_scores(
+            model, cfg, tq, tc)) for _ in range(5)]
+        scores = samples[0][0]
+        ms = float(np.median([s for _, s in samples[1:]]))
+        out["retrieval_cand"] = {
+            "query_fields": fq, "candidate_fields": fc,
+            "candidates": n_cand, "ms": ms,
+            "samples_ms": [s for _, s in samples],
+            "candidates_per_s": n_cand / (ms / 1e3),
+            "vs_host": check_rel("fm retrieval", scores[:RETRIEVAL_CHECKED],
+                                 FM.fm_retrieval_scores(
+                                     host, cfg, torch.from_numpy(q),
+                                     torch.from_numpy(
+                                         c[:RETRIEVAL_CHECKED])))}
+        del scores, samples, tc, tids
+    del host
+    B = REC_SHAPES["train_batch"].batch
+    ids, labels = recsys_batch(B, cfg.n_fields, cfg.rows_per_field,
+                               seed=SEED + 2)
+    batch = on_device(torch, {"ids": ids, "labels": labels}, device)
+    train = timed_train(
+        torch, lambda p, b: FM.fm_loss(T.bind(model, p), cfg, b["ids"],
+                                       b["labels"]),
+        T.reference_leaves(model), lambda step: batch, GNN_STEPS)
+    n_params = pbytes // 4
+    # the least bytes a step moves: the zeroed dense gradient written,
+    # AdamW's reads of parameters, gradient and two moments and writes of
+    # parameters and moments, float32
+    step_bytes = 8 * n_params * 4
+    train.update(batch=B, step_bytes=step_bytes,
+                 bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                 examples_per_s=B / (train["ms_per_step"] / 1e3))
+    out["train_batch"] = train
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "recsys_fm", "arch": "fm", "n_fields": cfg.n_fields,
+          "rows_per_field": cfg.rows_per_field, "embed_dim": cfg.embed_dim,
+          "params": n_params, "param_bytes": pbytes, "dtype": "float32",
+          **out, "max_memory_allocated": peak,
+          "memory_over_params": peak / pbytes,
+          "hand_kernel_launches": 0, "card": card})
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import os
     # cuBLAS's deterministic workspace, for phase 16's bit-exact restart
@@ -4794,6 +5254,8 @@ def main() -> None:
     # phase 15: MoE, MLA and MTP at full width; phase 16: LM training
     lm_moe_mla_phase(torch, rt, card)
     lm_train_phase(torch, rt, card)
+    # phase 17: the GNN and recsys models at full width (no BFS kernel)
+    gnn_phase(torch, rt, card)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",

@@ -1,8 +1,11 @@
-"""Arch config registry of the port, a copy of ``repro/configs`` over the
-ported (LM) architectures."""
+"""Arch config registry of the port, a copy of ``repro/configs`` over all
+ten architectures, and the GNN initialisers and losses of
+``repro/configs/families.py``."""
 from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, REC_SHAPES,
-                                      ArchSpec, all_archs, get_arch,
-                                      list_archs)
+                                      ArchSpec, GNNShape, LMShape, RecShape,
+                                      all_archs, get_arch, list_archs)
+from repro_torch.configs.families import gnn_init, gnn_single_loss
 
-__all__ = ["ArchSpec", "GNN_SHAPES", "LM_SHAPES", "REC_SHAPES", "all_archs",
-           "get_arch", "list_archs"]
+__all__ = ["ArchSpec", "GNNShape", "GNN_SHAPES", "LMShape", "LM_SHAPES",
+           "RecShape", "REC_SHAPES", "all_archs", "get_arch", "gnn_init",
+           "gnn_single_loss", "list_archs"]

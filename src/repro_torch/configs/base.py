@@ -2,18 +2,18 @@
 
 Every ported architecture gets one module in this package exposing an
 ``ARCH: ArchSpec``.  ``get_arch(id)`` / ``list_archs()`` are the CLI entry
-points (``--arch <id>``).  The port has the reference's five LMs (the
-dense GQA ones, OLMoE's MoE and DeepSeek-V3's MLA, MoE and MTP); its GNN
-and recsys architectures raise :class:`~repro_torch.errors.ConfigError`
-naming the ROADMAP.md item that ports them.
+points (``--arch <id>``).  The port has all ten of the reference's
+architectures: five LMs (the dense GQA ones, OLMoE's MoE and DeepSeek-V3's
+MLA, MoE and MTP), four GNNs (GIN, EGNN, NequIP, DimeNet) and the FM
+recommender.  The reference's dry-run builders (``configs/families.py``'s
+cells) belong to the model mesh (ROADMAP.md queue 1 item 13e); the port's
+``families.py`` holds the GNN initialisers and losses alone.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Any
-
-from repro_torch.errors import ConfigError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,19 +64,14 @@ class ArchSpec:
     notes: str = ""
 
 
-_ARCH_MODULES = ["olmoe_1b_7b", "deepseek_v3_671b", "qwen3_0_6b",
-                 "gemma3_1b", "h2o_danube_1_8b"]
-
-#: the reference's architectures not ported yet, and the ROADMAP.md queue 1
-#: item that ports each
-UNPORTED = {
-    "dimenet": "13d", "gin-tu": "13d", "nequip": "13d", "egnn": "13d",
-    "fm": "13d",
-}
+_ARCH_MODULES = [
+    "olmoe_1b_7b", "deepseek_v3_671b", "qwen3_0_6b", "gemma3_1b",
+    "h2o_danube_1_8b", "dimenet", "gin_tu", "nequip", "egnn", "fm",
+]
 
 
 def list_archs() -> list[str]:
-    """The ported architectures' ids."""
+    """Every architecture's id, in the reference's order."""
     return [importlib.import_module(f"repro_torch.configs.{m}").ARCH.id
             for m in _ARCH_MODULES]
 
@@ -86,10 +81,6 @@ def get_arch(arch_id: str) -> ArchSpec:
         mod = importlib.import_module(f"repro_torch.configs.{m}")
         if mod.ARCH.id == arch_id:
             return mod.ARCH
-    if arch_id in UNPORTED:
-        raise ConfigError(
-            f"arch {arch_id!r} is not ported to PyTorch yet (ROADMAP.md "
-            f"queue 1 item {UNPORTED[arch_id]}); ported: {list_archs()}")
     raise KeyError(f"unknown arch {arch_id!r}; known: {list_archs()}")
 
 

@@ -1,4 +1,4 @@
-"""Training launcher, the LM half of ``repro/launch/train.py``::
+"""Training launcher, the port of ``repro/launch/train.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --steps 50 --ckpt-dir /tmp/ckpt [--device cpu]
@@ -6,26 +6,38 @@
 It runs an arch's smoke config (``--smoke`` is on and, as in the
 reference, cannot be turned off; the full widths run through
 :func:`repro_torch.train.train` directly) with the whole substrate: the
-deterministic token pipeline, AdamW, checkpoint/restart, the
+deterministic data (the token pipeline for an LM; for a GNN one
+full-graph batch of ``rmat(9)`` for GIN and molecule batches of
+``--batch`` graphs, made anew each step, for EGNN, NequIP and DimeNet;
+Criteo-like batches for FM), AdamW, checkpoint/restart, the
 straggler-tolerant prefetch and, with ``--fail-at``, an injected failure
 (the chaos drill).  The model is initialised from ``--seed`` (no weights
 are fetched) and trains in float32 on the CUDA card unless ``--device
 cpu`` asks for the CPU; without a card the default raises
-:class:`~repro_torch.errors.ConfigError`.  The GNN and recsys families
-are ROADMAP.md queue 1 item 13d.
+:class:`~repro_torch.errors.ConfigError`.
+
+As in the reference, a molecule batch's graph ids run 0 .. B-1 while the
+smoke configs read ``n_graphs = 1`` energies: the loss compares graph
+0's energy with every graph's target (PERF.md §7).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
 from repro_torch.configs.base import get_arch
+from repro_torch.configs.families import gnn_init, gnn_single_loss
 from repro_torch.core.bvss import resolve_device
 from repro_torch.data import TokenPipeline, TokenPipelineConfig
-from repro_torch.errors import ConfigError
+from repro_torch.data.graphs import (full_graph_batch, molecule_batch,
+                                     recsys_batch)
 from repro_torch.ft.manager import FailureInjector, RestartManager
+from repro_torch.graphs import generators as gen
+from repro_torch.models import fm as FM
 from repro_torch.models import transformer as T
+from repro_torch.models.gnn import one_hot
 from repro_torch.train import TrainConfig, train
 
 
@@ -43,6 +55,64 @@ def lm_setup(cfg, args, device):
                          compute_dtype=torch.float32, remat=False)
 
     return T.reference_leaves(model), loss_fn, pipe.batch
+
+
+def _tensors(arrays: dict, device) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def gnn_setup(arch, cfg, args, device):
+    """(params in the reference's layout, loss_fn, batch_fn) of a GNN
+    arch: GIN on one full-graph batch, the others on molecule batches
+    made anew each step (deterministic in the step)."""
+    arch = dataclasses.replace(arch, model_cfg=cfg)
+    model = gnn_init(arch, torch.Generator(device=device).manual_seed(
+        args.seed), device)
+    loss1 = gnn_single_loss(arch, remat=False)
+
+    def loss_fn(params, batch):
+        return loss1(T.bind(model, params), batch)
+
+    if arch.gnn_kind == "gin":
+        g = gen.rmat(9, 8, seed=args.seed)
+        fb = full_graph_batch(g, cfg.d_in, cfg.n_classes, seed=args.seed)
+        batch = _tensors(dataclasses.asdict(fb), device)
+        return T.reference_leaves(model), loss_fn, lambda step: batch
+
+    def batch_fn(step):
+        mb = molecule_batch(args.batch, 12, 32,
+                            n_species=getattr(cfg, "n_species", 8),
+                            seed=args.seed * 100_003 + step)
+        b = _tensors({"species": mb.species, "pos": mb.pos,
+                      "senders": mb.senders, "receivers": mb.receivers,
+                      "graph_ids": mb.graph_ids, "targets": mb.targets},
+                     device)
+        if arch.gnn_kind == "dimenet":
+            b.update(_tensors({"t_kj": mb.t_kj, "t_ji": mb.t_ji}, device))
+        if arch.gnn_kind == "egnn":
+            b["node_feat"] = one_hot(b.pop("species") % cfg.d_in, cfg.d_in)
+        return b
+
+    return T.reference_leaves(model), loss_fn, batch_fn
+
+
+def rec_setup(cfg, args, device):
+    """(params in the reference's layout, loss_fn, batch_fn) of FM on
+    Criteo-like batches of ``--batch`` examples."""
+    model = FM.init_fm(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), device)
+
+    def batch_fn(step):
+        ids, labels = recsys_batch(args.batch, cfg.n_fields,
+                                   cfg.rows_per_field,
+                                   seed=args.seed * 7 + step)
+        return _tensors({"ids": ids, "labels": labels}, device)
+
+    def loss_fn(params, batch):
+        return FM.fm_loss(T.bind(model, params), cfg, batch["ids"],
+                          batch["labels"])
+
+    return T.reference_leaves(model), loss_fn, batch_fn
 
 
 def main(argv=None):
@@ -63,12 +133,13 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
-    if arch.family != "lm":
-        raise ConfigError(
-            f"training the {arch.family} family is not ported to PyTorch "
-            f"yet (ROADMAP.md queue 1 item 13d)")
     cfg = arch.smoke_cfg if args.smoke else arch.model_cfg
-    params, loss_fn, batch_fn = lm_setup(cfg, args, device)
+    if arch.family == "lm":
+        params, loss_fn, batch_fn = lm_setup(cfg, args, device)
+    elif arch.family == "gnn":
+        params, loss_fn, batch_fn = gnn_setup(arch, cfg, args, device)
+    else:
+        params, loss_fn, batch_fn = rec_setup(cfg, args, device)
     n_params = sum(p.numel() for p in params.values())
     print(f"[train] arch={arch.id} family={arch.family} params={n_params:,}")
 

@@ -175,12 +175,7 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, generator: torch.Generator,
                  device=None):
         super().__init__()
-        device = resolve_device(device)
-        if generator.device.type != device.type:
-            raise ConfigError(
-                f"the generator is on {generator.device}, the model on "
-                f"{device}: draw the weights from a generator on the "
-                f"model's device")
+        device = model_device(generator, device)
         self.cfg = cfg
         self.embed = nn.Parameter(dense_init(
             generator, (cfg.vocab, cfg.d_model), cfg.d_model, device))
@@ -209,10 +204,32 @@ def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
     for the CPU; with no card the default raises
     :class:`~repro_torch.errors.ConfigError`), its weights drawn from
     ``generator`` (a fresh seed-0 generator on that device when None)."""
+    return TransformerLM(cfg, *init_generator(generator, device))
+
+
+def model_device(generator: torch.Generator, device) -> torch.device:
+    """The device a model's constructor draws its weights on: ``device``
+    (the card when None; no card is a
+    :class:`~repro_torch.errors.ConfigError`), which must be
+    ``generator``'s."""
+    device = resolve_device(device)
+    if generator.device.type != device.type:
+        raise ConfigError(
+            f"the generator is on {generator.device}, the model on "
+            f"{device}: draw the weights from a generator on the "
+            f"model's device")
+    return device
+
+
+def init_generator(generator: torch.Generator | None, device
+                   ) -> tuple[torch.Generator, torch.device]:
+    """An ``init_*`` entry point's (generator, device): the card unless
+    the caller asks for the CPU, and a fresh seed-0 generator there when
+    ``generator`` is None."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return TransformerLM(cfg, generator, device)
+    return generator, device
 
 
 def _view(module: nn.Module) -> nn.Module:
@@ -497,18 +514,23 @@ def reference_paths(tree) -> dict[str, object]:
             for path, leaf in _flatten(tree).items()}
 
 
-def param_paths(model: TransformerLM) -> dict[str, tuple[str, int | None]]:
+def param_paths(model: nn.Module) -> dict[str, tuple[str, int | None]]:
     """Each parameter name of the port (``blocks.3.attn.wq``) -> its
     reference pytree path (``blocks/1/attn/wq`` when layer 3 is the
     second of group 1) and its index on that group's leading layer axis,
-    None outside the blocks (``embed``, ``mtp/block/attn/wq``, ...)."""
+    None outside the blocks (``embed``, ``mtp/block/attn/wq``, ...).  A
+    model with no stacked layer groups (the GNN and recsys models of
+    ``repro_torch.models``, whose reference pytrees keep a list of layer
+    dicts) maps each name to itself, ``/`` for ``.``
+    (``layers.0.mlp.w1`` -> ``layers/0/mlp/w1``)."""
     in_group = []
-    for gi, grp in enumerate(layer_groups(model.cfg)):
-        in_group += [(gi, i) for i in range(grp.count)]
+    if isinstance(model, TransformerLM):
+        for gi, grp in enumerate(layer_groups(model.cfg)):
+            in_group += [(gi, i) for i in range(grp.count)]
     out = {}
     for name, _ in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":
+        if in_group and parts[0] == "blocks":
             gi, i = in_group[int(parts[1])]
             out[name] = ("/".join(["blocks", str(gi), *parts[2:]]), i)
         else:
@@ -516,7 +538,7 @@ def param_paths(model: TransformerLM) -> dict[str, tuple[str, int | None]]:
     return out
 
 
-def _leaf_shapes(model: TransformerLM) -> dict[str, tuple]:
+def _leaf_shapes(model: nn.Module) -> dict[str, tuple]:
     """Each reference path's leaf shape (with its group's layer axis)."""
     params = dict(model.named_parameters())
     shapes: dict[str, tuple] = {}
@@ -529,7 +551,7 @@ def _leaf_shapes(model: TransformerLM) -> dict[str, tuple]:
             for path, shape in shapes.items()}
 
 
-def reference_leaves(model: TransformerLM) -> dict[str, torch.Tensor]:
+def reference_leaves(model: nn.Module) -> dict[str, torch.Tensor]:
     """The model's parameters in the reference's pytree layout, as new
     tensors: ``{path: tensor}``, each layer group's leaves stacked on a
     leading layer axis."""
@@ -543,8 +565,7 @@ def reference_leaves(model: TransformerLM) -> dict[str, torch.Tensor]:
                 for path, ps in groups.items()}
 
 
-def bind(model: TransformerLM, leaves: dict[str, torch.Tensor]
-         ) -> TransformerLM:
+def bind(model: nn.Module, leaves: dict[str, torch.Tensor]) -> nn.Module:
     """A view of ``model`` whose parameters are ``leaves`` (the reference's
     layout, :func:`reference_leaves`), each stacked leaf cut into its
     layers; autograd through the view reaches ``leaves``.  ``model``
@@ -570,13 +591,15 @@ def bind(model: TransformerLM, leaves: dict[str, torch.Tensor]
     return view
 
 
-def load_reference_params(model: TransformerLM, tree) -> TransformerLM:
-    """Fill ``model`` from the reference's ``init_lm`` pytree given as
-    numpy arrays: ``embed``, ``final_norm``, the optional ``head``,
-    ``blocks[g]`` (stacked on a leading layer axis), unstacked onto the
-    port's blocks, and the optional ``mtp`` subtree.  Every leaf must
-    match the model's shape and dtype exactly; a missing or extra leaf
-    raises :class:`~repro_torch.errors.ConfigError`.  Returns ``model``."""
+def load_reference_params(model: nn.Module, tree) -> nn.Module:
+    """Fill ``model`` from the reference's init pytree given as numpy
+    arrays (``init_lm``'s, or a GNN or recsys model's ``init_*``): for an
+    LM ``embed``, ``final_norm``, the optional ``head``, ``blocks[g]``
+    (stacked on a leading layer axis), unstacked onto the port's blocks,
+    and the optional ``mtp`` subtree; for another model each leaf at its
+    :func:`param_paths` path.  Every leaf must match the model's shape and
+    dtype exactly; a missing or extra leaf raises
+    :class:`~repro_torch.errors.ConfigError`.  Returns ``model``."""
     cfg = model.cfg
     got = reference_paths(tree)
     shapes = _leaf_shapes(model)
@@ -587,14 +610,15 @@ def load_reference_params(model: TransformerLM, tree) -> TransformerLM:
             f"reference params do not match the {cfg.name!r} model: "
             f"missing {missing}, extra {extra}")
     params = dict(model.named_parameters())
+    dtypes = {path: params[name].dtype
+              for name, (path, _) in param_paths(model).items()}
     for path, shape in shapes.items():
         arr = np.asarray(got[path])
-        dtype = model.embed.dtype
         if arr.shape != shape or torch.from_numpy(
-                np.zeros(0, arr.dtype)).dtype != dtype:
+                np.zeros(0, arr.dtype)).dtype != dtypes[path]:
             raise ConfigError(
                 f"reference param {path} is {arr.dtype}{arr.shape}, "
-                f"the model's is {dtype}{shape}")
+                f"the model's is {dtypes[path]}{shape}")
     host = {path: torch.from_numpy(np.array(got[path]))  # writable copies
             for path in shapes}
     with torch.no_grad():

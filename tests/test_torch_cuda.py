@@ -976,3 +976,129 @@ def test_cuda_train_restart_bit_exact(cuda_device, monkeypatch, tmp_path):
     for k, a in r1.final_state.params.items():
         assert torch.equal(a, r2.final_state.params[k]), k
     assert r1.losses[-1][1] < r1.losses[0][1]
+
+
+def gnn_forward(arch_id: str, model, device):
+    """The forward of ``arch_id``'s smoke config on the launcher's kind of
+    batch (molecule batches read every graph's energy), on ``device``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import full_graph_batch, molecule_batch, \
+        recsys_batch
+    from repro_torch.models import dimenet, fm, gnn, nequip
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_cfg
+
+    def on(*arrays):
+        return [torch.from_numpy(a).to(device) for a in arrays]
+
+    if arch.family == "recsys":
+        ids, _ = recsys_batch(64, cfg.n_fields, cfg.rows_per_field, seed=1)
+        return fm.apply_fm(model, cfg, *on(ids))
+    if arch.gnn_kind == "gin":
+        fb = full_graph_batch(repro_torch.generators.rmat(7, 6, seed=1),
+                              cfg.d_in, cfg.n_classes, seed=1)
+        return gnn.apply_gin(model, cfg, *on(fb.node_feat, fb.senders,
+                                             fb.receivers))
+    mb = molecule_batch(4, 12, 32, n_species=getattr(cfg, "n_species", 8),
+                        seed=1)
+    cfg = dataclasses.replace(cfg, n_graphs=4)
+    pos, s, r, gids = on(mb.pos, mb.senders, mb.receivers, mb.graph_ids)
+    if arch.gnn_kind == "egnn":
+        (species,) = on(mb.species)
+        feat = gnn.one_hot(species % cfg.d_in, cfg.d_in)
+        e, x = gnn.apply_egnn(model, cfg, feat, pos, s, r, gids)
+        return torch.cat([e, x.reshape(-1)])
+    (species,) = on(mb.species)
+    if arch.gnn_kind == "nequip":
+        return nequip.apply_nequip(model, cfg, species, pos, s, r, gids)
+    return dimenet.apply_dimenet(model, cfg, species, pos, s, r,
+                                 *on(mb.t_kj, mb.t_ji), gids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gin-tu", "egnn", "nequip", "dimenet",
+                                  "fm"])
+def test_cuda_gnn_recsys_forward_equals_cpu(cuda_device, monkeypatch, arch):
+    """Each GNN and recsys smoke model on the card in float32, with TF32
+    turned on for the process (the models turn it off), against the CPU
+    on the same weights and inputs: within 1e-4 of the largest |output|."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.families import gnn_init
+    from repro_torch.models import fm
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    spec = get_arch(arch)
+
+    def build(device):
+        gen = torch.Generator(device=device).manual_seed(0)
+        if spec.family == "recsys":
+            return fm.init_fm(spec.smoke_cfg, gen, device)
+        return gnn_init(dataclasses.replace(spec, model_cfg=spec.smoke_cfg),
+                        gen, device)
+
+    model, cpu = build("cuda"), build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        got = gnn_forward(arch, model, "cuda")
+        want = gnn_forward(arch, cpu, "cpu")
+    assert got.is_cuda and torch.isfinite(got).all()
+    bound = 1e-4 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_drops_out_of_range_ids(cuda_device):
+    """``segment_sum`` on the card drops ids outside [0, num), as on the
+    CPU (no device assert), values and gradients."""
+    from repro_torch.models.gnn import segment_sum
+    ids = torch.tensor([0, 1, 5, -1, 6, 11, 2, 2, 5, -3], dtype=torch.int32)
+    vals = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(10, 3)).astype(np.float32))
+    want = segment_sum(vals, ids, 6)
+    v = vals.cuda().requires_grad_(True)
+    got = segment_sum(v, ids.cuda(), 6)
+    torch.testing.assert_close(got.detach().cpu(), want, rtol=1e-6,
+                               atol=1e-6)
+    (g,) = torch.autograd.grad(got.sum(), v)
+    keep = ((ids >= 0) & (ids < 6)).float()[:, None].expand(10, 3)
+    assert torch.equal(g.cpu(), keep)
+    assert segment_sum(torch.tensor([0., 1., 2., 3.], device="cuda"),
+                       torch.tensor([0, 1, 5, -1], device="cuda"),
+                       2).tolist() == [0., 1.]
+
+
+@pytest.mark.cuda
+def test_cuda_gnn_restart_bit_exact(cuda_device, monkeypatch, tmp_path):
+    """DimeNet's smoke config trained on the card through the launcher's
+    ``gnn_setup`` (molecule batches made anew each step) with
+    deterministic algorithms (the segment sums' ``index_add`` then adds in
+    a fixed order): a failure at step 6 and the restart from the step-4
+    checkpoint end with the uninterrupted run's parameters, bit for bit."""
+    import argparse
+    from repro_torch.configs import get_arch
+    from repro_torch.ft import FailureInjector, RestartManager
+    from repro_torch.launch.train import gnn_setup
+    from repro_torch.train import TrainConfig, train
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    arch = get_arch("dimenet")
+    leaves, loss_fn, batch_fn = gnn_setup(
+        arch, arch.smoke_cfg, argparse.Namespace(seed=0, batch=8), "cuda")
+    base = dict(steps=8, peak_lr=1e-2, warmup=2, log_every=1)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        r1 = train(loss_fn, leaves, batch_fn, TrainConfig(**base),
+                   log_fn=lambda s: None)
+        mgr = RestartManager(max_restarts=1)
+        inj = FailureInjector((6,))
+        r2 = mgr.run(lambda resume: train(
+            loss_fn, leaves, batch_fn,
+            TrainConfig(**base, ckpt_every=4, ckpt_dir=str(tmp_path)),
+            injector=inj, log_fn=lambda s: None))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert mgr.stats.restarts == 1
+    for k, a in r1.final_state.params.items():
+        assert a.is_cuda and torch.equal(a, r2.final_state.params[k]), k
+    assert r1.losses[-1][1] < r1.losses[0][1]

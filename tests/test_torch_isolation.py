@@ -87,6 +87,12 @@ def test_launcher_and_benches_never_load_jax_reference_or_benchmarks():
         "from repro_torch.launch import train\n"
         "train.main(['--arch', 'deepseek-v3-671b', '--steps', '2',\n"
         "            '--device', 'cpu'])\n"
+        "for arch in ('gin-tu', 'dimenet', 'fm'):\n"
+        "    train.main(['--arch', arch, '--steps', '2', '--device', 'cpu'])\n"
+        "from repro_torch.data import NeighborSampler\n"
+        "from repro_torch.graphs import generators\n"
+        "NeighborSampler(generators.rmat(8), (5, 3)).sample(\n"
+        "    [0, 1], max_nodes=64, max_edges=128)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro', 'benchmarks', 'ml_dtypes'))\n"
         "print('LOADED', bad)\n")
@@ -106,7 +112,8 @@ SCANNED = sorted(str(p.relative_to(ROOT))
 
 def test_scan_covers_the_wave_slice():
     """The scan below walks the whole package, the wave and float-channel
-    slices, the mesh bench, the LM serving tier and LM training included."""
+    slices, the mesh bench, the LM serving tier, LM training and the GNN
+    and recsys models included."""
     for module in ("core/multi_source.py", "kernels/mxu_pull.py",
                    "serve/graph_session.py", "analytics/components.py",
                    "analytics/eccentricity.py", "analytics/closeness.py",
@@ -125,7 +132,12 @@ def test_scan_covers_the_wave_slice():
                    "configs/olmoe_1b_7b.py", "configs/deepseek_v3_671b.py",
                    "data/tokens.py", "train/optim.py", "train/compression.py",
                    "train/loop.py", "ft/checkpoint.py", "ft/manager.py",
-                   "launch/train.py"):
+                   "launch/train.py", "models/gnn.py", "models/nequip.py",
+                   "models/dimenet.py", "models/fm.py", "configs/gin_tu.py",
+                   "configs/egnn.py", "configs/nequip.py",
+                   "configs/dimenet.py", "configs/fm.py",
+                   "configs/families.py", "data/graphs.py",
+                   "data/sampler.py"):
         assert f"src/repro_torch/{module}" in SCANNED, module
 
 

@@ -12,8 +12,8 @@ equals the reference's within rtol and atol 3e-4: ``rms_norm``,
 ``prefill``'s logits and caches, and 4 ``decode_step``s.  The reference's
 own invariants run on the port at its tolerances (3e-4 and 5e-4), with
 ``forward`` under ``torch.no_grad()`` as an inference caller runs it.
-The reference's unported archs raise ``ConfigError`` naming their
-ROADMAP.md item.  The MoE, MLA and MTP variants are
+The registry holds the reference's ten archs, each config equal to its
+reference.  The MoE, MLA and MTP variants are
 ``tests/test_torch_models_moe_mla.py``'s.
 """
 from __future__ import annotations
@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro.configs.base import get_arch as jget_arch
+from repro.configs.base import list_archs as jlist_archs
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.configs import base as tconfigs
@@ -254,12 +255,30 @@ def test_ported_archs_equal_reference(arch):
     assert arch in tconfigs.list_archs()
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("gin-tu", "13d"), ("dimenet", "13d"), ("nequip", "13d"),
-    ("egnn", "13d"), ("fm", "13d")])
-def test_unported_archs_name_their_item(arch, item):
-    with pytest.raises(ConfigError, match=f"item {item}"):
-        tconfigs.get_arch(arch)
+@pytest.mark.parametrize("arch", ["gin-tu", "dimenet", "nequip", "egnn",
+                                  "fm"])
+def test_gnn_and_recsys_archs_equal_reference(arch):
+    got, want = tconfigs.get_arch(arch), jget_arch(arch)
+    assert (got.family, got.gnn_kind) == (want.family, want.gnn_kind)
+    for field in ("model_cfg", "smoke_cfg"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert type(g).__name__ == type(w).__name__, field
+        assert dataclasses.asdict(g) == dataclasses.asdict(w), field
+    shape_cls = tconfigs.GNNShape if got.family == "gnn" \
+        else tconfigs.RecShape
+    assert got.shapes == {k: shape_cls(**dataclasses.asdict(v))
+                          for k, v in want.shapes.items()}
+    assert (got.param_rules, got.notes) == (want.param_rules, want.notes)
+
+
+def test_registry_holds_all_ten_archs():
+    """Every architecture of the reference, in its order; an unknown id
+    is the reference's ``KeyError``."""
+    assert tconfigs.list_archs() == jlist_archs()
+    assert len(tconfigs.list_archs()) == 10
+    assert [a.id for a in tconfigs.all_archs()] == jlist_archs()
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("fault", ["missing", "extra", "shape", "dtype"])
