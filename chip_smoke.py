@@ -262,8 +262,24 @@ Phases (any failure exits non-zero before the result line):
    retrieval over 1,000,000 candidates timed, 8 steps on one
    train_batch beside their byte bound, peak memory (``recsys_fm``); and
    ``python -m repro_torch.launch.train --arch`` for the five archs as
-   children, every loss finite (``gnn_train_launchers``).  Phases 14-17
-   launch no hand kernel.
+   children, every loss finite (``gnn_train_launchers``);
+18. the model mesh at world size 1, one NCCL rank on the card:
+   qwen3-0.6b at full width, float32, one SGD step on DTensor leaves
+   placed by its sharding rules over a (1, 1) ``("data", "model")`` mesh
+   against the plain step on a 4 x 256 batch (loss within 1e-6
+   relative, every leaf within 1e-5 of its largest |value|), both
+   timed; the ring matmul and ``compressed_psum`` over the one rank; the
+   dry run (``repro_torch.launch.dryrun``'s counters, on a fake (1, 1)
+   mesh in this process) of phase 16's qwen3 step and of FM's
+   ``train_batch`` beside phases 16's and 17's measured steps
+   (``model_mesh_qwen3_0_6b``, ``dryrun_vs_measured``); and
+   ``python -m repro_torch.launch.dryrun --all`` for ``--mesh single``
+   and ``--mesh multi``, niced children started after phase 2's kernel
+   timings, traced on the host over fake process groups of 256 and 512
+   ranks, with their walls and ok / skip / error counts, none an error
+   (``dryrun_children``; a JSON a cell under ``artifacts/dryrun_torch/``).
+   Multi-GPU NCCL is not verified: one card holds one rank.  Phases
+   14-18 launch no hand kernel.
 
 Every phase sets the kernels' launch counts to 0 before it and reads them
 after, and fails if a kernel of its path never launched; the
@@ -4418,7 +4434,7 @@ def child_lines(procs: dict, prefix: str) -> dict:
     return lines
 
 
-def lm_train_phase(torch, rt, card: str, device: str = "cuda") -> None:
+def lm_train_phase(torch, rt, card: str, device: str = "cuda") -> float:
     """qwen3-0.6b's ``model_cfg`` at full width, float32, trained with
     AdamW over ``TokenPipeline`` batches of TRAIN_BATCH x TRAIN_SEQ tokens
     with deterministic algorithms on: TRAIN_STEPS steps uninterrupted,
@@ -4534,6 +4550,7 @@ def lm_train_phase(torch, rt, card: str, device: str = "cuda") -> None:
     emit({"phase": "lm_train_launchers",
           "lines": {name: out[:2] + out[-3:] for name, out in lines.items()},
           "card": card})
+    return steady
 
 
 # ---------------------------------------------------------------------------
@@ -4604,7 +4621,7 @@ def timed_train(torch, loss_fn, leaves, batch_fn, steps: int) -> dict:
             "ms_per_step": float(np.median(step_ms[1:]))}
 
 
-def gnn_phase(torch, rt, card: str, device: str = "cuda") -> None:
+def gnn_phase(torch, rt, card: str, device: str = "cuda") -> dict:
     """Phase 17: GIN-TU, EGNN, NequIP, DimeNet and FM at their
     ``model_cfg`` widths from a seed on the card, float32 with the
     process-wide TF32 flag on (the models turn it off), each checked
@@ -4620,7 +4637,7 @@ def gnn_phase(torch, rt, card: str, device: str = "cuda") -> None:
     try:
         gin_phase(torch, rt, card, device, minibatch)
         molecule_phase(torch, rt, card, device)
-        fm_phase(torch, rt, card, device)
+        fm_train = fm_phase(torch, rt, card, device)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
     no_hand_kernels(launch_counts(), "phase 17")
@@ -4633,6 +4650,7 @@ def gnn_phase(torch, rt, card: str, device: str = "cuda") -> None:
     emit({"phase": "gnn_train_launchers",
           "lines": {name: out[:1] + out[-2:] for name, out in lines.items()},
           "card": card})
+    return fm_train
 
 
 def pad_columns(feat: np.ndarray, width: int) -> np.ndarray:
@@ -4879,7 +4897,7 @@ def molecule_phase(torch, rt, card: str, device: str) -> None:
     torch.cuda.empty_cache()
 
 
-def fm_phase(torch, rt, card: str, device: str) -> None:
+def fm_phase(torch, rt, card: str, device: str) -> dict:
     """FM at full width (39 fields x 2^20 rows, k = 10) from a seed on the
     card at ``REC_SHAPES``' batches: serve_p99's logits against the host,
     ``apply_fm_bags`` against ``apply_fm`` - b, serve_bulk timed,
@@ -4970,6 +4988,255 @@ def fm_phase(torch, rt, card: str, device: str) -> None:
           "hand_kernel_launches": 0, "card": card})
     del model
     torch.cuda.empty_cache()
+    return train
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the model mesh and the dry run, at world size 1
+# ---------------------------------------------------------------------------
+MESH_STEP_LR = 0.1               # the sharded step's SGD (the CPU test's)
+MESH_STEP_LOSS_REL = 1e-6        # its loss against the plain step's
+MESH_STEP_LEAF_REL = 1e-5        # a leaf, over its largest |value|
+DRYRUN_JOBS = 2                  # cells a dry-run child traces at once
+DRYRUN_WAIT_S = 300.0            # phase 18's wait for the children
+DRYRUN_OUT = ROOT / "artifacts" / "dryrun_torch"  # a JSON a cell
+DRYRUN_LOGS = ROOT / "build" / "dryrun_logs"
+DRYRUN_CHILDREN = {
+    f"dryrun_{mesh}": ["-m", "repro_torch.launch.dryrun", "--all",
+                       "--mesh", mesh, "--jobs", str(DRYRUN_JOBS),
+                       "--out", str(DRYRUN_OUT)]
+    for mesh in ("single", "multi")}
+
+
+def start_dryruns() -> dict:
+    """The dry run of every cell on both production meshes, as children
+    on the host that run beside the phases (they trace on the CPU, over
+    fake process groups, and touch no card): niced, their output in files
+    under ``build/dryrun_logs/`` so that no pipe fills.  Phase 18
+    reads them."""
+    import atexit
+    import os
+    import signal
+    DRYRUN_LOGS.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    for name, argv in DRYRUN_CHILDREN.items():
+        out = open(DRYRUN_LOGS / f"{name}.out", "w")
+        err = open(DRYRUN_LOGS / f"{name}.err", "w")
+        procs[name] = (subprocess.Popen(
+            ["nice", "-n", "15", sys.executable, *argv], cwd=ROOT, env=env,
+            stdout=out, stderr=err, start_new_session=True),
+            time.time(), out, err)
+
+    def stop():
+        # each child leads a session of its own, its workers with it
+        for proc, *_ in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+    atexit.register(stop)
+    return procs
+
+
+def dryrun_results(procs: dict, timeout: float) -> dict:
+    """Each dry-run child's wall (from its start to its last line) and
+    its ok / skip / error counts; a child that fails, reports an error
+    or runs past ``timeout`` more seconds fails the phase."""
+    deadline = time.perf_counter() + timeout
+    out = {}
+    for name, (proc, t0, fo, fe) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail(f"{name} ran past the phase's time")
+        fo.close()
+        fe.close()
+        log = DRYRUN_LOGS / f"{name}.out"
+        wall = log.stat().st_mtime - t0
+        lines = log.read_text().splitlines()
+        done = [ln for ln in lines if ln.startswith("done: ")]
+        if proc.returncode or not done:
+            err = (DRYRUN_LOGS / f"{name}.err").read_text()
+            fail(f"{name} (rc {proc.returncode}): {lines[-5:]}\n"
+                 f"{err[-3000:]}")
+        n_ok, n_skip, n_err = (int(w) for w in done[-1].split()[1::2])
+        out[name] = {"wall_s": wall, "ok": n_ok, "skipped": n_skip,
+                     "errors": n_err, "last": done[-1],
+                     "cells": [ln for ln in lines if " OK " in ln
+                               or " SKIP " in ln]}
+    return out
+
+
+def sharded_against_plain(torch, T, model, leaves, tokens, mesh):
+    """One SGD step of ``model`` on ``tokens`` (float32, TF32 off) as the
+    plain step and on DTensor leaves placed by qwen3-0.6b's rules over
+    ``mesh``: (loss, plain loss, the largest leaf difference over its
+    largest |value| and its leaf, the two walls in ms, each of a second
+    step after an untimed first)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (Sharding, shard_tensor,
+                                                  tree_shardings)
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_train_step)
+    arch = get_arch("qwen3-0.6b")
+    tcfg = TrainConfig(optimizer="sgd", peak_lr=MESH_STEP_LR, warmup=0)
+    step = make_train_step(lambda p, b: T.lm_loss(
+        T.bind(model, p), b, compute_dtype=torch.float32), tcfg)
+    (plain, pm), plain_ms = warm_timed(
+        torch, lambda: step(init_train_state(leaves, tcfg), tokens))
+    shard = tree_shardings(T.lm_axes(arch.model_cfg), leaves,
+                           arch.param_rules, mesh)
+    d_leaves = {k: shard_tensor(v, shard[k]) for k, v in leaves.items()}
+    d_tokens = shard_tensor(tokens, Sharding(mesh, (("data",), None)))
+    T.set_act_spec(Sharding(mesh, (("data",), None, None)))
+    try:
+        with implicit_replication():
+            (state, m), sharded_ms = warm_timed(torch, lambda: step(
+                init_train_state(d_leaves, tcfg), d_tokens))
+            loss = float(m["loss"].full_tensor()
+                         if hasattr(m["loss"], "full_tensor") else m["loss"])
+            rel = {k: float((v.full_tensor() - plain.params[k]).abs().max()
+                            / plain.params[k].abs().max().clamp(min=1e-30))
+                   for k, v in state.params.items()}
+    finally:
+        T.set_act_spec(None)
+    worst = max(rel, key=rel.get)
+    return loss, float(pm["loss"]), rel[worst], worst, plain_ms, sharded_ms
+
+
+def dryrun_cell(cell_fn) -> dict:
+    """The dry run's roofline terms of ``cell_fn(mesh, fake_mode)``'s cell
+    on a fake (1, 1) mesh (this process; estimates from the spec-sheet
+    constants, no card)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import fake_mesh
+    t0 = time.perf_counter()
+    with fake_mesh((1, 1), ("data", "model")) as mesh:
+        cell = cell_fn(mesh, FakeTensorMode())
+        flops, hbm, coll = (D._probe_costs(cell) if cell.probe is not None
+                            else D._trace_metrics(cell))
+    coll["wire_bytes"] = D.wire_bytes(coll)
+    terms = D.roofline_terms(flops, hbm, coll["wire_bytes"])
+    return {"desc": cell.static_desc, "flops": flops, "hbm_bytes": hbm,
+            "collectives": coll, "roofline": terms,
+            "dominant": max(terms, key=terms.get),
+            "bound_ms": max(terms.values()) * 1e3,
+            "trace_s": time.perf_counter() - t0}
+
+
+def model_mesh_phase(torch, rt, card: str, dryruns: dict, lm_step_ms: float,
+                     fm_train: dict, device: str = "cuda") -> None:
+    """Phase 18: the model mesh at world size 1 on one NCCL rank.
+    qwen3-0.6b at full width, float32, one SGD step on DTensor leaves
+    placed by its sharding rules over a (1, 1) ``("data", "model")``
+    mesh against the plain step, on phase 16's batch shape; the ring
+    matmul and ``compressed_psum`` over one rank; then, with the group
+    gone, the dry run of the same qwen3 step (phase 16's 4 x 256 batch)
+    and of FM's ``train_batch`` on a fake (1, 1) mesh beside phases 16's
+    and 17's measured steps; and the two dry-run children (every cell,
+    both production meshes) read.  No hand kernel may launch."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import LMShape
+    from repro_torch.configs.families import build_cell, lm_cell
+    from repro_torch.distributed.collectives import make_overlap_matmul
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.compression import compressed_psum, quantize
+    reset_launch_counts()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1, device_type="cuda")
+        cfg = get_arch("qwen3-0.6b").model_cfg
+        model = T.init_lm(cfg, torch.Generator(device=device).manual_seed(
+            SEED), device=device)
+        leaves = T.reference_leaves(model)
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 18).integers(
+            0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ))).to(device)
+        loss, plain_loss, worst_rel, worst, plain_ms, sharded_ms = \
+            sharded_against_plain(torch, T, model, leaves, tokens, mesh)
+        if not (abs(loss - plain_loss) <= MESH_STEP_LOSS_REL *
+                abs(plain_loss) and worst_rel <= MESH_STEP_LEAF_REL):
+            fail(f"the sharded qwen3-0.6b step: loss {loss} against "
+                 f"{plain_loss}, leaf {worst} {worst_rel} over its max")
+        del model, leaves
+        torch.cuda.empty_cache()
+        # the ring matmul and compressed_psum over the mesh's one rank
+        rng = np.random.default_rng(SEED + 181)
+        x = torch.from_numpy(rng.normal(size=(1024, 4096)).astype(
+            np.float32)).to(device)
+        w = torch.from_numpy(rng.normal(size=(4096, 1024)).astype(
+            np.float32)).to(device)
+        ring = mesh["model"]
+        y = make_overlap_matmul(ring, "model")(x, w)
+        with T.float32_matmuls(torch.float32):
+            want = x @ w
+        ring_err = float((y - want).abs().max())
+        g = torch.from_numpy(rng.normal(size=(4096, 1024)).astype(
+            np.float32)).to(device)
+        r = torch.from_numpy((rng.normal(size=(4096, 1024)) * 0.01).astype(
+            np.float32)).to(device)
+        mean, new_res = compressed_psum({"g": g}, {"g": r}, mesh["data"],
+                                        ("data",))
+        scale = (g + r).abs().max() / 127.0 + 1e-12
+        q, _, want_res = quantize(g, r, scale=scale)
+        psum_equal = bool(torch.equal(new_res["g"], want_res)) and bool(
+            torch.equal(mean["g"], q.float() * scale))
+        psum_err = float((mean["g"] - (g + r)).abs().max())
+        if not (ring_err <= 1e-3 * float(want.abs().max()) and psum_equal
+                and psum_err <= float(scale)):
+            fail(f"one-rank collectives: ring {ring_err}, compressed_psum "
+                 f"equal {psum_equal}, off {psum_err} (scale {scale})")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    # the dry run of phase 16's and 17's steps, beside their measured times
+    qwen = get_arch("qwen3-0.6b")
+    lm_row = dryrun_cell(lambda mesh, fm: lm_cell(
+        qwen, LMShape("train", TRAIN_SEQ, TRAIN_BATCH), mesh, fm))
+    fm_row = dryrun_cell(lambda mesh, fm: build_cell(
+        get_arch("fm"), "train_batch", mesh, fm))
+    no_hand_kernels(launch_counts(), "phase 18")
+    emit({"phase": "model_mesh_qwen3_0_6b", "arch": "qwen3-0.6b",
+          "mesh": [1, 1], "world_size": 1, "backend": "nccl",
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "dtype": "float32",
+          "optimizer": f"sgd lr {MESH_STEP_LR}", "loss": loss,
+          "plain_loss": plain_loss, "worst_leaf": worst,
+          "worst_leaf_rel": worst_rel,
+          "bounds": {"loss_rel": MESH_STEP_LOSS_REL,
+                     "leaf_rel": MESH_STEP_LEAF_REL},
+          "plain_step_ms": plain_ms, "sharded_step_ms": sharded_ms,
+          "sharded_over_plain": sharded_ms / plain_ms,
+          "ring_matmul_max_abs_err": ring_err,
+          "compressed_psum_bit_equal": psum_equal,
+          "compressed_psum_max_abs_err": psum_err,
+          "multi_gpu_nccl": "not verified: one card holds one rank",
+          "hand_kernel_launches": 0, "card": card})
+    emit({"phase": "dryrun_vs_measured",
+          "constants": "H100 SXM spec sheet: 989.4e12 bf16 FLOP/s, "
+                       "3.35e12 B/s HBM3, 450e9 B/s NVLink; estimates",
+          "qwen3_0_6b_train": {**lm_row, "measured_ms_per_step": lm_step_ms,
+                               "measured": "phase 16, float32, TF32 off; "
+                                           "the cell computes in bf16"},
+          "fm_train_batch": {**fm_row,
+                             "measured_ms_per_step": fm_train["ms_per_step"],
+                             "byte_bound_ms": fm_train["bound_ms"],
+                             "measured": "phase 17, float32"},
+          "card": card})
+    results = dryrun_results(dryruns, timeout=DRYRUN_WAIT_S)
+    emit({"phase": "dryrun_children", "out": str(DRYRUN_OUT),
+          "jobs": DRYRUN_JOBS, **results, "card": card})
 
 
 def main() -> None:
@@ -5010,6 +5277,9 @@ def main() -> None:
           "cases_equal": phase_push_level(torch, rt),
           "tolerance": "exact (max abs err 0)"})
     by_phase: dict = {}
+    # phase 18's dry runs trace on the host beside the phases after the
+    # kernel timings
+    dryruns = start_dryruns()
 
     # phase 3: main path, road regime (counts read from this run)
     rng = np.random.default_rng(SEED)
@@ -5253,9 +5523,11 @@ def main() -> None:
     lm_full_width_phase(torch, rt, card)
     # phase 15: MoE, MLA and MTP at full width; phase 16: LM training
     lm_moe_mla_phase(torch, rt, card)
-    lm_train_phase(torch, rt, card)
+    lm_step_ms = lm_train_phase(torch, rt, card)
     # phase 17: the GNN and recsys models at full width (no BFS kernel)
-    gnn_phase(torch, rt, card)
+    fm_train = gnn_phase(torch, rt, card)
+    # phase 18: the model mesh and the dry run (no BFS kernel)
+    model_mesh_phase(torch, rt, card, dryruns, lm_step_ms, fm_train)
 
     replaces = {
         "bvss_pull": "src/repro/kernels/bvss_pull.py:66",

@@ -1,6 +1,6 @@
 """Arch config registry of the port, a copy of ``repro/configs`` over all
-ten architectures, and the GNN initialisers and losses of
-``repro/configs/families.py``."""
+ten architectures, and ``configs/families.py``: the GNN initialisers and
+losses and the dry run's cells."""
 from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES, REC_SHAPES,
                                       ArchSpec, GNNShape, LMShape, RecShape,
                                       all_archs, get_arch, list_archs)

@@ -5,9 +5,8 @@ Every ported architecture gets one module in this package exposing an
 points (``--arch <id>``).  The port has all ten of the reference's
 architectures: five LMs (the dense GQA ones, OLMoE's MoE and DeepSeek-V3's
 MLA, MoE and MTP), four GNNs (GIN, EGNN, NequIP, DimeNet) and the FM
-recommender.  The reference's dry-run builders (``configs/families.py``'s
-cells) belong to the model mesh (ROADMAP.md queue 1 item 13e); the port's
-``families.py`` holds the GNN initialisers and losses alone.
+recommender.  ``configs/families.py`` holds the GNN initialisers and
+losses and the dry run's cells (``build_cell``).
 """
 from __future__ import annotations
 

@@ -10,8 +10,12 @@ group: NCCL on CUDA (rank r on ``cuda:r``), gloo on the CPU.
 
 * :mod:`.bfs_dist` — the mesh builders and the flat frontier all-gather;
 * :mod:`.collectives` — the butterfly frontier exchange and OR all-reduce
-  of the 2-D partition, built from pairwise exchanges, and the per-call
-  communication ledger.
+  of the 2-D partition, built from pairwise exchanges, the ring
+  all-gather matmul of the model tier, and the per-call communication
+  ledger;
+* :mod:`.sharding` — the model tier's sharding rule engine (logical axes
+  to ``PartitionSpec`` tuples to DTensor placements);
+* :mod:`.pipeline` — GPipe over a mesh axis.
 """
 from .bfs_dist import (BFS_AXIS, COL_AXIS, bfs_mesh, bfs_mesh2d,
                        frontier_all_gather, mesh_is_2d, mesh_rank_device)

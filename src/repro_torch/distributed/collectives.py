@@ -14,6 +14,12 @@ of the butterfly half of ``repro/distributed/collectives.py``.
   always done locally after the words arrive: NCCL has no bitwise
   reduction op, so none is used.
 
+* The **ring all-gather matmul** of the model tier
+  (:func:`ring_allgather_matmul`, :func:`make_overlap_matmul`): the K
+  blocks of ``x`` travel round the ring one step at a time while each
+  rank multiplies the block it holds, so the all-gather overlaps the
+  matmul.  Each step is one ring exchange (:func:`ring_shift`).
+
 * A **byte ledger** (``comm_ledger``) records the per-rank bytes each
   collective moves.  The reference records while tracing, so one traced
   ``while_loop`` body gives one level's bytes; here the level loop runs on
@@ -104,13 +110,16 @@ def reduce_scatter_tiled(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _exchange(send: torch.Tensor, peer: int, group) -> torch.Tensor:
-    """Send ``send`` to global rank ``peer`` and receive its block of the
-    same shape: the reference's one ``ppermute`` stage between a pair."""
+def _exchange(send: torch.Tensor, peer: int, group,
+              source: int | None = None) -> torch.Tensor:
+    """Send ``send`` to global rank ``peer`` and receive a block of the
+    same shape from ``source`` (``peer`` when None): the reference's one
+    ``ppermute`` stage, between a pair or around a ring."""
     send = send.contiguous()
     recv = torch.empty_like(send)
     ops = [dist.P2POp(dist.isend, send, peer, group),
-           dist.P2POp(dist.irecv, recv, peer, group)]
+           dist.P2POp(dist.irecv, recv, peer if source is None else source,
+                      group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recv
@@ -202,3 +211,52 @@ def butterfly_or_allreduce(words: torch.Tensor, mesh, axis: str
         other = _exchange(buf, _partner(group, idx, bit), group)
         buf = torch.cat([other, buf] if idx & bit else [buf, other])
     return buf
+
+
+# ---------------------------------------------------------------------------
+# ring all-gather matmul (the model tier's collective-matmul overlap)
+# ---------------------------------------------------------------------------
+def ring_shift(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Pass ``t`` one step round ``axis``'s ring: send it to axis rank
+    ``idx + 1`` and return what axis rank ``idx - 1`` sent (the
+    reference's ``ppermute`` with ``perm = [(i, (i + 1) % n)]``)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return t
+    group = mesh.get_group(axis)
+    ranks = dist.get_process_group_ranks(group)
+    idx = mesh.get_local_rank(axis)
+    return _exchange(t, ranks[(idx + 1) % n], group,
+                     source=ranks[(idx - 1) % n])
+
+
+def ring_allgather_matmul(x_blk: torch.Tensor, w_local: torch.Tensor,
+                          mesh, axis: str) -> torch.Tensor:
+    """This rank's ``y_local (M, N/n) = full_x @ w_local``, from
+    ``x_blk`` (M, K/n), its K block of x, and ``w_local`` (K, N/n), the
+    full-K rows of its N shard.  Step ``i`` multiplies the block held
+    (axis rank ``idx - i``'s) by the matching rows of ``w_local`` and
+    passes it on: n - 1 ring exchanges of ``x_blk``'s bytes, each in the
+    ledger as ``ring_matmul_shift`` (the reference's loop also permutes
+    after its last step, which moves nothing used)."""
+    n = axis_size(mesh, axis)
+    idx = mesh.get_local_rank(axis)
+    kb = x_blk.shape[1]
+    acc = torch.zeros((x_blk.shape[0], w_local.shape[1]),
+                      dtype=torch.promote_types(x_blk.dtype, w_local.dtype),
+                      device=x_blk.device)
+    blk = x_blk
+    for i in range(n):
+        src = (idx - i) % n        # the block id this rank holds
+        acc = acc + blk @ w_local[src * kb:(src + 1) * kb]
+        if i < n - 1:
+            record_comm("ring_matmul_shift", _nbytes(blk))
+            blk = ring_shift(blk, mesh, axis)
+    return acc
+
+
+def make_overlap_matmul(mesh, axis: str = "model"):
+    """The per-rank function ``f(x_blk, w_local) -> y_local`` of
+    :func:`ring_allgather_matmul` over ``axis``: x sharded on K, w and y
+    on N (the reference's ``shard_map`` over ``P(None, axis)``)."""
+    return functools.partial(ring_allgather_matmul, mesh=mesh, axis=axis)

@@ -167,30 +167,71 @@ def _from_host(arr: np.ndarray, dtype: str, like: torch.Tensor
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def restore_checkpoint(path: str, tree_like):
+def _named_leaves(tree, prefix: str = "") -> dict:
+    """{name: leaf} of ``tree`` named as :func:`_leaf_paths` names them,
+    where a leaf is anything but a dict, list or tuple (a sharding,
+    None)."""
+    if not isinstance(tree, (dict, list, tuple)):
+        return {prefix: tree}
+    out = {}
+    for key, child in _children(tree):
+        name = _SANITIZE.sub("_", str(key))
+        out.update(_named_leaves(child, f"{prefix}.{name}" if prefix
+                                 else name))
+    return out
+
+
+def _sharded(arr: np.ndarray, dtype: str, like: torch.Tensor, sharding
+             ) -> torch.Tensor:
+    """This rank's block of the saved leaf ``arr`` as a DTensor of
+    ``sharding``, on the device and in the dtype of ``like`` (a DTensor's
+    local tensor, or a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+    local_like = like._local_tensor if isinstance(like, DTensor) else like
+    coord = sharding.mesh.get_coordinate()
+    host = _from_host(arr, dtype, torch.empty(0, dtype=like.dtype))
+    local = host[sharding.local_slices(host.shape, coord)].contiguous()
+    return DTensor.from_local(local.to(local_like.device), sharding.mesh,
+                              sharding.placements, run_check=False,
+                              shape=host.shape, stride=host.stride())
+
+
+def restore_checkpoint(path: str, tree_like, *, shardings=None):
     """Restore into the structure of ``tree_like``: each leaf onto the
     device and dtype of ``tree_like``'s leaf of the same name.  Returns
     (tree, manifest).  A leaf the checkpoint lacks, or of another shape,
-    raises ``ValueError``."""
+    raises ``ValueError``.
+
+    ``shardings``, a tree of ``tree_like``'s structure whose leaves are
+    :class:`~repro_torch.distributed.sharding.Sharding` or None, makes
+    each such leaf a DTensor: every rank of its mesh reads the full leaf
+    from the file and keeps its own block, so a checkpoint saved at one
+    world size restores at another (the resharding of the reference's
+    ``device_put`` with a sharding)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     like = _leaf_paths(tree_like)
+    shards = _named_leaves(shardings) if shardings is not None else {}
+    if shardings is not None and set(shards) != {n for n, _ in like}:
+        raise ValueError("shardings do not match the tree's leaves")
     dtypes = {leaf["name"]: leaf["dtype"] for leaf in manifest["leaves"]}
     missing = [name for name, _ in like if name not in dtypes]
     if missing:
         raise ValueError(f"checkpoint at {path} is missing leaves {missing}")
     out = []
     for name, leaf in like:
+        sh = shards.get(name)
         arr = np.load(os.path.join(path, name + ".npy"))
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint leaf {name} is {arr.shape}, the "
                              f"tree's is {tuple(leaf.shape)}")
-        out.append(_from_host(arr, dtypes[name], leaf))
+        out.append(_from_host(arr, dtypes[name], leaf) if sh is None
+                   else _sharded(arr, dtypes[name], leaf, sh))
     return _rebuild(tree_like, iter(out)), manifest
 
 
-def restore_latest(directory: str, tree_like):
+def restore_latest(directory: str, tree_like, *, shardings=None):
     latest = latest_checkpoint(directory)
     if latest is None:
         return None
-    return restore_checkpoint(latest[1], tree_like)
+    return restore_checkpoint(latest[1], tree_like, shardings=shardings)

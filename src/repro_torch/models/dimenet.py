@@ -24,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.gnn import (MLP2, _live_rows, _remat, mlp2_apply,
+from repro_torch.distributed.sharding import flatten_axes
+from repro_torch.models.gnn import (MLP2, _live_rows, _remat, edgewise,
+                                    gather_rows, mlp2_apply, mlp2_axes,
                                     one_hot, segment_sum)
 from repro_torch.models.layers import dense_init
 from repro_torch.models.nequip import bessel_rbf
@@ -89,6 +91,18 @@ class DimeNet(nn.Module):
                                     for _ in range(cfg.n_blocks))
 
 
+def dimenet_axes(cfg: DimeNetConfig) -> dict[str, tuple]:
+    """DimeNet's logical axes (the reference's ``dimenet_axes``)."""
+    return flatten_axes({
+        "embed": (None, "ffn"), "rbf_proj": (None, "ffn"),
+        "msg_init": mlp2_axes(),
+        "blocks": [{"w_self": (None, None), "w_down": (None, None),
+                    "w_sbf": (None, None), "w_up": (None, None),
+                    "rbf_gate": (None, None), "out": mlp2_axes()}
+                   for _ in range(cfg.n_blocks)],
+        "out_head": mlp2_axes()})
+
+
 def init_dimenet(cfg: DimeNetConfig, generator: torch.Generator | None = None,
                  device=None) -> DimeNet:
     return DimeNet(cfg, *init_generator(generator, device))
@@ -109,34 +123,39 @@ def apply_dimenet(p: DimeNet, cfg: DimeNetConfig, species, pos, senders,
     live_e = ((senders < n1 - 1) & (receivers < n1 - 1)).to(dt)[:, None]
 
     with float32_matmuls(dt):
-        d_vec = pos[senders] - pos[receivers]
+        d_vec = gather_rows(pos, senders) - gather_rows(pos, receivers)
         r = torch.sqrt(torch.sum(d_vec * d_vec, dim=-1) + 1e-12)
         rbf = bessel_rbf(r, cfg.n_radial, cfg.cutoff) * live_e  # (E, n_rad)
 
         h = one_hot(species, cfg.n_species, dt) @ p.embed.to(dt)
         e_rbf = rbf @ p.rbf_proj.to(dt)
         m = mlp2_apply(p.msg_init,
-                       torch.cat([h[senders], h[receivers], e_rbf], -1))
+                       torch.cat([gather_rows(h, senders),
+                                  gather_rows(h, receivers), e_rbf], -1))
         m = m * live_e                                         # (E, d)
 
         # triplet angle basis: angle between edge (k→j) and (j→i) at j
         dv = torch.cat([d_vec, torch.zeros((1, 3), dtype=dt, device=dev)])
         rr = torch.cat([r, torch.ones((1,), dtype=dt, device=dev)])
-        v1 = dv[t_kj]
-        v2 = -dv[t_ji]
-        cos_t = torch.sum(v1 * v2, -1) / (rr[t_kj] * rr[t_ji] + 1e-12)
-        cos_t = torch.clamp(cos_t, -1.0, 1.0)
-        ang = legendre_basis(cos_t, cfg.n_spherical)           # (T, n_sph)
         rbf_pad = torch.cat([rbf, torch.zeros((1, cfg.n_radial), dtype=dt,
                                               device=dev)])
-        sbf = (ang[:, :, None] * rbf_pad[t_kj][:, None, :]).reshape(
-            t_kj.shape[0], -1)                                 # (T, nsph*nrad)
+
+        def basis(v1, v2, r1, r2, rb):
+            cos_t = torch.sum(v1 * v2, -1) / (r1 * r2 + 1e-12)
+            cos_t = torch.clamp(cos_t, -1.0, 1.0)
+            ang = legendre_basis(cos_t, cfg.n_spherical)       # (T, n_sph)
+            return (ang[:, :, None] * rb[:, None, :]).reshape(
+                rb.shape[0], -1)                               # (T, nsph*nrad)
+        sbf = edgewise(basis, rows=(
+            gather_rows(dv, t_kj), -gather_rows(dv, t_ji),
+            gather_rows(rr, t_kj), gather_rows(rr, t_ji),
+            gather_rows(rbf_pad, t_kj)))
         t_live = ((t_kj < E) & (t_ji < E)).to(dt)[:, None]
         sbf = sbf * t_live
 
         def block(m, energy, bp):
             m_pad = torch.cat([m, m.new_zeros((1, cfg.d_hidden))])
-            t1 = m_pad[t_kj] @ bp.w_down.to(dt)                # (T, nb)
+            t1 = gather_rows(m_pad, t_kj) @ bp.w_down.to(dt)   # (T, nb)
             t2 = sbf @ bp.w_sbf.to(dt)                         # (T, nb)
             agg = segment_sum(t1 * t2 * t_live, t_ji, E + 1)[:E]
             m = F.silu(m @ bp.w_self.to(dt) + agg @ bp.w_up.to(dt)

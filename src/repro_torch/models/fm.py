@@ -12,8 +12,9 @@ sum-square identity:
     Σ_{i<j} <v_i, v_j> x_i x_j = ½ (‖Σ_i v_i x_i‖² − Σ_i ‖v_i x_i‖²).
 
 Single-hot fields (Criteo-style, (B, F) ids) and multi-hot bags (flat ids
-with a bag id each).  The reference's row sharding of the table
-(``fm_axes``) belongs to the model mesh (ROADMAP.md queue 1 item 13e).
+with a bag id each).  :func:`fm_axes` is the reference's row sharding of
+the table (``"table_rows"``), which
+:mod:`repro_torch.distributed.sharding` turns into DTensor placements.
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.gnn import segment_sum
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, take_rows
 from repro_torch.models.transformer import (float32_matmuls,
                                             init_generator, model_device)
 
@@ -62,6 +64,15 @@ class FM(nn.Module):
                 generator, (cfg.n_dense,), cfg.n_dense, device))
 
 
+def fm_axes(cfg: FMConfig) -> dict[str, tuple]:
+    """The FM's logical axes (the reference's ``fm_axes``): table rows
+    on "table_rows"."""
+    a = {"v": ("table_rows", None), "w": ("table_rows",), "b": ()}
+    if cfg.n_dense:
+        a["w_dense"] = (None,)
+    return a
+
+
 def init_fm(cfg: FMConfig, generator: torch.Generator | None = None,
             device=None) -> FM:
     return FM(cfg, *init_generator(generator, device))
@@ -69,7 +80,10 @@ def init_fm(cfg: FMConfig, generator: torch.Generator | None = None,
 
 def _take(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, rows, axis=0)`` for in-range rows: (*rows.shape,
-    *table.shape[1:])."""
+    *table.shape[1:]); shard-locally on DTensors
+    (:func:`~repro_torch.models.layers.take_rows`)."""
+    if isinstance(table, DTensor) or isinstance(rows, DTensor):
+        return take_rows(table, rows)
     out = table.index_select(0, rows.reshape(-1))
     return out.reshape(*rows.shape, *table.shape[1:])
 

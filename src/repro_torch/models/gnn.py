@@ -23,8 +23,12 @@ its params and config, and run where the parameters are; in float32
 their matmuls run with TF32 off
 (:func:`~repro_torch.models.transformer.float32_matmuls`).  ``remat``
 runs each layer under ``torch.utils.checkpoint`` (non-reentrant), where
-the reference has ``jax.checkpoint``.  The reference's ``*_axes``
-sharding rules belong to the model mesh (ROADMAP.md queue 1 item 13e).
+the reference has ``jax.checkpoint``.  :func:`gin_axes`,
+:func:`egnn_axes` and :func:`mlp2_axes` are the reference's sharding
+rules (:mod:`repro_torch.distributed.sharding` reads them).  On DTensor
+batches whose edges are sharded, :func:`gather_rows` and
+:func:`segment_sum` run shard-locally: each rank gathers and sums its
+own edges, and one all-reduce completes the node sums.
 """
 from __future__ import annotations
 
@@ -33,9 +37,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import dense_init
+from repro_torch.distributed.sharding import flatten_axes
+from repro_torch.models.layers import _stride, dense_init, to_local
 from repro_torch.models.transformer import (float32_matmuls,
                                             init_generator, model_device)
 
@@ -67,8 +73,82 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor, num: int
     range."""
     keep = (seg >= 0) & (seg < num)
     idx = torch.where(keep, seg, num)
+    if isinstance(vals, DTensor):
+        return _segment_sum_sharded(vals, idx, num)
     out = vals.new_zeros((num + 1, *vals.shape[1:]))
     return out.index_add(0, idx, vals)[:num]
+
+
+def edgewise(fn, rows: tuple, consts: tuple = ()):
+    """``fn(*rows, *consts)`` for an ``fn`` that treats each row (an edge,
+    a triplet) alone and returns a tensor or a list or tuple of them,
+    each a row a row.  When a row input is a DTensor of split rows, each
+    rank applies ``fn`` to its own rows (``consts`` whole), and the
+    outputs are split as the rows are; a constant's gradient is a
+    partial sum over the split.  Plain inputs: ``fn`` as it is."""
+    d = next((t for t in rows if isinstance(t, DTensor)), None)
+    if d is None:
+        return fn(*rows, *consts)
+    mesh = d.device_mesh
+    split = [i for i, p in enumerate(d.placements) if p == Shard(0)]
+    pl = tuple(Shard(0) if i in split else Replicate()
+               for i in range(mesh.ndim))
+    part = tuple(Partial() if i in split else Replicate()
+                 for i in range(mesh.ndim))
+    out = fn(*(to_local(t, pl, mesh) for t in rows),
+             *(to_local(t, (Replicate(),) * mesh.ndim, mesh,
+                        grad_placements=part) for t in consts))
+
+    def whole(o):
+        shape = (d.shape[0], *o.shape[1:])
+        return DTensor.from_local(o.contiguous(), mesh, pl, run_check=False,
+                                  shape=shape,
+                                  stride=_stride(shape))
+    if isinstance(out, (list, tuple)):
+        return type(out)(whole(o) for o in out)
+    return whole(out)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]``.  With ``idx`` a DTensor of row-sharded ids (edges,
+    triplets), each rank gathers its own rows from the whole of ``x``
+    (node features are replicated already; a sharded ``x`` is gathered
+    first): the result is sharded as ``idx`` is, and the backward pass's
+    scatter-add leaves partial gradients, which one all-reduce completes
+    (GSPMD's partition of the reference's gather)."""
+    if not isinstance(idx, DTensor):
+        return x[idx]
+    mesh = idx.device_mesh
+    rows = [i for i, p in enumerate(idx.placements) if p == Shard(0)]
+    pl = tuple(Shard(0) if i in rows else Replicate()
+               for i in range(mesh.ndim))
+    x_l = to_local(x, (Replicate(),) * mesh.ndim, mesh,
+                   grad_placements=tuple(Partial() if i in rows else
+                                         Replicate()
+                                         for i in range(mesh.ndim)))
+    out = x_l[to_local(idx, pl, mesh)]
+    shape = (idx.shape[0], *out.shape[1:])
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                              stride=_stride(shape))
+
+
+def _segment_sum_sharded(vals: DTensor, idx, num: int) -> DTensor:
+    """:func:`segment_sum` of DTensor rows (edges sharded over mesh dims):
+    each rank sums its own rows into all ``num`` segments, and the
+    partial sums are all-reduced, so every rank holds the whole sums, as
+    the model's replicated node features are (GSPMD's partition of the
+    reference's scatter-add)."""
+    mesh = vals.device_mesh
+    rows = [i for i, p in enumerate(vals.placements) if p == Shard(0)]
+    pl = tuple(Shard(0) if i in rows else Replicate()
+               for i in range(mesh.ndim))
+    v_l = to_local(vals, pl, mesh)
+    i_l = to_local(idx, pl, mesh)
+    out = v_l.new_zeros((num + 1, *v_l.shape[1:])).index_add(0, i_l, v_l)
+    part = tuple(Partial() if i in rows else Replicate()
+                 for i in range(mesh.ndim))
+    return DTensor.from_local(out[:num], mesh, part, run_check=False
+                              ).redistribute(mesh, (Replicate(),) * mesh.ndim)
 
 
 def segment_mean(vals: torch.Tensor, seg: torch.Tensor, num: int
@@ -127,6 +207,19 @@ def mlp2_apply(p: MLP2, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # GIN  [arXiv:1810.00826] — n_layers=5 d=64 sum aggregator, learnable eps
 # ---------------------------------------------------------------------------
+def mlp2_axes() -> dict:
+    return {"w1": (None, "ffn"), "b1": ("ffn",),
+            "w2": ("ffn", None), "b2": (None,)}
+
+
+def gin_axes(cfg: GNNConfig) -> dict[str, tuple]:
+    """GIN's logical axes, ``{path: axes}`` over its parameter paths (the
+    reference's ``gin_axes``)."""
+    return flatten_axes({"layers": [{"mlp": mlp2_axes(), "eps": ()}
+                                    for _ in range(cfg.n_layers)],
+                         "head": (None, None)})
+
+
 class GINLayer(nn.Module):
     def __init__(self, d_in: int, d_hidden: int, generator, device):
         super().__init__()
@@ -166,7 +259,7 @@ def apply_gin(p: GIN, cfg: GNNConfig, node_feat, senders, receivers,
     live = _live_rows(n1, torch.bool, node_feat.device)
 
     def layer(h, lp):
-        agg = segment_sum(h[senders], receivers, n1)
+        agg = segment_sum(gather_rows(h, senders), receivers, n1)
         eps = lp.eps if cfg.learn_eps else 0.0
         h = mlp2_apply(lp.mlp, (1.0 + eps) * h + agg)
         return h * live                     # keep the dummy row zero
@@ -192,6 +285,16 @@ class EGNNConfig:
     d_in: int
     n_graphs: int = 1
     coord_agg: str = "mean"
+
+
+def egnn_axes(cfg: EGNNConfig) -> dict[str, tuple]:
+    """EGNN's logical axes (the reference's ``egnn_axes``)."""
+    return flatten_axes({"embed": (None, "ffn"),
+                         "layers": [{"phi_e": mlp2_axes(),
+                                     "phi_x": mlp2_axes(),
+                                     "phi_h": mlp2_axes()}
+                                    for _ in range(cfg.n_layers)],
+                         "head": mlp2_axes()})
 
 
 class EGNNLayer(nn.Module):
@@ -234,9 +337,10 @@ def apply_egnn(p: EGNN, cfg: EGNNConfig, node_feat, pos, senders, receivers,
     live = _live_rows(n1, node_feat.dtype, node_feat.device)
 
     def layer(h, x, lp):
-        d_vec = x[senders] - x[receivers]
+        d_vec = gather_rows(x, senders) - gather_rows(x, receivers)
         d2 = torch.sum(d_vec * d_vec, dim=-1, keepdim=True)
-        m = mlp2_apply(lp.phi_e, torch.cat([h[senders], h[receivers], d2],
+        m = mlp2_apply(lp.phi_e, torch.cat([gather_rows(h, senders),
+                                            gather_rows(h, receivers), d2],
                                            -1))
         m = F.silu(m)
         # coordinate update (receiver-centric): x_i += agg_j (x_i - x_j) phi_x

@@ -9,8 +9,11 @@ softmax and ``top_k``, not Pallas kernels, and so are the port's: this
 module owes no hand kernel.  The MoE's GShard capacity dispatch is the
 reference's, slot for slot: the same routes (``top_k`` in JAX's order,
 ties to the lower expert), the same capacity, the same drops.  The
-reference's ``moe_spec`` sharding constraint belongs to the model mesh
-(ROADMAP.md queue 1 item 13e) and is left out.
+``*_axes`` functions are the reference's sharding rules.  On DTensors
+(a step of the model mesh) the attention core and the MoE run
+shard-locally (:func:`_attend_sharded`, :func:`_apply_moe_sharded`, the
+latter laid out by the reference's ``moe_spec``); on plain tensors they
+are the code above, unchanged.
 
 Parameters are float32, require gradients, and are initialised from an
 explicit :class:`torch.Generator` (truncated normal at ±2σ, scaled by
@@ -21,10 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.errors import ConfigError
 
@@ -150,6 +155,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 Q_CHUNK = 1024  # query-chunk size for long-sequence attention
 
+def set_unroll(v: bool):
+    """The reference's analysis switch, accepted and changing nothing: its
+    dry run unrolls every internal loop (layer scans, query-chunk and
+    cross-entropy maps) because XLA's cost analysis counts a loop body
+    once, and the port's loops are Python loops, which the dry run's
+    counters see in full."""
+
 
 def _attend_dense(q, k, v, q_pos, k_pos, window, k_valid, mixed=False):
     B, Sq, Hq, D = q.shape
@@ -192,6 +204,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hq % Hkv == 0.  Long queries run in chunks of ``q_chunk`` (exact
     blockwise attention: each chunk does its full softmax over K), so the
     score tensor never exceeds B·H·q_chunk·Sk."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        return _attend_sharded(q, k, v, q_pos, k_pos, window, k_valid,
+                               q_chunk, mixed)
     B, Sq, Hq, D = q.shape
     if Sq <= q_chunk or Sq % q_chunk != 0:
         return _attend_dense(q, k, v, q_pos, k_pos, window, k_valid, mixed)
@@ -199,6 +214,118 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _attend_dense(q[:, i:i + q_chunk], k, v, q_pos[:, i:i + q_chunk],
                       k_pos, window, k_valid, mixed)
         for i in range(0, Sq, q_chunk)], dim=1)
+
+
+def _stride(shape) -> tuple[int, ...]:
+    """A contiguous tensor's strides (a DTensor's global strides)."""
+    return torch.empty(shape, device="meta").stride()
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    shard-local computation hands DTensor back gradients of any stride,
+    and DTensor's backward of the op before it may view them."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def to_local(t: torch.Tensor, placements, mesh=None,
+             grad_placements=None) -> torch.Tensor:
+    """This rank's block of ``t`` laid out as ``placements`` (a plain
+    ``t`` counts as replicated over ``mesh``), for a shard-local
+    computation; its gradient goes back contiguous."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    local = t.redistribute(t.device_mesh, placements).to_local(
+        grad_placements=grad_placements)
+    return _ContiguousGrad.apply(local) if local.requires_grad else local
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (rows of a 1-D or 2-D table) when either is a
+    DTensor, shard-locally: every rank looks its own ids (split as
+    ``ids`` are) up in its own block of rows (split as the table's rows
+    are, over the mesh dims the ids leave free; a split of the columns
+    is gathered, as FSDP does), the ids outside its rows give zeros, and
+    one all-reduce over the row split adds the blocks (GSPMD's masked
+    gather).  The table's gradient comes back as each rank's rows."""
+    mesh = next(t.device_mesh for t in (table, ids)
+                if isinstance(t, DTensor))
+    n = mesh.ndim
+    rep = (Replicate(),) * n
+    t_pl = table.placements if isinstance(table, DTensor) else rep
+    i_pl = ids.placements if isinstance(ids, DTensor) else rep
+    id_dims = [i for i, p in enumerate(i_pl) if p.is_shard()]
+    row_dims = [i for i, p in enumerate(t_pl)
+                if p == Shard(0) and i not in id_dims]
+    tab_pl = tuple(Shard(0) if i in row_dims else Replicate()
+                   for i in range(n))
+    tab_grad = tuple(Shard(0) if i in row_dims else
+                     Partial() if i in id_dims else Replicate()
+                     for i in range(n))
+    t_l = to_local(table, tab_pl, mesh, grad_placements=tab_grad)
+    ids_l = to_local(ids, i_pl, mesh)
+    block = 0
+    for i in row_dims:
+        block = block * mesh.shape[i] + mesh.get_coordinate()[i]
+    local = ids_l - block * t_l.shape[0]
+    hit = (local >= 0) & (local < t_l.shape[0])
+    flat = t_l if t_l.dim() == 2 else t_l[:, None]
+    out = nn.functional.embedding(torch.where(hit, local, 0), flat) * \
+        hit[..., None].to(flat.dtype)
+    out = out if t_l.dim() == 2 else out[..., 0]
+    shape = (*ids.shape, *table.shape[1:])
+    part = tuple(Partial() if i in row_dims else i_pl[i] for i in range(n))
+    return DTensor.from_local(out.contiguous(), mesh, part, run_check=False,
+                              shape=shape, stride=_stride(shape)
+                              ).redistribute(mesh, tuple(
+                                  Replicate() if i in row_dims else i_pl[i]
+                                  for i in range(n)))
+
+
+def _attend_sharded(q, k, v, q_pos, k_pos, window, k_valid, q_chunk,
+                    mixed):
+    """:func:`attend` on DTensors, as the shard-local computation it is:
+    attention is independent across examples and heads, so every rank
+    attends its own block of both (the batch split as ``q``'s, the
+    heads split as ``q``'s when the KV heads divide the same way, else
+    whole) and the output keeps that layout.  Each operand is
+    redistributed to it first; a key/value sequence split is gathered.
+    Plain operands (the positions the model makes) count as
+    replicated."""
+    mesh = next(t.device_mesh for t in (q, k, v) if isinstance(t, DTensor))
+    qp = q.placements if isinstance(q, DTensor) else ()
+    b_dims = [i for i, p in enumerate(qp) if isinstance(p, Shard) and
+              p.dim == 0]
+    h_dims = [i for i, p in enumerate(qp) if isinstance(p, Shard) and
+              p.dim == 2]
+    if k.shape[2] % math.prod(mesh.shape[i] for i in h_dims):
+        h_dims = []
+
+    def placements(head_dim):
+        out = [Replicate()] * mesh.ndim
+        for i in b_dims:
+            out[i] = Shard(0)
+        for i in (h_dims if head_dim is not None else ()):
+            out[i] = Shard(head_dim)
+        return tuple(out)
+
+    def local(t, head_dim=None):
+        return None if t is None else to_local(t, placements(head_dim), mesh)
+
+    out = attend(local(q, 2), local(k, 2), local(v, 2), local(q_pos),
+                 local(k_pos), window, local(k_valid), q_chunk, mixed)
+    shape = (*q.shape[:3], out.shape[-1])
+    return DTensor.from_local(out.contiguous(), mesh, placements(2),
+                              run_check=False, shape=shape,
+                              stride=_stride(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +347,18 @@ class GQA(nn.Module):
         if cfg.qk_norm:
             self.q_norm = _zeros(Dh, device)
             self.k_norm = _zeros(Dh, device)
+
+
+def gqa_axes(cfg: LMConfig) -> dict:
+    """GQA's logical axes by parameter (the reference's ``gqa_axes``)."""
+    a = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qk_norm:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
 
 
 def apply_gqa(p: GQA, cfg: LMConfig, x, q_pos, *, window, kv_cache=None,
@@ -278,6 +417,16 @@ class MLA(nn.Module):
                                     H * cfg.v_head_dim, device))
 
 
+def mla_axes(cfg: LMConfig) -> dict:
+    """MLA's logical axes by parameter (the reference's ``mla_axes``)."""
+    return {"wq_a": ("embed", "q_lora"), "q_a_norm": (None,),
+            "wq_b": ("q_lora", "heads", "head_dim"),
+            "wkv_a": ("embed", "kv_lora"), "kv_a_norm": (None,),
+            "wk_b": ("kv_lora", "heads", "head_dim"),
+            "wv_b": ("kv_lora", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+
+
 def apply_mla(p: MLA, cfg: LMConfig, x, q_pos, *, window=None,
               kv_cache=None, capture_kv: bool = False):
     """x (B, S, d).  The cache payload is the normed latent ``c_kv``
@@ -332,6 +481,11 @@ class MLP(nn.Module):
                                         device))
 
 
+def mlp_axes() -> dict:
+    return {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+            "w_down": ("ffn", "embed")}
+
+
 def apply_mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     g = torch.einsum("bsd,df->bsf", x, p.w_gate.to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p.w_up.to(x.dtype))
@@ -362,6 +516,20 @@ class MoE(nn.Module):
             self.router_bias = _zeros(E, device)
         if mc.n_shared:
             self.shared = MLP(d, F * mc.n_shared, generator, device)
+
+
+def moe_axes(cfg: LMConfig) -> dict:
+    """The MoE's logical axes by parameter (the reference's
+    ``moe_axes``): experts on "experts", ``shared`` an :func:`mlp_axes`."""
+    a = {"router": ("embed", None),
+         "w_gate": ("experts", "embed", "ffn"),
+         "w_up": ("experts", "embed", "ffn"),
+         "w_down": ("experts", "ffn", "embed")}
+    if cfg.moe.router == "sigmoid_ds3":
+        a["router_bias"] = (None,)
+    if cfg.moe.n_shared:
+        a["shared"] = mlp_axes()
+    return a
 
 
 class Routing(NamedTuple):
@@ -420,26 +588,16 @@ def moe_route(p: MoE, cfg: LMConfig, xt: torch.Tensor) -> Routing:
     return Routing(top_w, top_idx, pos, pos < C, C)
 
 
-def apply_moe(p: MoE, cfg: LMConfig, x: torch.Tensor, *,
-              n_groups: int = 1) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d).  GShard-style capacity dispatch with
-    groups: the B·S tokens are cut into ``n_groups`` groups (which must
-    divide B·S), each routing into its own per-expert buffer of
-    ``capacity`` slots; a (token, k) pair past its expert's capacity is
-    dropped (its weight counts for nothing).  Unused slots enter the
-    experts as zeros; the combine scatter-adds each slot's output, times
-    its weight, back onto its token (``index_add``)."""
-    mc = cfg.moe
-    B, S, d = x.shape
-    E, K, G = mc.n_experts, mc.top_k, n_groups
-    if (B * S) % G:
-        raise ConfigError(f"moe_groups={G} does not divide the {B * S} "
-                          f"tokens of the batch")
-    Tg = B * S // G
-    xt = x.reshape(G, Tg, d)
+def _moe_dispatch(p, cfg: LMConfig, xt: torch.Tensor):
+    """Route xt (G, Tg, d) and fill the expert buffers: (xe (G, E, C, d)
+    the slots' tokens, zero where unused; token_of_slot (G, E·C) each
+    slot's token in its group; w_slot (G, E·C) each slot's combine
+    weight)."""
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    G, Tg, d = xt.shape
     r = moe_route(p, cfg, xt)
     C = r.capacity
-    dev = x.device
+    dev = xt.device
     # slot of each (token, k): its expert's buffer, or a spare slot of its
     # own past the E·C live ones when dropped (so no two pairs share one)
     spare = E * C + torch.arange(Tg * K, device=dev)
@@ -451,20 +609,157 @@ def apply_moe(p: MoE, cfg: LMConfig, x: torch.Tensor, *,
                                 ).scatter(1, slot, tok)[:, :E * C]
     used = torch.zeros((G, size), dtype=torch.bool, device=dev).scatter(
         1, slot, r.keep.reshape(G, Tg * K))[:, :E * C]
-    w_k = torch.where(r.keep, r.top_w, 0.0).to(x.dtype).reshape(G, Tg * K)
-    w_slot = torch.zeros((G, size), dtype=x.dtype, device=dev).scatter(
+    w_k = torch.where(r.keep, r.top_w, 0.0).to(xt.dtype).reshape(G, Tg * K)
+    w_slot = torch.zeros((G, size), dtype=xt.dtype, device=dev).scatter(
         1, slot, w_k)[:, :E * C]
     g_idx = torch.arange(G, device=dev)[:, None]
-    xe = xt[g_idx, token_of_slot] * used[..., None].to(x.dtype)  # (G, EC, d)
-    # the experts: one batched matmul an expert over its G·C slots
-    xe = xe.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
-    h = nn.functional.silu(xe @ p.w_gate.to(x.dtype)) * \
-        (xe @ p.w_up.to(x.dtype))
-    ye = (h @ p.w_down.to(x.dtype)).reshape(E, G, C, d).transpose(0, 1)
+    xe = xt[g_idx, token_of_slot] * used[..., None].to(xt.dtype)
+    return xe.reshape(G, E, C, d), token_of_slot, w_slot
+
+
+def _moe_experts(w_gate, w_up, w_down, xe: torch.Tensor) -> torch.Tensor:
+    """The experts over their buffers: xe (G, E, C, d) -> (G, E, C, d),
+    one batched matmul an expert over its G·C slots."""
+    G, E, C, d = xe.shape
+    xe = xe.transpose(0, 1).reshape(E, G * C, d)
+    h = nn.functional.silu(xe @ w_gate.to(xe.dtype)) * (xe @ w_up.to(xe.dtype))
+    return (h @ w_down.to(xe.dtype)).reshape(E, G, C, d).transpose(0, 1)
+
+
+def _moe_combine(ye: torch.Tensor, token_of_slot: torch.Tensor,
+                 w_slot: torch.Tensor, Tg: int) -> torch.Tensor:
+    """Scatter-add each slot's output, times its weight, onto its token:
+    ye (G, E, C, d) -> (G, Tg, d)."""
+    G, E, C, d = ye.shape
     contrib = ye.reshape(G, E * C, d) * w_slot[..., None]
+    g_idx = torch.arange(G, device=ye.device)[:, None]
     rows = (token_of_slot + g_idx * Tg).reshape(-1)
-    yt = torch.zeros((G * Tg, d), dtype=x.dtype, device=dev).index_add(
-        0, rows, contrib.reshape(-1, d)).reshape(G, Tg, d)
+    return torch.zeros((G * Tg, d), dtype=ye.dtype, device=ye.device
+                       ).index_add(0, rows, contrib.reshape(-1, d)
+                                   ).reshape(G, Tg, d)
+
+
+def _mesh_dims(mesh, axes) -> list[int]:
+    axes = axes if isinstance(axes, (tuple, list)) else (axes,)
+    return [list(mesh.mesh_dim_names).index(a) for a in axes]
+
+
+def _apply_moe_sharded(p: MoE, cfg: LMConfig, x, n_groups: int, moe_spec
+                       ) -> torch.Tensor:
+    """:func:`apply_moe` on DTensors, as the shard-local program the
+    reference's sharding constraints ask of GSPMD: each rank routes and
+    fills the buffers of its own groups (the groups split over the
+    ``moe_spec`` group axes, else as x's batch is; all groups where
+    they do not divide), runs its own experts (split over the expert
+    axis, else as ``w_gate``'s experts are), and scatter-adds their
+    outputs onto its tokens; the partial sums over the expert axis
+    leave as a ``Partial`` DTensor, which one all-reduce completes when
+    it is read.  The router's weights are gathered whole."""
+    mc = cfg.moe
+    B, S, d = x.shape
+    E, G = mc.n_experts, n_groups
+    Tg = B * S // G
+    probe = x if isinstance(x, DTensor) else p.w_gate
+    mesh = probe.device_mesh
+    n = mesh.ndim
+    if moe_spec is not None:
+        g_dims, e_dims = _mesh_dims(mesh, moe_spec[0]), \
+            _mesh_dims(mesh, moe_spec[1])
+    else:
+        g_dims = [i for i, q in enumerate(getattr(x, "placements", ()))
+                  if isinstance(q, Shard) and q.dim == 0]
+        e_dims = [i for i, q in enumerate(getattr(p.w_gate, "placements",
+                                                  ())) if q == Shard(0)]
+    ng = math.prod(mesh.shape[i] for i in g_dims)
+    if G % ng or B % ng:
+        g_dims, ng = [], 1
+    ne = math.prod(mesh.shape[i] for i in e_dims)
+    if E % ne:
+        e_dims, ne = [], 1
+
+    def layout(dim_of: dict, partial=()) -> tuple:
+        out = [Replicate()] * n
+        for dims, tdim in dim_of.items():
+            for i in dims:
+                out[i] = Shard(tdim)
+        for i in partial:
+            out[i] = Partial()
+        return tuple(out)
+
+    def local(t, dim_of, partial):
+        # a replicated input's gradient is a partial sum over the mesh
+        # dims that split the work it feeds
+        return to_local(t, layout(dim_of), mesh,
+                        grad_placements=layout(dim_of, partial))
+
+    x_l = local(x, {tuple(g_dims): 0}, e_dims)
+    rep_partial = g_dims + e_dims
+    router = SimpleNamespace(
+        router=local(p.router, {}, rep_partial),
+        router_bias=local(p.router_bias, {}, rep_partial)
+        if mc.router == "sigmoid_ds3" else None)
+    xe, tos, w_slot = _moe_dispatch(router, cfg, x_l.reshape(G // ng, Tg, d))
+    C = xe.shape[2]
+    # this rank's experts: its block of the expert axis
+    coord = mesh.get_coordinate()
+    e_idx = 0
+    for i in e_dims:
+        e_idx = e_idx * mesh.shape[i] + coord[i]
+    el = E // ne
+    lo, hi = e_idx * el, (e_idx + 1) * el
+    ws = [local(w, {tuple(e_dims): 0}, g_dims)
+          for w in (p.w_gate, p.w_up, p.w_down)]
+    ye = _moe_experts(*ws, xe[:, lo:hi])
+    yt = _moe_combine(ye, tos[:, lo * C:hi * C], w_slot[:, lo * C:hi * C],
+                      Tg)
+    out_pl = list(layout({tuple(g_dims): 0}))
+    for i in e_dims:
+        out_pl[i] = Partial()
+    y = DTensor.from_local(yt.reshape(x_l.shape), mesh, tuple(out_pl),
+                           run_check=False, shape=x.shape,
+                           stride=_stride(x.shape))
+    if mc.n_shared:
+        y = y + apply_mlp(p.shared, x)
+    return y
+
+
+def _constrain(t: torch.Tensor, placements) -> torch.Tensor:
+    """``t`` redistributed to ``placements`` when it is a DTensor (the
+    reference's ``with_sharding_constraint``); a plain tensor as it is."""
+    if placements is None or not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def apply_moe(p: MoE, cfg: LMConfig, x: torch.Tensor, *,
+              n_groups: int = 1, moe_spec: tuple | None = None
+              ) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d).  GShard-style capacity dispatch with
+    groups: the B·S tokens are cut into ``n_groups`` groups (which must
+    divide B·S), each routing into its own per-expert buffer of
+    ``capacity`` slots; a (token, k) pair past its expert's capacity is
+    dropped (its weight counts for nothing).  Unused slots enter the
+    experts as zeros; the combine scatter-adds each slot's output, times
+    its weight, back onto its token (``index_add``).
+
+    On DTensors (a sharded step) it runs shard-locally,
+    :func:`_apply_moe_sharded`: ``moe_spec`` (group axes, expert axis)
+    names the layout of the (G, E, C, d) expert buffers, the reference's
+    sharding constraints on ``xe`` and ``ye``.  On plain tensors
+    ``moe_spec`` changes nothing."""
+    mc = cfg.moe
+    B, S, d = x.shape
+    G = n_groups
+    if (B * S) % G:
+        raise ConfigError(f"moe_groups={G} does not divide the {B * S} "
+                          f"tokens of the batch")
+    if isinstance(x, DTensor) or isinstance(p.w_gate, DTensor):
+        return _apply_moe_sharded(p, cfg, x, G, moe_spec)
+    Tg = B * S // G
+    xt = x.reshape(G, Tg, d)
+    xe, token_of_slot, w_slot = _moe_dispatch(p, cfg, xt)
+    ye = _moe_experts(p.w_gate, p.w_up, p.w_down, xe)
+    yt = _moe_combine(ye, token_of_slot, w_slot, Tg)
     if mc.n_shared:
         yt = yt + apply_mlp(p.shared, xt)
     return yt.reshape(B, S, d)

@@ -26,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.gnn import (MLP2, _live_rows, _remat, mlp2_apply,
+from repro_torch.distributed.sharding import flatten_axes
+from repro_torch.models.gnn import (MLP2, _live_rows, _remat, edgewise,
+                                    gather_rows, mlp2_apply, mlp2_axes,
                                     one_hot, segment_sum)
 from repro_torch.models.layers import dense_init
 from repro_torch.models.transformer import (float32_matmuls,
@@ -160,6 +162,17 @@ class NequIP(nn.Module):
         return getattr(self, "gaunt_" + "".join(map(str, key)))
 
 
+def nequip_axes(cfg: NequIPConfig) -> dict[str, tuple]:
+    """NequIP's logical axes (the reference's ``nequip_axes``)."""
+    return flatten_axes({"embed": (None, "ffn"),
+                         "layers": [{"radial": mlp2_axes(),
+                                     "self": {f"l{l}": (None, None)
+                                              for l in range(L_MAX + 1)},
+                                     "gate": (None, None)}
+                                    for _ in range(cfg.n_layers)],
+                         "head": mlp2_axes()})
+
+
 def init_nequip(cfg: NequIPConfig, generator: torch.Generator | None = None,
                 device=None) -> NequIP:
     return NequIP(cfg, *init_generator(generator, device))
@@ -184,10 +197,11 @@ def apply_nequip(p: NequIP, cfg: NequIPConfig, species, pos, senders,
         Rw = mlp2_apply(lp.radial, rbf).reshape(-1, len(P), C)  # (E, P, C)
         msg = {l: None for l in range(L_MAX + 1)}
         for pi, (l1, l2, l3) in enumerate(P):
-            f_j = feats[l1][senders]                        # (E, C, 2l1+1)
+            f_j = gather_rows(feats[l1], senders)           # (E, C, 2l1+1)
             # (E,C,a) x (E,b) x (a,b,k) -> (E,C,k), radially weighted
-            t = torch.einsum("eca,eb,abk->eck", f_j, Y[l2], gt[(l1, l2, l3)])
-            t = t * Rw[:, pi, :, None]
+            t = edgewise(lambda f, y, rw, g, pi=pi: torch.einsum(
+                "eca,eb,abk->eck", f, y, g) * rw[:, pi, :, None],
+                rows=(f_j, Y[l2], Rw), consts=(gt[(l1, l2, l3)],))
             msg[l3] = t if msg[l3] is None else msg[l3] + t
         new_feats = {}
         for l in range(L_MAX + 1):
@@ -208,11 +222,15 @@ def apply_nequip(p: NequIP, cfg: NequIPConfig, species, pos, senders,
         feats = ((h0 * live)[:, :, None],
                  torch.zeros((n1, C, 3), dtype=dt, device=pos.device),
                  torch.zeros((n1, C, 5), dtype=dt, device=pos.device))
-        d_vec = pos[senders] - pos[receivers]
-        r = torch.sqrt(torch.sum(d_vec * d_vec, dim=-1) + 1e-12)
-        r_hat = d_vec / r[:, None]
-        Y = real_sph_harm(r_hat)                     # [(E, 2l+1)]
-        rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff)   # (E, n_rbf)
+        d_vec = gather_rows(pos, senders) - gather_rows(pos, receivers)
+
+        def geometry(d_vec):
+            r = torch.sqrt(torch.sum(d_vec * d_vec, dim=-1) + 1e-12)
+            r_hat = d_vec / r[:, None]
+            # [(E, 2l+1)] and the (E, n_rbf) radial basis
+            return (*real_sph_harm(r_hat), bessel_rbf(r, cfg.n_rbf,
+                                                      cfg.cutoff))
+        *Y, rbf = edgewise(geometry, rows=(d_vec,))
         for lp in p.layers:
             feats = _remat(layer, *feats, lp) if remat else layer(*feats, lp)
         node_e = mlp2_apply(p.head, feats[0][:, :, 0])[:, 0] * live[:, 0]

@@ -13,9 +13,11 @@ window cache for each local layer, the compressed latent for MLA).  The
 reference scans over stacked layers (``lax.scan``, its
 ``_uniform_cache`` choosing where); the port loops over its blocks in
 Python for every config.  Remat (``forward(remat=True)``) runs each layer
-under ``torch.utils.checkpoint``; the reference's dry-run knobs
-(``set_act_spec``, ``set_unroll``, ``moe_spec``) belong to the model mesh
-(ROADMAP.md queue 1 item 13e).
+under ``torch.utils.checkpoint``.  The reference's dry-run knobs are
+here: :func:`set_act_spec` (the residual stream's DTensor layout),
+``layers.set_unroll`` (a no-op: the port's loops are Python loops) and
+``moe_spec``; :func:`lm_axes` and :func:`layer_axes` are its sharding
+rules.
 
 Training works on the reference's pytree layout: :func:`reference_leaves`
 gives the parameters as ``{path: tensor}`` with each layer group stacked
@@ -49,14 +51,45 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.bvss import resolve_device
+from repro_torch.distributed.sharding import flatten_axes
 from repro_torch.errors import ConfigError
 from repro_torch.models.layers import (GQA, MLA, MLP, LMConfig, MoE,
-                                       _zeros, apply_gqa, apply_mla,
-                                       apply_mlp, apply_moe, dense_init,
-                                       rms_norm)
+                                       _constrain, _zeros, apply_gqa,
+                                       to_local,
+                                       apply_mla, apply_mlp, apply_moe,
+                                       dense_init, gqa_axes, mla_axes,
+                                       mlp_axes, moe_axes, rms_norm,
+                                       take_rows)
+
+# The placements the embedding output is redistributed to when it is a
+# DTensor (the reference's ``_ACT_SPEC``: with the embedding dim sharded
+# over "data", DeepSeek's lookup output would otherwise inherit a
+# d-sharded layout that fights the batch sharding).  The dry run's cells
+# set it (``repro_torch.configs.families``); None changes nothing.
+_ACT_SPEC = None
+
+
+def set_act_spec(spec):
+    """``spec``: None, a :class:`~repro_torch.distributed.sharding.
+    Sharding`, or a tuple of DTensor placements."""
+    global _ACT_SPEC
+    _ACT_SPEC = getattr(spec, "placements", spec)
+
+
+def _constrain_act(x):
+    return _constrain(x, _ACT_SPEC)
+
+
+def _embed(model, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``: ``embed[tokens]``, shard-locally
+    on DTensors (:func:`~repro_torch.models.layers.take_rows`)."""
+    if isinstance(model.embed, DTensor) or isinstance(tokens, DTensor):
+        return take_rows(model.embed, tokens)
+    return model.embed[tokens]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,28 +156,40 @@ class Block(nn.Module):
         self.ln2 = _zeros(cfg.d_model, device)
 
 
+def layer_axes(cfg: LMConfig, is_moe: bool) -> dict:
+    """One layer's logical axes, a nested dict (the reference's
+    ``layer_axes``)."""
+    attn = mla_axes(cfg) if cfg.attn == "mla" else gqa_axes(cfg)
+    ffn = moe_axes(cfg) if is_moe else mlp_axes()
+    return {"attn": attn, "ffn": ffn, "ln1": (None,), "ln2": (None,)}
+
+
 def apply_layer(p: Block, cfg: LMConfig, x, q_pos, window, *,
                 kv_cache=None, moe_groups: int = 1,
-                capture_kv: bool = False):
+                capture_kv: bool = False, moe_spec: tuple | None = None):
     attn_fn = apply_mla if isinstance(p.attn, MLA) else apply_gqa
+    # the residual stream keeps the activation layout (a DTensor's
+    # partial sums are reduced here, not scattered over the sequence)
+    x = _constrain_act(x)
     h, new_cache = attn_fn(p.attn, cfg, rms_norm(x, p.ln1, cfg.norm_eps),
                            q_pos, window=window, kv_cache=kv_cache,
                            capture_kv=capture_kv)
-    x = x + h
+    x = _constrain_act(x + h)
     z = rms_norm(x, p.ln2, cfg.norm_eps)
     if isinstance(p.ffn, MoE):
-        return x + apply_moe(p.ffn, cfg, z, n_groups=moe_groups), new_cache
+        return x + apply_moe(p.ffn, cfg, z, n_groups=moe_groups,
+                             moe_spec=moe_spec), new_cache
     return x + apply_mlp(p.ffn, z), new_cache
 
 
 def _remat_layer(p: Block, cfg: LMConfig, x, q_pos, window,
-                 moe_groups: int):
+                 moe_groups: int, moe_spec: tuple | None = None):
     """One layer under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint``): only its input is kept for the backward pass,
     which runs the layer again."""
     return checkpoint(
         lambda x_: apply_layer(p, cfg, x_, q_pos, window,
-                               moe_groups=moe_groups)[0],
+                               moe_groups=moe_groups, moe_spec=moe_spec)[0],
         x, use_reentrant=False, preserve_rng_state=False)
 
 
@@ -194,8 +239,14 @@ class TransformerLM(nn.Module):
         return self.embed.device
 
     def head_weight(self) -> torch.Tensor:
-        """(d, V): the tied embedding's transpose or the separate head."""
-        return self.embed.T if self.cfg.tie_embeddings else self.head
+        """(d, V): the tied embedding's transpose or the separate head.
+        A DTensor embedding's transpose is made contiguous: DTensor's
+        einsum backward views its local gradient, which a transposed
+        local block cannot give."""
+        if not self.cfg.tie_embeddings:
+            return self.head
+        head = self.embed.T
+        return head.contiguous() if isinstance(head, DTensor) else head
 
 
 def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
@@ -212,7 +263,9 @@ def model_device(generator: torch.Generator, device) -> torch.device:
     (the card when None; no card is a
     :class:`~repro_torch.errors.ConfigError`), which must be
     ``generator``'s."""
-    device = resolve_device(device)
+    device = _resolve_model_device(device)
+    if device.type == "meta":
+        return device
     if generator.device.type != device.type:
         raise ConfigError(
             f"the generator is on {generator.device}, the model on "
@@ -226,10 +279,20 @@ def init_generator(generator: torch.Generator | None, device
     """An ``init_*`` entry point's (generator, device): the card unless
     the caller asks for the CPU, and a fresh seed-0 generator there when
     ``generator`` is None."""
-    device = resolve_device(device)
+    device = _resolve_model_device(device)
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+        generator = torch.Generator(
+            device="cpu" if device.type == "meta" else device).manual_seed(0)
     return generator, device
+
+
+def _resolve_model_device(device) -> torch.device:
+    """:func:`~repro_torch.core.bvss.resolve_device`, and ``"meta"``: a
+    model of shapes alone (the dry run's), whose weights are drawn from
+    nothing and allocate nothing."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
 
 
 def _view(module: nn.Module) -> nn.Module:
@@ -261,23 +324,26 @@ def with_capacity_factor(model: TransformerLM, factor: float
 
 def forward(model: TransformerLM, tokens: torch.Tensor, *,
             compute_dtype=torch.bfloat16, moe_groups: int = 1,
-            remat: bool = True, skip_logits: bool = False):
+            remat: bool = True, skip_logits: bool = False,
+            moe_spec: tuple | None = None):
     """tokens (B, S) int -> (logits (B, S, V) float32 | None, h).  With
     ``remat`` (and autograd recording) each layer runs under
-    ``torch.utils.checkpoint``."""
+    ``torch.utils.checkpoint``.  ``moe_spec`` goes to every MoE layer
+    (:func:`~repro_torch.models.layers.apply_moe`)."""
     cfg = model.cfg
     B, S = tokens.shape
     remat = remat and torch.is_grad_enabled()
     with float32_matmuls(compute_dtype):
-        x = model.embed[tokens].to(compute_dtype)
+        x = _constrain_act(_embed(model, tokens).to(compute_dtype))
         q_pos = torch.arange(S, device=x.device).expand(B, S)
         for layer, blk in enumerate(model.blocks):
             win = _window_code(cfg, layer)
             if remat:
-                x = _remat_layer(blk, cfg, x, q_pos, win, moe_groups)
+                x = _remat_layer(blk, cfg, x, q_pos, win, moe_groups,
+                                 moe_spec)
             else:
                 x, _ = apply_layer(blk, cfg, x, q_pos, win,
-                                   moe_groups=moe_groups)
+                                   moe_groups=moe_groups, moe_spec=moe_spec)
         x = rms_norm(x, model.final_norm, cfg.norm_eps)
         if skip_logits:
             return None, x
@@ -295,11 +361,13 @@ def mtp_hidden(model: TransformerLM, h: torch.Tensor, tokens: torch.Tensor,
     cfg, mp = model.cfg, model.mtp
     B, S, _ = h.shape
     with float32_matmuls(compute_dtype):
-        h_in = rms_norm(h[:, :-1], mp.norm_h, cfg.norm_eps)
-        e_in = rms_norm(model.embed[tokens[:, 1:]].to(compute_dtype),
-                        mp.norm_e, cfg.norm_eps)
-        z = torch.einsum("bsd,dk->bsk", torch.cat([h_in, e_in], dim=-1),
-                         mp.proj.to(compute_dtype))
+        h_in = rms_norm(_constrain_act(h[:, :-1]), mp.norm_h, cfg.norm_eps)
+        e_in = rms_norm(_constrain_act(
+            _embed(model, tokens[:, 1:]).to(compute_dtype)),
+            mp.norm_e, cfg.norm_eps)
+        z = _constrain_act(torch.einsum(
+            "bsd,dk->bsk", torch.cat([h_in, e_in], dim=-1),
+            mp.proj.to(compute_dtype)))
         q_pos = torch.arange(S - 1, device=h.device).expand(B, S - 1)
         z, _ = apply_layer(mp.block, cfg, z, q_pos, 0)
         return rms_norm(z, model.final_norm, cfg.norm_eps)
@@ -321,6 +389,8 @@ def _chunked_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
         return -torch.take_along_dim(lp, tc[..., None], dim=-1).sum()
 
     def run(xc, tc):
+        # a DTensor chunk keeps the activation layout, its gradient too
+        xc = _constrain_act(xc)
         if not torch.is_grad_enabled():
             return one(xc, tc)
         return checkpoint(one, xc, tc, use_reentrant=False,
@@ -338,14 +408,16 @@ def _chunked_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor, *,
             compute_dtype=torch.bfloat16, moe_groups: int = 1,
-            remat: bool = True, mtp_weight: float = 0.3) -> torch.Tensor:
+            remat: bool = True, mtp_weight: float = 0.3,
+            moe_spec: tuple | None = None) -> torch.Tensor:
     """Next-token cross-entropy (plus ``mtp_weight`` times the MTP head's
     t+2 cross-entropy with ``cfg.mtp``), streaming over sequence chunks
     so full-vocabulary logits never stay in memory."""
     cfg = model.cfg
     with float32_matmuls(compute_dtype):
         _, h = forward(model, tokens, compute_dtype=compute_dtype,
-                       moe_groups=moe_groups, remat=remat, skip_logits=True)
+                       moe_groups=moe_groups, remat=remat, skip_logits=True,
+                       moe_spec=moe_spec)
         head = model.head_weight().to(compute_dtype)
         loss = _chunked_nll(h[:, :-1], head, tokens[:, 1:])
         if cfg.mtp:
@@ -364,8 +436,8 @@ def make_cache(cfg: LMConfig, batch: int, max_len: int,
     asks for the CPU): ``k``/``v`` (B, L, Hkv, Dh) for GQA, the latent
     ``c_kv`` (B, L, kv_lora) and ``k_rope`` (B, L, 1, qk_rope) for MLA;
     local layers get a rotating window cache of ``min(max_len, window)``
-    slots."""
-    device = resolve_device(device)
+    slots.  ``device="meta"`` gives the shapes alone."""
+    device = _resolve_model_device(device)
     caches = []
     for layer in range(cfg.n_layers):
         w = cfg.layer_window(layer)
@@ -400,6 +472,37 @@ def cache_len(cache: dict) -> int:
     return cache[_cache_names(cache)[0]].shape[1]
 
 
+def _put_slots(cache: DTensor, wi, val) -> DTensor:
+    """``cache`` (B, L, ...) with row ``wi[b]`` of example ``b`` set to
+    ``val[b]``, in a new DTensor, shard-locally: each rank writes the
+    rows of its own examples (a batch split) that fall in its own slots
+    (a split of the length)."""
+    mesh = cache.device_mesh
+    pl = cache.placements
+    n = mesh.ndim
+    batch = tuple(Shard(0) if p == Shard(0) else Replicate()
+                  for p in pl)
+    # val lacks the length dim: a split of dim d > 1 is dim d - 1 there
+    val_pl = tuple(Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else
+                   batch[i] for i, p in enumerate(pl))
+    c_l = cache.to_local()
+    v_l = to_local(val, val_pl, mesh)
+    w_l = to_local(wi, batch, mesh)
+    block = 0
+    for i in range(n):
+        if pl[i] == Shard(1):
+            block = block * mesh.shape[i] + mesh.get_coordinate()[i]
+    slot = w_l - block * c_l.shape[1]
+    hit = (slot >= 0) & (slot < c_l.shape[1])
+    slot = torch.where(hit, slot, 0)
+    b_l = torch.arange(c_l.shape[0], device=c_l.device)
+    keep = c_l[b_l, slot]
+    mask = hit.reshape(-1, *([1] * (keep.dim() - 1)))
+    upd = c_l.index_put((b_l, slot), torch.where(mask, v_l, keep))
+    return DTensor.from_local(upd, mesh, pl, run_check=False,
+                              shape=cache.shape, stride=cache.stride())
+
+
 def _cache_cb(cache: dict, pos: torch.Tensor, batch: int):
     """pos (B,): per-slot decode positions (continuous batching).  The
     callback writes the new payload at each example's slot ``pos % L`` of
@@ -412,8 +515,10 @@ def _cache_cb(cache: dict, pos: torch.Tensor, batch: int):
         new_cache = {}
         outs = []
         for name, arr in zip(_cache_names(cache), new):
-            upd = cache[name].index_put(
-                (b_idx, wi), arr[:, 0].to(cache[name].dtype))
+            val = arr[:, 0].to(cache[name].dtype)
+            upd = _put_slots(cache[name], wi, val) \
+                if isinstance(cache[name], DTensor) else \
+                cache[name].index_put((b_idx, wi), val)
             new_cache[name] = upd
             outs.append(upd)
         k_pos, valid = _slot_positions(pos, L)
@@ -435,7 +540,7 @@ def decode_step(model: TransformerLM, caches: list[dict],
     pos = pos.expand(B) if pos.dim() == 0 else pos
     new_caches = []
     with float32_matmuls(compute_dtype):
-        x = model.embed[tokens].to(compute_dtype)
+        x = _embed(model, tokens).to(compute_dtype)
         q_pos = pos[:, None]
         for layer, blk in enumerate(model.blocks):
             cb = _cache_cb(caches[layer], pos, B)
@@ -463,7 +568,7 @@ def prefill(model: TransformerLM, tokens: torch.Tensor, *, max_len: int = 0,
                         device=tokens.device)
     new_caches = []
     with float32_matmuls(compute_dtype):
-        x = model.embed[tokens].to(compute_dtype)
+        x = _embed(model, tokens).to(compute_dtype)
         q_pos = torch.arange(S, device=x.device).expand(B, S)
         for layer, blk in enumerate(model.blocks):
             x, kv = apply_layer(blk, cfg, x, q_pos, _window_code(cfg, layer),
@@ -477,16 +582,19 @@ def prefill(model: TransformerLM, tokens: torch.Tensor, *, max_len: int = 0,
 
 def _fill_cache(cache: dict, kv: tuple, S: int) -> dict:
     """Write the last min(S, L) prompt positions into rotating-slot order
-    (slot of absolute position p is p % L), in new tensors."""
+    (slot of absolute position p is p % L), in new tensors: the tail
+    rolled into place when it fills the cache, else the tail then the
+    cache's slots past it (position p < S < L sits at slot p)."""
     L = cache_len(cache)
     T = min(S, L)
     start = S - T
-    slots = torch.remainder(start + torch.arange(T, device=kv[0].device), L)
     out = {}
     for name, arr in zip(_cache_names(cache), kv):
-        upd = cache[name].clone()
-        upd[:, slots] = arr[:, -T:].to(upd.dtype)
-        out[name] = upd
+        tail = arr[:, -T:].to(cache[name].dtype)
+        if T < L:
+            tail = torch.cat([tail, cache[name][:, T:]], dim=1)
+        out[name] = torch.roll(tail, shifts=start % L, dims=1) \
+            if start % L else tail
     return out
 
 
@@ -563,6 +671,23 @@ def reference_leaves(model: nn.Module) -> dict[str, torch.Tensor]:
         return {path: ps[0][1].detach().clone() if ps[0][0] is None
                 else torch.stack([p.detach() for _, p in ps])
                 for path, ps in groups.items()}
+
+
+def lm_axes(cfg: LMConfig) -> dict[str, tuple]:
+    """Every leaf's logical axes, ``{path: axes}`` over
+    :func:`reference_leaves`' paths (the reference's ``lm_axes``, each
+    layer group's leaves led by ``"layers"``)."""
+    tree: dict = {"embed": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        tree["head"] = ("embed", "vocab")
+    tree["blocks"] = [
+        {k: ("layers",) + v
+         for k, v in flatten_axes(layer_axes(cfg, grp.is_moe)).items()}
+        for grp in layer_groups(cfg)]
+    if cfg.mtp:
+        tree["mtp"] = {"proj": ("embed", None), "norm_h": (None,),
+                       "norm_e": (None,), "block": layer_axes(cfg, False)}
+    return flatten_axes(tree)
 
 
 def bind(model: nn.Module, leaves: dict[str, torch.Tensor]) -> nn.Module:

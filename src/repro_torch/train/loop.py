@@ -25,7 +25,9 @@ import time
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.errors import ConfigError
 from repro_torch.ft.checkpoint import AsyncCheckpointer, restore_latest
 from repro_torch.ft.manager import FailureInjector, PrefetchQueue
 from repro_torch.models.transformer import float32_matmuls
@@ -93,8 +95,24 @@ def value_and_grad(loss_fn: Callable, params: dict, batch):
 
 
 def _micro(batch, n: int, i: int):
-    """Micro-batch ``i`` of ``n``: rows ``[i · B/n, (i+1) · B/n)``."""
+    """Micro-batch ``i`` of ``n``: rows ``[i · B/n, (i+1) · B/n)``.  A
+    DTensor batch sharded on its rows takes rows ``[i · b/n, (i+1) · b/n)``
+    of each rank's block of b rows, so that no rank gathers another's
+    (every rank runs its own micro-batches, as under data parallelism)."""
     rows = batch.shape[0] // n
+    if isinstance(batch, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 0 for p in batch.placements):
+        local = batch.to_local()
+        if local.shape[0] % n:
+            raise ConfigError(
+                f"{local.shape[0]} rows a rank do not split into {n} "
+                f"micro-batches")
+        b = local.shape[0] // n
+        shape = (rows, *batch.shape[1:])
+        return DTensor.from_local(
+            local[i * b:(i + 1) * b], batch.device_mesh, batch.placements,
+            run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
     return batch[i * rows:(i + 1) * rows]
 
 
@@ -105,14 +123,17 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
         if tcfg.accum_steps > 1:
             n = tcfg.accum_steps
             losses = []
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
-                     for k, p in state.params.items()}
+            grads = None
             for i in range(n):
                 mloss, mgrads = value_and_grad(loss_fn, state.params,
                                                _micro(batch, n, i))
                 losses.append(mloss)
-                grads = {k: g + mgrads[k] for k, g in grads.items()}
+                # float32 sums, the first micro-batch's gradient their start
+                # (0 + g is g: one add fewer, and on DTensor leaves every
+                # add meets the same layouts)
+                grads = {k: g.float() for k, g in mgrads.items()} \
+                    if grads is None else \
+                    {k: g + mgrads[k] for k, g in grads.items()}
             loss = sum(losses) / n
             grads = {k: g / n for k, g in grads.items()}
         else:

@@ -79,8 +79,8 @@ class OptState(NamedTuple):
 
 
 def adamw_init(params: Params, cfg: AdamWConfig) -> OptState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+    def zeros(p):   # zeros_like keeps a DTensor leaf's placements
+        return torch.zeros_like(p, dtype=cfg.moment_dtype)
     return OptState(step=_step0(), m={k: zeros(p) for k, p in params.items()},
                     v={k: zeros(p) for k, p in params.items()})
 

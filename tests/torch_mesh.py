@@ -784,3 +784,261 @@ def program_session_2d(rank: int, world: int) -> dict:
             rt, gen.rmat(7, 8, seed=2), opts((2, 1)),
             rt.FaultPlan(stall_butterfly_stage=0))
     return out
+
+
+# ---------------------------------------------------------------------------
+# model mesh program (tests/test_torch_model_mesh.py)
+# ---------------------------------------------------------------------------
+RING_SHAPES = ((32, 64), (64, 48))     # x (M, K), w (K, N)
+PSUM_RANKS = 4
+STEP_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "deepseek-v3-671b", "fm", "gin-tu")
+RESTORE_RANKS = (2, 4)
+
+
+def ring_operands():
+    rng = np.random.default_rng(0)
+    return (rng.normal(size=RING_SHAPES[0]).astype(np.float32),
+            rng.normal(size=RING_SHAPES[1]).astype(np.float32))
+
+
+def psum_operands():
+    """Each rank's gradient (row r) and residual of ``compressed_psum``."""
+    rng = np.random.default_rng(0)
+    g = rng.normal(size=(PSUM_RANKS, 64)).astype(np.float32)
+    r = (rng.normal(size=(PSUM_RANKS, 64)) * 0.01).astype(np.float32)
+    return g, r
+
+
+def gpipe_operands():
+    rng = np.random.default_rng(0)
+    return ((rng.normal(size=(4, 16, 16)) * 0.3).astype(np.float32),
+            rng.normal(size=(8, 16)).astype(np.float32))
+
+
+def step_setup(arch_id: str):
+    """(model, loss_fn(params, batch), batch of numpy arrays, batch
+    placements by key as spec tuples) of the sharded-step case: the
+    arch's smoke model in float32, drawn from seed 0 on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.families import gnn_init, gnn_single_loss
+    from repro_torch.models import fm as FM
+    from repro_torch.models import transformer as T
+    arch = get_arch(arch_id)
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(1)
+    if arch.family == "lm":
+        cfg = arch.smoke_cfg
+        model = T.init_lm(cfg, gen, device="cpu")
+        moe = cfg.is_moe
+        tokens = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int64)
+
+        def loss_fn(p, b):
+            return T.lm_loss(T.bind(model, p), b,
+                             compute_dtype=torch.float32, remat=True,
+                             moe_groups=2 if moe else 1,
+                             moe_spec=(("data",), "model") if moe else None)
+        return model, loss_fn, tokens, ("data", None)
+    if arch.family == "recsys":
+        cfg = arch.smoke_cfg
+        model = FM.init_fm(cfg, gen, device="cpu")
+        batch = {"ids": rng.integers(0, cfg.rows_per_field,
+                                     (8, cfg.n_fields)).astype(np.int32),
+                 "labels": rng.integers(0, 2, 8).astype(np.float32)}
+
+        def loss_fn(p, b):
+            return FM.fm_loss(T.bind(model, p), cfg, b["ids"], b["labels"])
+        return model, loss_fn, batch, {"ids": ("data", None),
+                                       "labels": ("data",)}
+    arch = dataclasses.replace(arch, model_cfg=arch.smoke_cfg)
+    model = gnn_init(arch, gen, device="cpu")
+    n, e = 24, 64
+    cfg = arch.smoke_cfg
+    batch = {"node_feat": rng.normal(size=(n + 1, cfg.d_in)).astype(
+                 np.float32),
+             "senders": rng.integers(0, n, e).astype(np.int32),
+             "receivers": rng.integers(0, n, e).astype(np.int32),
+             "labels": rng.integers(0, cfg.n_classes, n + 1).astype(
+                 np.int32),
+             "train_mask": rng.random(n + 1) < 0.5}
+    batch["node_feat"][n] = 0
+    loss1 = gnn_single_loss(arch, remat=True)
+
+    def loss_fn(p, b):
+        return loss1(T.bind(model, p), b)
+    edges = (("data", "model"),)
+    return model, loss_fn, batch, {"node_feat": (), "labels": (),
+                                   "train_mask": (), "senders": edges,
+                                   "receivers": edges}
+
+
+def _step(loss_fn, leaves, batch):
+    """One step of SGD with momentum at a learning rate of 0.1: an
+    updated leaf differs from the single-device one by 0.1 times the
+    gradients' difference (AdamW's first steps move every entry by
+    about ±lr whatever its gradient, so a rounding-level difference of
+    a near-zero gradient entry would flip a whole lr)."""
+    from repro_torch.train.loop import (TrainConfig, init_train_state,
+                                        make_train_step)
+    tcfg = TrainConfig(optimizer="sgd", peak_lr=0.1, warmup=0)
+    return make_train_step(loss_fn, tcfg)(init_train_state(leaves, tcfg),
+                                          batch)
+
+
+def sharded_step_case(arch_id: str, mesh) -> dict:
+    """The port's step on the arch's smoke model, single-device and on
+    DTensor leaves over ``mesh``: the losses and the largest difference
+    of each updated leaf, over that leaf's largest |value|."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.families import gnn_axes
+    from repro_torch.distributed.sharding import (Sharding, shard_tensor,
+                                                  tree_shardings)
+    from repro_torch.models import fm as FM
+    from repro_torch.models import transformer as T
+    arch = get_arch(arch_id)
+    model, loss_fn, batch, bspec = step_setup(arch_id)
+    leaves = T.reference_leaves(model)
+    if arch.family == "lm":
+        axes = T.lm_axes(arch.smoke_cfg)
+    elif arch.family == "recsys":
+        axes = FM.fm_axes(arch.smoke_cfg)
+    else:
+        import dataclasses
+        axes = gnn_axes(dataclasses.replace(arch, model_cfg=arch.smoke_cfg))
+    plain_b = torch.from_numpy(batch) if isinstance(batch, np.ndarray) \
+        else {k: torch.from_numpy(v) for k, v in batch.items()}
+    plain_state, plain_m = _step(loss_fn, leaves, plain_b)
+    shard = tree_shardings(axes, leaves, arch.param_rules, mesh)
+    d_leaves = {k: shard_tensor(v, shard[k]) for k, v in leaves.items()}
+    if isinstance(plain_b, dict):
+        d_batch = {k: shard_tensor(v, Sharding(mesh, bspec[k]))
+                   for k, v in plain_b.items()}
+    else:
+        d_batch = shard_tensor(plain_b, Sharding(mesh, bspec))
+    T.set_act_spec(Sharding(mesh, (("data",), None, None))
+                   if arch.family == "lm" else None)
+    try:
+        with implicit_replication():
+            state, metrics = _step(loss_fn, d_leaves, d_batch)
+            loss = metrics["loss"]
+            loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                         else loss)
+            got = {k: v.full_tensor() for k, v in state.params.items()}
+    finally:
+        T.set_act_spec(None)
+    rel = {k: float((got[k] - plain_state.params[k]).abs().max()
+                    / plain_state.params[k].abs().max().clamp(min=1e-30))
+           for k in got}
+    specs = {k: shard[k].spec for k in shard}
+    return {"loss": loss, "plain_loss": float(plain_m["loss"]),
+            "rel": rel, "specs": specs}
+
+
+def restore_tree():
+    """The saved tree of the resharded restore: the qwen3 smoke model's
+    leaves, one of them in bfloat16."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch("qwen3-0.6b").smoke_cfg
+    leaves = T.reference_leaves(T.init_lm(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    leaves["final_norm"] = (leaves["final_norm"] + 0.5).to(torch.bfloat16)
+    return leaves
+
+
+def program_model_mesh(rank: int, world: int) -> dict:
+    """The model-mesh cases: the ring matmul on 8 ranks, compressed_psum
+    on 4, GPipe on a (4, 2) mesh, the sharded steps on (2, 2) and the
+    resharded restore on 2 and 4 ranks."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import comm_ledger
+    from repro_torch.distributed.collectives import make_overlap_matmul
+    from repro_torch.distributed.pipeline import bubble_fraction, make_gpipe
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.ft.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.compression import compressed_psum
+    out: dict = {}
+
+    def mesh_of(shape, names):
+        return DeviceMesh("cpu", torch.arange(int(np.prod(shape))).reshape(
+            shape), mesh_dim_names=names)
+
+    # ring all-gather matmul over 8 ranks
+    ring = mesh_of((world,), ("model",))
+    x, w = ring_operands()
+    kb, nb = x.shape[1] // world, w.shape[1] // world
+    with comm_ledger() as events:
+        y = make_overlap_matmul(ring, "model")(
+            torch.from_numpy(x[:, rank * kb:(rank + 1) * kb]),
+            torch.from_numpy(w[:, rank * nb:(rank + 1) * nb]))
+    out["ring"] = y.numpy()
+    out["ring_ledger"] = events
+
+    # compressed_psum over the first 4 ranks
+    psum = mesh_of((PSUM_RANKS,), ("data",))
+    if rank < PSUM_RANKS:
+        g, r = psum_operands()
+        mean, new_res = compressed_psum(
+            {"g": torch.from_numpy(g[rank])},
+            {"g": torch.from_numpy(r[rank])}, psum, ("data",))
+        out["psum"] = (mean["g"].numpy(), new_res["g"].numpy())
+
+    # GPipe over the "pod" axis of a (4, 2) mesh
+    pipe = mesh_of((4, 2), ("pod", "data"))
+    ws, xp = gpipe_operands()
+    stage = pipe.get_local_rank("pod")
+    run = make_gpipe(pipe, lambda p, v: torch.tanh(v @ p), n_micro=4,
+                     axis="pod")
+    out["gpipe"] = run(torch.from_numpy(ws[stage]),
+                       torch.from_numpy(xp)).numpy()
+    out["bubble"] = bubble_fraction(4, 4)
+
+    # the sharded steps on a (2, 2) mesh
+    grid = make_test_mesh(2, 2)
+    if rank < 4:
+        out["steps"] = {a: sharded_step_case(a, grid) for a in STEP_ARCHS}
+
+    # save at world size 1, restore on 2 and 4 ranks
+    path = [tempfile.mkdtemp() if rank == 0 else None]
+    dist.broadcast_object_list(path, src=0)
+    tree = restore_tree()
+    if rank == 0:
+        save_checkpoint(path[0], 7, tree)
+    dist.barrier()
+    from repro_torch.configs import get_arch
+    arch = get_arch("qwen3-0.6b")
+    for P in RESTORE_RANKS:
+        mesh = mesh_of((P // 2, 2), ("data", "model")) if P == 4 else \
+            mesh_of((1, P), ("data", "model"))
+        if rank >= P:
+            continue
+        rules = dict(arch.param_rules, embed="data")
+        shard = tree_shardings(T.lm_axes(arch.smoke_cfg), tree, rules, mesh)
+        got, manifest = restore_checkpoint(
+            os.path.join(path[0], "step_0000000007"), tree,
+            shardings=shard)
+        out[("restore", P)] = {
+            "coord": list(mesh.get_coordinate()),
+            "specs": {k: shard[k].spec for k in shard},
+            "blocks": {k: v.to_local().float().numpy()
+                       if v.dtype == torch.bfloat16 else v.to_local().numpy()
+                       for k, v in got.items()},
+            "dtypes": {k: str(v.dtype) for k, v in got.items()},
+            "step": manifest["step"]}
+    dist.barrier()
+    return out
