@@ -1374,13 +1374,13 @@ def wave_phase(torch, sess, name: str, g, sources, card: str, oracle
     """One ``levels_batch`` call: every answer equal to the oracle; wall
     time, levels run, host copies and push/pull levels from the engine."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    stats = sess._ms.stats
-    before = dict(stats)
+    before = sess.counters()["wave"]
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lvs = sess.levels_batch(sources)            # ends in host copies
     wall_s = time.perf_counter() - t0
+    stats = sess.counters()["wave"]
     counts = launch_counts()
     require_launches(counts, name, ("bvss_spmm",))
     for s, lv in zip(sources, lvs):
@@ -5256,6 +5256,7 @@ def main() -> None:
     from repro_torch.core.multi_source import make_multi_source_bfs
     from repro_torch.kernels import (_build, launch_counts, push_vss_kernel,
                                      reset_launch_counts)
+    from repro_torch import tracing
 
     # phase 1: build and identify
     smi = subprocess.run(
@@ -5266,7 +5267,12 @@ def main() -> None:
     emit({"nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device_count": torch.cuda.device_count()})
-    build_s = _build.build_all()
+    # the kernels.build span's length (0 when every library was built)
+    tracing.enable()
+    _build.build_all()
+    tracing.disable()
+    build_s = sum(s.end_ns - s.start_ns for s in tracing.drain()
+                  if s.name == "kernels.build") / 1e9
     emit({"phase": "build", "build_s": build_s,
           "libraries": [_build.library_path(s).name for s in _build.SOURCES]})
 

@@ -23,7 +23,9 @@ ONE device-to-host copy that brings back everything the host decides
 with: the live VSS count, the per-column liveness and, when the engine
 can push, the direction scalars (union-frontier popcount, total frontier
 bits, unvisited entries).  Each engine counts its host copies in
-``stats["host_syncs"]``, and its pull and push levels.
+``stats["host_syncs"]``, and its pull and push levels; over its pull
+levels it adds up the launched queue width (``pull_width``) and the live
+VSSs in it (``pull_live``), the rest being dummy padding.
 
 Device state is updated in place (the reference returns new arrays); a
 state must not be used again after it was passed to ``insert``,
@@ -90,6 +92,7 @@ from repro_torch.errors import ConfigError
 from repro_torch.graphs import Graph
 from repro_torch.kernels import bvss_spmm, bvss_spmm_w, bvss_spmm_w_local
 from repro_torch.kernels.ref import bvss_spmm_ref, bvss_spmm_w_ref, pack_words
+from repro_torch.tracing import span
 
 
 def _union_words(F: torch.Tensor) -> torch.Tensor:
@@ -200,7 +203,9 @@ class MSEngine:
     col_live: Callable    # (state) -> (S,) bool host array, frontier
                           # non-empty (read from the device)
     levels_of: Callable   # (state, slot or slots) -> levels on the device
-    stats: dict           # host copies, pull levels and push levels run
+    stats: dict           # host copies, pull levels and push levels run,
+                          # and over the pull levels the launched queue
+                          # width and the live VSSs in it
     paths_of: Callable | None = None
                           # (state, slot) -> (n,) σ path counts on the
                           # device; None unless built with track_sigma
@@ -287,7 +292,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
     all_sets = torch.arange(p.n_sets, dtype=torch.int32, device=device)
     cols = torch.arange(S, dtype=torch.int64, device=device)
     one = torch.ones((), dtype=torch.uint8, device=device)
-    stats = {"host_syncs": 0, "pull_levels": 0, "push_levels": 0}
+    stats = {"host_syncs": 0, "pull_levels": 0, "push_levels": 0,
+             "pull_width": 0, "pull_live": 0}
 
     def mark(state: MSState, ids: torch.Tensor,
              counts: torch.Tensor) -> MSState:
@@ -336,6 +342,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         fb = _frontier_bytes(state.F, dev.virtual_to_real[ids], sigma)
         counts = spmm(dev.masks[ids], fb, sigma=sigma)  # (w, spw, 32, S)
         stats["pull_levels"] += 1
+        stats["pull_width"] += width         # the rest of it is dummy VSSs
+        stats["pull_live"] += state.count
         mark(state, ids, counts)
         return sigma_sums(ids, xg) if track_sigma else None
 
@@ -431,7 +439,9 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         if can_push:
             scalars += [popcount(_union_words(state.F)).view(1),
                         popcount(state.F).view(1), unvisited]
-        host = torch.cat(scalars).tolist()
+        packed = torch.cat(scalars)
+        with span("wave.copy_wait"):
+            host = packed.tolist()
         stats["host_syncs"] += 1
         count = int(host[0])
         live_h = np.array(host[1:1 + S], dtype=bool)
@@ -552,7 +562,10 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         return requeue(state)
 
     def level_step(state: MSState) -> tuple[MSState, np.ndarray]:
-        state = finalize(step(state))
+        with span("wave.step"):
+            state = step(state)
+        with span("wave.finalize"):
+            state = finalize(state)
         return state, state.live
 
     def col_live(state: MSState) -> np.ndarray:
@@ -560,7 +573,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         live = (state.F != 0).any(dim=0)
         if p.is_2d:
             live = mesh_reduce(live.to(torch.int64), lay.groups) > 0
-        return live.cpu().numpy()
+        with span("wave.copy_wait"):
+            return live.cpu().numpy()
 
     def columns(x: torch.Tensor, slot) -> torch.Tensor:
         """Columns ``slot`` (an int, a list, or None for all) of the local
@@ -598,7 +612,9 @@ def leader_agreement(eng: MSEngine) -> Callable | None:
         if not lay.leader:
             x.zero_()
         eng.stats["host_syncs"] += 1
-        return mesh_reduce(x, lay.groups).tolist()
+        x = mesh_reduce(x, lay.groups)
+        with span("wave.copy_wait"):
+            return x.tolist()
 
     return agree
 
@@ -651,57 +667,65 @@ def drive_wave(eng: MSEngine,
     srcs = np.zeros(S, dtype=np.int64)
     mask = np.zeros(S, dtype=bool)
     while True:
-        mask[:] = False
-        for slot in range(S):
-            if not busy[slot]:
-                src = next_source(slot)
-                if src is None:
-                    continue
-                srcs[slot] = int(src)
-                mask[slot] = True
-        if agree is not None:
-            lead = agree([*mask.astype(np.int64), *np.where(mask, srcs, 0)])
-            if not (np.array_equal(lead[:S], mask)
-                    and np.array_equal(lead[S:], np.where(mask, srcs, 0))):
-                raise RuntimeError(
-                    f"drive_wave: this rank's refill ({mask}, {srcs}) "
-                    f"differs from rank 0's: the refill hooks must make "
-                    f"the same choices on every rank of the mesh")
-        for slot in np.flatnonzero(mask):
-            busy[slot] = True
-        if not any(busy):
-            return steps
-        if mask.any():  # one insert + requeue (one host copy) per round
-            st = eng.insert_batch(st, srcs, mask)
-        st, live = eng.level_step(st)
-        harvest = np.zeros(S, dtype=bool)
-        if should_harvest is not None:
+        with span("wave.refill"):
+            mask[:] = False
             for slot in range(S):
-                if busy[slot] and live[slot]:
-                    harvest[slot] = bool(should_harvest(slot))
-            if agree is not None and any(
-                    busy[s] and live[s] for s in range(S)):
-                harvest = np.array(agree(harvest.astype(np.int64)),
-                                   dtype=bool)
-        done: list[tuple[int, Callable | None]] = []
-        for slot in range(S):
-            if not busy[slot]:
-                continue
-            if not live[slot]:
-                done.append((slot, on_converged))
-                busy[slot] = False
-            elif harvest[slot]:
-                # harvest mid-flight: the stale column is overwritten by
-                # the next insert_batch (until then its frontier bits cost
-                # only the union queue a few extra live sets)
-                done.append((slot, on_harvested))
-                busy[slot] = False
+                if not busy[slot]:
+                    src = next_source(slot)
+                    if src is None:
+                        continue
+                    srcs[slot] = int(src)
+                    mask[slot] = True
+            if agree is not None:
+                lead = agree([*mask.astype(np.int64),
+                              *np.where(mask, srcs, 0)])
+                if not (np.array_equal(lead[:S], mask)
+                        and np.array_equal(lead[S:], np.where(mask, srcs, 0))):
+                    raise RuntimeError(
+                        f"drive_wave: this rank's refill ({mask}, {srcs}) "
+                        f"differs from rank 0's: the refill hooks must make "
+                        f"the same choices on every rank of the mesh")
+            for slot in np.flatnonzero(mask):
+                busy[slot] = True
+            if not any(busy):
+                return steps
+            if mask.any():  # one insert + requeue (one host copy) per round
+                st = eng.insert_batch(st, srcs, mask)
+        with span("wave.level"):
+            st, live = eng.level_step(st)
+        with span("wave.harvest"):
+            harvest = np.zeros(S, dtype=bool)
+            if should_harvest is not None:
+                for slot in range(S):
+                    if busy[slot] and live[slot]:
+                        harvest[slot] = bool(should_harvest(slot))
+                if agree is not None and any(
+                        busy[s] and live[s] for s in range(S)):
+                    harvest = np.array(agree(harvest.astype(np.int64)),
+                                       dtype=bool)
+            done: list[tuple[int, Callable | None]] = []
+            for slot in range(S):
+                if not busy[slot]:
+                    continue
+                if not live[slot]:
+                    done.append((slot, on_converged))
+                    busy[slot] = False
+                elif harvest[slot]:
+                    # harvest mid-flight: the stale column is overwritten
+                    # by the next insert_batch (until then its frontier
+                    # bits cost only the union queue a few extra live sets)
+                    done.append((slot, on_harvested))
+                    busy[slot] = False
+            if done:
+                cols = eng.levels_of(st, [s for s, _ in done])
+                with span("wave.copy_wait"):
+                    host = cols.cpu().numpy()
+                eng.stats["host_syncs"] += 1
         if done:
-            host = eng.levels_of(st, [s for s, _ in done]).cpu().numpy()
-            eng.stats["host_syncs"] += 1
-            for i, (slot, callback) in enumerate(done):
-                if callback is not None:
-                    callback(slot, np.ascontiguousarray(host[:, i]))
+            with span("wave.deliver"):
+                for i, (slot, callback) in enumerate(done):
+                    if callback is not None:
+                        callback(slot, np.ascontiguousarray(host[:, i]))
         steps += 1
         if max_steps is not None and steps > max_steps:
             raise RuntimeError(

@@ -38,6 +38,7 @@ from repro_torch.distributed.collectives import axis_size
 from repro_torch.errors import (BlestError, ConfigError, check_source,
                                 check_weights)
 from repro_torch.graphs import Graph, src_of_edges
+from repro_torch.tracing import span
 
 # paper §5: fixed threshold for switching to lazy vertex updates
 LAZY_UDIV_THRESHOLD = 25_000.0
@@ -199,72 +200,77 @@ def prepare(g: Graph, options: PrepareOptions | None = None,
     else:
         device = mesh_rank_device(o.mesh, o.device)
     w_arr = None if o.weights is None else check_weights(o.weights, g.m)
-    if o.order:
-        perm, kind = auto_order(g, sigma=o.sigma, w=o.w, seed=o.seed)
-        g_ord = g.permute_fast(perm)
-    else:
-        perm, kind = np.arange(g.n, dtype=np.int64), "natural"
-        g_ord = g
-    inv = np.empty(g.n, dtype=np.int64)
-    inv[perm] = np.arange(g.n)
-    w_ord = None
-    if w_arr is not None:
+    with span("prepare.order"):
         if o.order:
-            # permute_fast re-sorts the relabelled edges by (src·n + dst)
-            # key; simple-graph keys are unique, so a stable argsort maps
-            # each ordered edge back to its original weight
-            keys = (perm[src_of_edges(g)] * np.int64(g.n)
-                    + perm[g.indices.astype(np.int64)])
-            w_ord = w_arr[np.argsort(keys, kind="stable")]
+            perm, kind = auto_order(g, sigma=o.sigma, w=o.w, seed=o.seed)
         else:
-            w_ord = w_arr
-    bvss = build_bvss(g_ord, sigma=o.sigma)
-    engine_name = o.engine if o.engine is not None else \
-        choose_update_scheme(bvss, threshold=o.lazy_threshold)
-    wplane = None
-    if o.mesh is not None:
-        if engine_name not in BVSS_ENGINES:
-            raise ValueError(
-                f"mesh-native prepare supports the BVSS engines "
-                f"{BVSS_ENGINES}, not {engine_name!r} (the CSR/dense "
-                f"baselines have no row-sharded representation)")
-        if w_ord is not None and mesh_is_2d(o.mesh):
-            raise ConfigError(
-                "edge weights are not supported on a 2-D (row × column) "
-                "mesh yet — the weighted verbs ship 1-D row-sharded "
-                "(DESIGN §2.9); use a 1-D mesh or a single device")
-        if w_ord is not None:
-            # build the sharded BVSS once and derive both the problem and
-            # this rank's aligned weight plane from it
-            sb = build_sharded_bvss(g_ord, axis_size(o.mesh, o.mesh_axis),
-                                    sigma=o.sigma)
-            problem = BlestProblem.build_sharded(sb, o.mesh, o.mesh_axis,
-                                                 device)
-            wplane = weight_plane_to_device(
-                build_sharded_weight_plane(g_ord, w_ord, sb), device,
-                mesh=o.mesh, axis=o.mesh_axis)
+            perm, kind = np.arange(g.n, dtype=np.int64), "natural"
+    with span("prepare.permute"):
+        g_ord = g.permute_fast(perm) if o.order else g
+        inv = np.empty(g.n, dtype=np.int64)
+        inv[perm] = np.arange(g.n)
+        w_ord = None
+        if w_arr is not None:
+            if o.order:
+                # permute_fast re-sorts the relabelled edges by (src·n +
+                # dst) key; simple-graph keys are unique, so a stable
+                # argsort maps each ordered edge back to its original weight
+                keys = (perm[src_of_edges(g)] * np.int64(g.n)
+                        + perm[g.indices.astype(np.int64)])
+                w_ord = w_arr[np.argsort(keys, kind="stable")]
+            else:
+                w_ord = w_arr
+    with span("prepare.bvss"):
+        bvss = build_bvss(g_ord, sigma=o.sigma)
+        udiv = bvss.update_divergence()
+        engine_name = o.engine if o.engine is not None else \
+            choose_update_scheme(bvss, threshold=o.lazy_threshold)
+    with span("prepare.device"):
+        wplane = None
+        if o.mesh is not None:
+            if engine_name not in BVSS_ENGINES:
+                raise ValueError(
+                    f"mesh-native prepare supports the BVSS engines "
+                    f"{BVSS_ENGINES}, not {engine_name!r} (the CSR/dense "
+                    f"baselines have no row-sharded representation)")
+            if w_ord is not None and mesh_is_2d(o.mesh):
+                raise ConfigError(
+                    "edge weights are not supported on a 2-D (row × column) "
+                    "mesh yet — the weighted verbs ship 1-D row-sharded "
+                    "(DESIGN §2.9); use a 1-D mesh or a single device")
+            if w_ord is not None:
+                # build the sharded BVSS once and derive both the problem
+                # and this rank's aligned weight plane from it
+                sb = build_sharded_bvss(g_ord, axis_size(o.mesh, o.mesh_axis),
+                                        sigma=o.sigma)
+                problem = BlestProblem.build_sharded(sb, o.mesh, o.mesh_axis,
+                                                     device)
+                wplane = weight_plane_to_device(
+                    build_sharded_weight_plane(g_ord, w_ord, sb), device,
+                    mesh=o.mesh, axis=o.mesh_axis)
+            else:
+                problem = build_problem(g_ord, sigma=o.sigma, mesh=o.mesh,
+                                        mesh_axis=o.mesh_axis, device=o.device)
         else:
-            problem = build_problem(g_ord, sigma=o.sigma, mesh=o.mesh,
-                                    mesh_axis=o.mesh_axis, device=o.device)
-    else:
-        problem = build_problem(g_ord, bvss=bvss, device=device) \
-            if engine_name in BVSS_ENGINES else None
-        if w_ord is not None:
-            wplane = weight_plane_to_device(
-                build_weight_plane(g_ord, w_ord, sigma=o.sigma), device)
-    tile_config: TileConfig | None = None
-    tuned_kwargs: dict = {}
-    if o.autotune and problem is not None:
-        tile_config = tune(problem, use_kernels=o.use_kernels)
-        tuned_kwargs = tile_config.engine_kwargs()
-    fn = make_engine(g_ord, engine_name, bvss=bvss, problem=problem,
-                     device=device, use_kernels=o.use_kernels,
-                     buckets=o.buckets, direction=o.direction,
-                     push_impl=o.push_impl, **tuned_kwargs)
+            problem = build_problem(g_ord, bvss=bvss, device=device) \
+                if engine_name in BVSS_ENGINES else None
+            if w_ord is not None:
+                wplane = weight_plane_to_device(
+                    build_weight_plane(g_ord, w_ord, sigma=o.sigma), device)
+        tile_config: TileConfig | None = None
+        tuned_kwargs: dict = {}
+        if o.autotune and problem is not None:
+            with span("prepare.autotune"):
+                tile_config = tune(problem, use_kernels=o.use_kernels)
+            tuned_kwargs = tile_config.engine_kwargs()
+        fn = make_engine(g_ord, engine_name, bvss=bvss, problem=problem,
+                         device=device, use_kernels=o.use_kernels,
+                         buckets=o.buckets, direction=o.direction,
+                         push_impl=o.push_impl, **tuned_kwargs)
     return PreparedBFS(graph=g_ord, perm=perm, inv=inv, ordering=kind,
                        engine_name=engine_name, bvss=bvss, problem=problem,
                        device=device,
-                       update_divergence=bvss.update_divergence(),
+                       update_divergence=udiv,
                        options=o, _fn=fn, mesh=o.mesh, weights=w_ord,
                        wplane=wplane, tile_config=tile_config)
 

@@ -21,10 +21,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 from repro_torch.errors import KernelBuildError
+from repro_torch.tracing import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -63,15 +63,18 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> float:
-    """Compile every source whose library is missing, in parallel; return
-    the wall seconds spent (0.0 when everything was already built)."""
+def build_all() -> None:
+    """Compile every source whose library is missing, in parallel, inside
+    a ``kernels.build`` span (none when everything was already built)."""
     todo = [s for s in SOURCES if not library_path(s).exists()]
-    if not todo:
-        return 0.0
+    if todo:
+        with span("kernels.build"):
+            _compile(todo)
+
+
+def _compile(todo: list[str]) -> None:
     compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     jobs = []
     for stem in todo:
         out = library_path(stem)
@@ -96,7 +99,6 @@ def build_all() -> float:
             os.replace(tmp, out)
     if failures:
         raise KernelBuildError("nvcc failed for " + "\n".join(failures))
-    return time.perf_counter() - t0
 
 
 def library(stem: str) -> ctypes.CDLL:
@@ -106,7 +108,8 @@ def library(stem: str) -> ctypes.CDLL:
         if lib is None:
             build_all()
             try:
-                lib = ctypes.CDLL(str(library_path(stem)))
+                with span("kernels.load"):
+                    lib = ctypes.CDLL(str(library_path(stem)))
             except OSError as e:
                 raise KernelBuildError(
                     f"cannot load the {stem} kernel library: {e}") from e

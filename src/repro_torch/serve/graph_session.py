@@ -56,6 +56,7 @@ plane rebuild lazily against the new epoch.
 """
 from __future__ import annotations
 
+import itertools
 import time
 import warnings
 from collections import deque
@@ -81,8 +82,10 @@ from repro_torch.core.policy import (PreparedBFS, PrepareOptions,
 from repro_torch.distributed.collectives import axis_size
 from repro_torch.errors import ConfigError, check_source, check_sources
 from repro_torch.graphs import Graph
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.ref import normalize_labels
 from repro_torch.serve.faults import NO_FAULTS, FaultPlan
+from repro_torch.tracing import span
 
 
 def _alias_warning(old: str, new: str) -> None:
@@ -144,13 +147,16 @@ class GraphSession:
         if self._seams.get("push_impl") is not None:
             options = options.replace(push_impl=self._seams["push_impl"])
         self.options = options
-        self.prepared: PreparedBFS = prepare(g, options=options)
         self.max_batch = int(max_batch)
         self._use_kernel = options.use_kernels
         self._direction = options.direction
         self._mesh_axis = options.mesh_axis
         self.max_steps = max_steps
-        self._bind_prepared()
+        self._batch_ids = itertools.count(1)   # request ids of wave.batch
+        with span("session.prepare"):
+            self.prepared: PreparedBFS = prepare(g, options=options)
+            with span("session.bind"):
+                self._bind_prepared()
         self.preprocess_s = time.time() - t0
 
     def _bind_prepared(self) -> None:
@@ -230,6 +236,16 @@ class GraphSession:
         """Edge-update epoch of the prepared state (DESIGN §2.10)."""
         return self.prepared.epoch
 
+    def counters(self) -> dict:
+        """A snapshot of the program's counters: ``"wave"``, the wave
+        engine's (``host_syncs``, ``pull_levels``, ``push_levels``, and
+        over the pull levels the launched queue width ``pull_width`` and
+        the live VSSs in it ``pull_live``; an edge update's new epoch
+        starts them at 0), and ``"launches"``, every hand kernel's
+        launches in this process (:func:`repro_torch.kernels.launch_counts`).
+        """
+        return {"wave": dict(self._ms.stats), "launches": launch_counts()}
+
     # ------------------------------------------------------------------
     # queries
     # ------------------------------------------------------------------
@@ -294,8 +310,9 @@ class GraphSession:
 
         limit = self.max_steps if self.max_steps is not None else \
             (len(srcs) + self.max_batch) * (self.n + 1)
-        drive_wave(self._ms, next_source, on_converged, max_steps=limit,
-                   should_harvest=_should, on_harvested=_harvested)
+        with span("wave.batch", request=next(self._batch_ids)):
+            drive_wave(self._ms, next_source, on_converged, max_steps=limit,
+                       should_harvest=_should, on_harvested=_harvested)
         return [results[i] for i in range(len(srcs))]
 
     # ------------------------------------------------------------------

@@ -264,7 +264,7 @@ def test_cuda_levels_batch_equals_oracle(cuda_device, direction):
     tk.reset_launch_counts()
     for q, lv in zip(queries, sess.levels_batch(queries)):
         np.testing.assert_array_equal(lv, repro_torch.reference_bfs(g, q))
-    stats = sess._ms.stats
+    stats = sess.counters()["wave"]
     levels_run = stats["pull_levels"] + stats["push_levels"]
     assert tk.launch_counts()["bvss_spmm"] == levels_run > 0
     if direction == "auto":
@@ -603,7 +603,7 @@ def test_cuda_queue_pump_equals_oracle(cuda_device):
         for s in range(lo, lo + 12):
             futs[s] = q.submit("g", s)
 
-    before = dict(sess._ms.stats)
+    before = sess.counters()["wave"]
     tk.reset_launch_counts()
     q.start(poll_s=0.001)
     try:
@@ -619,8 +619,8 @@ def test_cuda_queue_pump_equals_oracle(cuda_device):
                                           repro_torch.reference_bfs(g, s))
     finally:
         q.stop()
-    levels = sum(sess._ms.stats[k] - before[k]
-                 for k in ("pull_levels", "push_levels"))
+    after = sess.counters()["wave"]
+    levels = sum(after[k] - before[k] for k in ("pull_levels", "push_levels"))
     assert tk.launch_counts()["bvss_spmm"] == levels > 0
     assert mgr.stats()["quarantines"] == 0
     assert mgr.stats()["verified"] == 24

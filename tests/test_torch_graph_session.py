@@ -94,7 +94,7 @@ def test_levels_batch_directions_match_reference(direction):
                           order=False)
     queries = [0, 1111, 2399, 7, 1200, 5]
     assert_same(ts.levels_batch(queries), js.levels_batch(queries))
-    stats = ts._ms.stats
+    stats = ts.counters()["wave"]
     if direction == "auto":
         assert stats["push_levels"] > 0 and stats["pull_levels"] > 0
 
