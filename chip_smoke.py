@@ -455,13 +455,97 @@ def check_equal(torch, name: str, got, want) -> int:
     return err
 
 
+MARK_N, MARK_S = 1_048_576, 64   # the rgg_n_2_20 wave: n rows, 64 slots
+MARK_WIDTHS = (16_384, 131_072)  # its pull ladder (num_vss / 8, num_vss)
+MARK_LIVE = 0.3                  # its queue_fill.wave: live VSSs of a width
+
+
+def mark_timing(torch, rng, bvss_spmm, bvss_spmm_mark,
+                bvss_spmm_mark_ref) -> dict:
+    """``bvss_spmm_mark`` at the rgg wave's two ladder widths (sigma = 8,
+    S = 64, marks of (n + 1, 64)): the first 30% of each width live VSSs
+    with random masks and rows, the rest dummy VSSs (all-zero masks, the
+    sink row n), 5% of the frontier bytes one random bit.  Beside it the
+    unfused form it replaces: ``bvss_spmm``'s counts, then one
+    ``index_put_`` of every (slice, column) cell with misses to the sink
+    (the wave engine's mark before the fusion).  The bound counts every
+    mask word, the live VSSs' frontier bytes and row ids (a dummy VSS
+    returns after its masks) and one byte per marked cell.  The twin is
+    timed at the narrow width only (at the full width it needs tens of GB
+    of int64 temporaries); at the full width the kernel is checked
+    against the unfused form on every row but the sink."""
+    sigma, spw = 8, 4
+    n, S = MARK_N, MARK_S
+    cuda = torch.device("cuda")
+    marks = torch.zeros((n + 1, S), dtype=torch.uint8, device=cuda)
+    cols = torch.arange(S, device=cuda)
+    one = torch.ones((), dtype=torch.uint8, device=cuda)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    def unfused(m, f, r, out):
+        rows = r.reshape(-1)
+        hit = bvss_spmm(m, f, sigma=sigma).view(rows.shape[0], S) > 0
+        out.index_put_((torch.where(hit, rows[:, None], n), cols), one)
+        return out
+
+    row: dict = {}
+    for B in MARK_WIDTHS:
+        live = int(B * MARK_LIVE)
+
+        def make(i):
+            mw = u32_words(rng, (B, 32))
+            mw[live:] = 0
+            on = rng.random((B, S)) < 0.05
+            on[live:] = False
+            fb = np.where(on, 1 << rng.integers(0, sigma, (B, S)), 0)
+            rows = rng.integers(0, n, (B, spw, 32)).astype(np.int32)
+            rows[live:] = n
+            return t(mw), t(fb.astype(np.int32)), t(rows)
+
+        ins = rotating(make, B * (32 + S + spw * 32) * 4)
+        got = bvss_spmm_mark(*ins[0], marks.zero_(), sigma=sigma).clone()
+        if B == MARK_WIDTHS[0]:
+            err = check_equal(torch, f"bvss_spmm_mark timed B={B}", got,
+                              bvss_spmm_mark_ref(*ins[0], torch.zeros_like(
+                                  marks), sigma))
+        else:
+            err = check_equal(torch, f"bvss_spmm_mark vs unfused B={B}",
+                              got[:n], unfused(*ins[0], torch.zeros_like(
+                                  marks))[:n])
+        hits = int(got[:n].sum())
+        del got
+        nbytes = B * 32 * 4 + live * (S * 4 + spw * 32 * 4) + hits
+        sub = dict(
+            shape={"B": B, "S": S, "sigma": sigma, "n": n, "live": live},
+            hits=hits, max_abs_err=err,
+            ms=device_ms(torch, lambda m, f, r: bvss_spmm_mark(
+                m, f, r, marks, sigma=sigma), ins),
+            unfused_ms=device_ms(torch, lambda m, f, r: unfused(
+                m, f, r, marks), ins),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        sub["share"] = sub["bound_ms"] / sub["ms"]
+        if B == MARK_WIDTHS[0]:
+            sub["plain_ms"] = device_ms(
+                torch, lambda m, f, r: bvss_spmm_mark_ref(m, f, r, marks,
+                                                          sigma), ins)
+            row.update(sub)
+        else:
+            row["wide"] = sub
+        del ins
+    del marks
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_kernels(torch, rt) -> dict:
     from repro_torch.kernels import (bit_spmm, bvss_pull, bvss_push,
-                                     bvss_spmm, finalize_pack_sweep,
-                                     finalize_sweep)
+                                     bvss_spmm, bvss_spmm_mark,
+                                     finalize_pack_sweep, finalize_sweep)
     from repro_torch.kernels.ref import (bit_spmm_ref, bvss_pull_ref,
-                                         bvss_push_ref, bvss_spmm_ref,
-                                         finalize_pack_ref,
+                                         bvss_push_ref, bvss_spmm_mark_ref,
+                                         bvss_spmm_ref, finalize_pack_ref,
                                          finalize_sweep_ref)
     rng = np.random.default_rng(SEED)
     cuda = torch.device("cuda")
@@ -485,9 +569,12 @@ def phase_kernels(torch, rt) -> dict:
                         bvss_push(m, bits, sigma=sigma),
                         bvss_push_ref(m, bits, sigma))
             checked += 2
-        # bvss_spmm: ragged B x S (the 16-byte store path at S in {4, 8,
-        # ..., 128}), frontier rows off 16-byte alignment (offset 1), and
-        # the wave's main-path shape on the grid's narrow ladder width
+        # bvss_spmm and bvss_spmm_mark: ragged B x S (the 16-byte path at
+        # S in {4, 8, ..., 128}), frontier rows off 16-byte alignment
+        # (offset 1), and the wave's main-path shape on the grid's narrow
+        # ladder width; the marks with every eleventh VSS a dummy (an
+        # all-zero mask), rows over [0, 1000] (1000 the sink) and marks
+        # already set
         shapes = [(B, S, 0) for B in (1, 127, 1003)
                   for S in (1, 3, 4, 8, 9, 16, 128)]
         shapes += [(1003, 3, 1), (1003, 8, 1)]
@@ -499,7 +586,15 @@ def phase_kernels(torch, rt) -> dict:
             check_equal(torch, f"bvss_spmm sigma={sigma} B={B} S={S} "
                         f"offset={off}", bvss_spmm(m, fb, sigma=sigma),
                         bvss_spmm_ref(m, fb, sigma))
-            checked += 1
+            m[::11] = 0
+            rows = t(rng.integers(0, 1001, (B, 32 // sigma, 32)).astype(
+                np.int32))
+            mk = t((rng.random((1001, S)) < 0.05).astype(np.uint8))
+            check_equal(torch, f"bvss_spmm_mark sigma={sigma} B={B} S={S} "
+                        f"offset={off}",
+                        bvss_spmm_mark(m, fb, rows, mk.clone(), sigma=sigma),
+                        bvss_spmm_mark_ref(m, fb, rows, mk.clone(), sigma))
+            checked += 2
         for N in (1, 33, 1000, 4_194_304 - 5, 4_194_304):
             n_sets = -(-N // sigma)
             n_fwords = (n_sets * sigma + 31) // 32
@@ -718,6 +813,8 @@ def phase_kernels(torch, rt) -> dict:
                        bound_ms=wide_bytes / HBM_BYTES_PER_S * 1e3,
                        share=wide_bytes / HBM_BYTES_PER_S * 1e3 / ms)
     out["bvss_spmm"] = row
+    out["bvss_spmm_mark"] = mark_timing(torch, rng, bvss_spmm,
+                                        bvss_spmm_mark, bvss_spmm_mark_ref)
     emit({"phase": "kernels_vs_twins", "cases_equal": checked,
           "tolerance": "exact (max abs err 0)"})
     return out
@@ -1382,16 +1479,16 @@ def wave_phase(torch, sess, name: str, g, sources, card: str, oracle
     wall_s = time.perf_counter() - t0
     stats = sess.counters()["wave"]
     counts = launch_counts()
-    require_launches(counts, name, ("bvss_spmm",))
+    require_launches(counts, name, ("bvss_spmm_mark",))
     for s, lv in zip(sources, lvs):
         want = oracle(g, s)
         if lv.dtype != want.dtype or not np.array_equal(lv, want):
             fail(f"{name}: levels of source {s} differ from the oracle")
     delta = {k: stats[k] - before[k] for k in stats}
     levels_run = delta["pull_levels"] + delta["push_levels"]
-    if counts["bvss_spmm"] != levels_run:
-        fail(f"{name}: {levels_run} levels but {counts['bvss_spmm']} "
-             f"bvss_spmm launches")
+    if counts["bvss_spmm_mark"] != levels_run or counts["bvss_spmm"]:
+        fail(f"{name}: {levels_run} levels but {counts['bvss_spmm_mark']} "
+             f"bvss_spmm_mark and {counts['bvss_spmm']} bvss_spmm launches")
     emit({"phase": name, "queries": len(sources), "slots": sess.max_batch,
           "wall_ms": wall_s * 1e3, "levels_run": levels_run,
           "ms_per_level": wall_s * 1e3 / max(levels_run, 1),
@@ -1412,7 +1509,7 @@ def closeness_phase(torch, rt, sess, g, sources, card: str) -> dict:
     cc = sess.closeness_batch(sources)
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
-    require_launches(counts, "closeness_batch", ("bvss_spmm",))
+    require_launches(counts, "closeness_batch", ("bvss_spmm_mark",))
     want = closeness_ref(g, sources)
     ORACLES["closeness_batch_rmat_18"] = (sources, want)
     err = float(np.max(np.abs(cc - want) / np.maximum(np.abs(want), 1e-300)))
@@ -1452,7 +1549,7 @@ def verbs_phase(torch, rt, sess, g, rng, card: str) -> dict:
     rep = sess.extremes(max_evals=64)
     times["extremes_s"] = time.perf_counter() - t0
     counts = launch_counts()
-    require_launches(counts, "verbs", ("bvss_spmm", "bvss_pull",
+    require_launches(counts, "verbs", ("bvss_spmm_mark", "bvss_pull",
                                        "finalize_pack_sweep"))
     t0 = time.perf_counter()
     want = connected_components_ref(g)
@@ -1512,7 +1609,7 @@ def betweenness_phase(torch, sess, g, sources, card: str) -> dict:
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
     require_launches(counts, "betweenness_batch",
-                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))
+                     ("bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t"))
     t0 = time.perf_counter()
     want = betweenness_ref(g, sources)
     oracle_s = time.perf_counter() - t0
@@ -1886,7 +1983,7 @@ def analytics_cli_phase(torch, card: str) -> dict:
         if verb != "extremes" and "; VERIFIED vs " not in line:
             fail(f"launch_analytics {verb}: {line}")
     require_launches(counts, "launch_analytics",
-                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t",
+                     ("bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t",
                       "bvss_spmm_minplus"))
     emit({"phase": "launch_analytics", "args": ANALYTICS_ARGS,
           "first_line": lines[0], "verbs": verbs, "launches": counts,
@@ -1998,7 +2095,7 @@ def analytics_bench_phase(torch, card: str) -> dict:
     if out["summary"]["all_verified"] is not True:
         fail(f"bench_analytics: not all verified: {out['summary']}")
     require_launches(counts, "bench_analytics",
-                     ("bvss_pull", "finalize_pack_sweep", "bvss_spmm",
+                     ("bvss_pull", "finalize_pack_sweep", "bvss_spmm_mark",
                       "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus"))
     emit({"phase": "bench_analytics", "scale": ANALYTICS_BENCH_SCALE,
           "summary": out["summary"], "graphs": out["graphs"],
@@ -2146,9 +2243,9 @@ def serve_manager_phase(torch, rt, rng, card: str):
              f"(rel err {cc_err})")
     counts = {k: wave_counts[k] + verb_counts[k] for k in wave_counts}
     require_launches(wave_counts, "serve_manager_rmat_18 levels_batch",
-                     ("bvss_spmm",))
+                     ("bvss_spmm_mark",))
     require_launches(verb_counts, "serve_manager_rmat_18 verbs",
-                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))
+                     ("bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t"))
     p = sess.prepared
     cost = session_cost_bytes(sess)
     emit({"phase": "serve_manager_rmat_18", "n": g.n, "m": g.m,
@@ -2229,7 +2326,7 @@ def serve_queue_phase(torch, rt, mgr, g, oracle, queries, card: str):
     mgr.verify_fraction = 1.0
     ratio_counts = launch_counts()
     require_launches(ratio_counts, "serve_queue_rmat_18 ratio",
-                     ("finalize_pack_sweep", "bvss_spmm"))
+                     ("finalize_pack_sweep", "bvss_spmm_mark"))
 
     t0 = time.perf_counter()
     mgr.open_session("serve_beta", g, tenant="beta", max_batch=SLOTS,
@@ -2279,7 +2376,7 @@ def serve_queue_phase(torch, rt, mgr, g, oracle, queries, card: str):
         check_levels(f"serve_queue_rmat_18 {mode}", g, queries, got, oracle)
         runs[mode] = {"makespan_ms": makespan * 1e3, **q.stats()}
     counts = launch_counts()
-    require_launches(counts, "serve_queue_rmat_18", ("bvss_spmm",))
+    require_launches(counts, "serve_queue_rmat_18", ("bvss_spmm_mark",))
     counts = {k: c + ratio_counts[k] for k, c in counts.items()}
     coalesced = sum(r["coalesced"] for r in runs.values())
     if coalesced == 0 or any(r["completed"] != len(queries)
@@ -2400,7 +2497,7 @@ def serve_deadline_phase(torch, rt, card: str):
     check_levels("serve_deadline_grid_512 queue", g, sources[1:], got[1:],
                  oracle)
     counts = launch_counts()
-    require_launches(counts, "serve_deadline_grid_512", ("bvss_spmm",))
+    require_launches(counts, "serve_deadline_grid_512", ("bvss_spmm_mark",))
     emit({"phase": "serve_deadline_grid_512", "n": g.n, "m": g.m,
           "deadline_s": DEADLINE_S, "call_ms": call_s * 1e3,
           "harvest_depths": depths, "queue_ms": queue_s * 1e3,
@@ -2436,7 +2533,7 @@ def serve_faults_phase(torch, rt, card: str):
         "corrupt_push_tile": (FaultPlan(corrupt_push_tile=True),
                               {"direction": "push"}, ("bvss_push",)),
         "nan_sigma": (FaultPlan(nan_sigma=True), {}, ("bvss_spmm_w",)),
-        "clean": (FaultPlan(), {}, ("bvss_spmm",)),
+        "clean": (FaultPlan(), {}, ("bvss_spmm_mark",)),
     }
     rows, total = {}, {}
     for name, (plan, opts, kernels) in plans.items():
@@ -2524,7 +2621,7 @@ def launch_service_phase(torch, card: str) -> dict:
     if not lines[-1].endswith("VERIFIED vs oracle") or \
             not lines[-2].startswith("[bfs] queue: "):
         fail(f"launch_service: {lines}")
-    require_launches(counts, "launch_service", ("bvss_spmm",))
+    require_launches(counts, "launch_service", ("bvss_spmm_mark",))
     emit({"phase": "launch_service", "args": SERVICE_ARGS, "lines": lines,
           "launches": counts, "card": card})
     return counts
@@ -2715,7 +2812,7 @@ def caller_view(p):
 
 
 EPOCH_VERBS = ("levels", "levels_batch", "betweenness_batch", "sssp")
-EPOCH_KERNELS = ("bvss_pull", "finalize_pack_sweep", "bvss_spmm",
+EPOCH_KERNELS = ("bvss_pull", "finalize_pack_sweep", "bvss_spmm_mark",
                  "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus")
 
 
@@ -2965,7 +3062,7 @@ def update_serving_phase(torch, rt, mgr, card: str) -> dict:
     q.drain()
     drain_s = time.perf_counter() - t0
     counts = launch_counts()
-    require_launches(counts, "update_serving_rmat_18", ("bvss_spmm",))
+    require_launches(counts, "update_serving_rmat_18", ("bvss_spmm_mark",))
     check_levels("update_serving_rmat_18", gc, queries,
                  [f.result(0) for f in futs], memo_oracle(rt))
     st = mgr.stats()
@@ -3294,7 +3391,7 @@ def mesh_session_phase(torch, rt, g, p, sess, mesh, queries, fsrcs,
     before = dict(stats)
     lvs, wall, c = timed_verb(torch, lambda: msess.levels_batch(
         perm[np.asarray(queries)]))
-    require_launches(c, "mesh levels_batch", ("bvss_spmm",))
+    require_launches(c, "mesh levels_batch", ("bvss_spmm_mark",))
     for s, lv in zip(queries, lvs):
         if not np.array_equal(lv[perm], oracle(g, s)):
             fail(f"mesh levels_batch: source {s} differs from the oracle")
@@ -3313,7 +3410,7 @@ def mesh_session_phase(torch, rt, g, p, sess, mesh, queries, fsrcs,
         "single_host_syncs_per_level": one["host_syncs"]
         / max(one["levels_run"], 1),
         "launches": same_launches("mesh levels_batch", c, one["launches"],
-                                  ("bvss_spmm",))}
+                                  ("bvss_spmm_mark",))}
     add(c)
     # a closeness cohort, phase 4's sources
     csrcs, want = ORACLES["closeness_batch_rmat_18"]
@@ -3328,7 +3425,7 @@ def mesh_session_phase(torch, rt, g, p, sess, mesh, queries, fsrcs,
         "single_wall_ms": one["wall_ms"], "max_rel_err": err,
         "tolerance": "rtol 1e-12",
         "launches": same_launches("mesh closeness", c, one["launches"],
-                                  ("bvss_spmm",))}
+                                  ("bvss_spmm_mark",))}
     add(c)
     # a betweenness cohort, phase 4's float-channel sources
     bc, wall, c = timed_verb(torch, lambda: msess.betweenness_batch(
@@ -3352,7 +3449,7 @@ def mesh_session_phase(torch, rt, g, p, sess, mesh, queries, fsrcs,
         "tolerance": "rtol 1e-4, atol 1e-4",
         "launches": same_launches(
             "mesh betweenness", c, one["launches"],
-            ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))}
+            ("bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t"))}
     add(c)
     # an SSSP cohort of MESH_SSSP_SOURCES, on the mesh and on one device
     srcs = fsrcs[:MESH_SSSP_SOURCES]
@@ -3413,7 +3510,7 @@ def mesh_session2d_phase(torch, rt, g, p, mesh2, queries, fsrcs, oracle,
     qs = queries[:MESH_2D_QUERIES]
     lvs, wave_wall, c = timed_verb(torch, lambda: msess.levels_batch(
         perm[np.asarray(qs)]))
-    require_launches(c, "2-D levels_batch", ("bvss_spmm",))
+    require_launches(c, "2-D levels_batch", ("bvss_spmm_mark",))
     for s, lv in zip(qs, lvs):
         if not np.array_equal(lv[perm], oracle(g, s)):
             fail(f"2-D levels_batch: source {s} differs from the oracle")
@@ -3421,7 +3518,7 @@ def mesh_session2d_phase(torch, rt, g, p, mesh2, queries, fsrcs, oracle,
     bc, bc_wall, c = timed_verb(torch, lambda: msess.betweenness_batch(
         perm[np.asarray(fsrcs)]))
     require_launches(c, "2-D betweenness",
-                     ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"))
+                     ("bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t"))
     bc, want = bc[perm], ORACLES["betweenness_rmat_18"]
     err = np.abs(bc - want)
     if not np.all(np.isfinite(bc)) or \
@@ -3468,14 +3565,14 @@ def mesh_verbs_phase(torch, rt, g, p, mesh, card: str) -> dict:
     sym_build_s = time.perf_counter() - t0
     labels, comp_wall, c = timed_verb(torch, msess.components)
     require_launches(c, "mesh components",
-                     ("bvss_spmm", "bvss_pull", "finalize_pack_sweep"))
+                     ("bvss_spmm_mark", "bvss_pull", "finalize_pack_sweep"))
     if not np.array_equal(normalize_labels(labels[perm]), want):
         fail("mesh components() differs from connected_components_ref")
     counts = dict(c)
     rounds = dict(msess._sym_ms().stats)
     ecc, ecc_wall, c = timed_verb(torch, lambda: msess.eccentricity_batch(
         perm[np.asarray(srcs)]))
-    require_launches(c, "mesh eccentricity_batch", ("bvss_spmm",))
+    require_launches(c, "mesh eccentricity_batch", ("bvss_spmm_mark",))
     if not np.array_equal(ecc, ecc_want):
         fail("mesh eccentricity_batch differs from eccentricity_ref")
     counts = {k: counts[k] + c[k] for k in counts}
@@ -3525,7 +3622,7 @@ def mesh_faults_phase(torch, rt, g, p, mesh, rng, oracle, card: str
         warnings.simplefilter("always")
         out = mgr.levels_batch("stalled", perm[np.asarray(queries)])
     counts = launch_counts()
-    require_launches(counts, "mesh stall", ("bvss_spmm",))
+    require_launches(counts, "mesh stall", ("bvss_spmm_mark",))
     for s, lv in zip(queries, out):
         if not np.array_equal(lv[perm], oracle(g, s)):
             fail(f"stalled mesh session: source {s} differs from the "
@@ -3628,7 +3725,7 @@ def mesh_update_phase(torch, rt, p5, meshes, card: str) -> dict:
     wave = [int(s) for s in rng.choice(n, SLOTS, replace=False)]
     ssrcs = wave[:MESH_UPDATE_SSSP]
     same_kernels = ("bvss_pull", "bvss_push_level", "finalize_pack_sweep",
-                    "bvss_spmm", "bvss_spmm_w", "bvss_spmm_minplus")
+                    "bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_minplus")
     total = {k: 0 for k in launch_counts()}
     steps = []
 
@@ -3665,7 +3762,7 @@ def mesh_update_phase(torch, rt, p5, meshes, card: str) -> dict:
         verbs = ("levels", "levels_batch") + (
             ("sssp_batch", "pagerank") if weighted else ())
         # the 2-D engines pull without the fused sweep
-        kernels = ("bvss_pull", "bvss_spmm") + (
+        kernels = ("bvss_pull", "bvss_spmm_mark") + (
             ("finalize_pack_sweep", "bvss_spmm_w", "bvss_spmm_minplus")
             if weighted else ())
         c = check_epoch(torch, rt, f"mesh_update ({tag})", sess, sources,
@@ -5517,9 +5614,9 @@ def main() -> None:
     by_phase["launch_service"] = launch_service_phase(torch, card)
     by_phase["bench_service_serve"] = serve_bench_phase(
         torch, "bench_service_serve", bench_service,
-        ("bvss_spmm", "bit_spmm"), card)
+        ("bvss_spmm_mark", "bit_spmm"), card)
     by_phase["bench_queue"] = serve_bench_phase(
-        torch, "bench_queue", bench_queue, ("bvss_spmm",), card)
+        torch, "bench_queue", bench_queue, ("bvss_spmm_mark",), card)
 
     # phase 10's last part: the hybrid bench on its own graphs
     by_phase["bench_hybrid"] = bench_hybrid_phase(torch, card)
@@ -5541,6 +5638,8 @@ def main() -> None:
         "bvss_push_level": "src/repro/kernels/bvss_push.py:52",
         "finalize_pack_sweep": "src/repro/kernels/frontier_finalize.py:124",
         "bvss_spmm": "src/repro/kernels/mxu_pull.py:156",
+        "bvss_spmm_mark": "src/repro/kernels/mxu_pull.py:156 and its "
+                          "scatter-min, src/repro/core/multi_source.py:258",
         "bvss_spmm_w": "src/repro/kernels/mxu_pull.py:276",
         "bvss_spmm_t": "src/repro/kernels/mxu_pull.py:299",
         "bvss_spmm_minplus": "src/repro/kernels/mxu_pull.py:415",
@@ -5554,6 +5653,7 @@ def main() -> None:
         "finalize_pack_sweep":
             "src/repro_torch/kernels/csrc/frontier_finalize.cu",
         "bvss_spmm": "src/repro_torch/kernels/csrc/bvss_spmm.cu",
+        "bvss_spmm_mark": "src/repro_torch/kernels/csrc/bvss_spmm.cu",
         "bvss_spmm_w": "src/repro_torch/kernels/csrc/bvss_spmm_w.cu",
         "bvss_spmm_t": "src/repro_torch/kernels/csrc/bvss_spmm_t.cu",
         "bvss_spmm_minplus":
@@ -5564,17 +5664,19 @@ def main() -> None:
     }
     # each kernel's launches on its own main path: the single-source BFSs of
     # the road regime for bvss_pull, bvss_push_level and the fused sweep,
-    # the push seam for bvss_push, the two waves for bvss_spmm,
-    # the float-channel verbs for the three float tiles, the dense
-    # multi-source baseline for bit_spmm, the kernel bench for
-    # finalize_sweep
+    # the push seam for bvss_push, the two waves for bvss_spmm_mark, the
+    # fault gauntlet's corrupted-tile seam for bvss_spmm, the float-channel
+    # verbs for the three float tiles, the dense multi-source baseline for
+    # bit_spmm, the kernel bench for finalize_sweep
     main_path = {"bvss_push": ("push_seam_grid2d_2048",),
-                 "bvss_spmm": ("wave_grid2d_2048", "wave_rmat_18"),
+                 "bvss_spmm": (f"serve_faults_rmat_{FAULT_SCALE}",),
+                 "bvss_spmm_mark": ("wave_grid2d_2048", "wave_rmat_18"),
                  "bvss_spmm_w": ("betweenness_rmat_18", "pagerank_rmat_18"),
                  "bvss_spmm_t": ("betweenness_rmat_18",),
                  "bvss_spmm_minplus": ("sssp_rmat_18", "sssp_rmat_16"),
                  "bit_spmm": ("dense_rmat_16",),
                  "finalize_sweep": ("kernel_bench",)}
+    # none for bvss_spmm_mark: no single PyTorch call marks hits by row
     library_by = {"bvss_spmm": "torch.bmm over the unpacked f32 tile",
                   "bvss_spmm_w": "torch.bmm over the unpacked f32 tile",
                   "bvss_spmm_t": "torch.bmm over the unpacked f32 tile",

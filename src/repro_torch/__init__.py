@@ -32,7 +32,8 @@ Ported so far: single-source BLEST (``prepare(g).levels(src)``) with
 hand-written CUDA kernels for ``bvss_pull``, ``bvss_push`` and
 ``finalize_pack_sweep``, and wave serving (``GraphSession.levels_batch``,
 the components, eccentricity and closeness verbs) with a hand-written
-CUDA ``bvss_spmm``, and the float-channel verbs (betweenness, SSSP,
+CUDA ``bvss_spmm`` (its marks form ``bvss_spmm_mark`` on the main path),
+and the float-channel verbs (betweenness, SSSP,
 PageRank and ``weights=``) with hand-written CUDA ``bvss_spmm_w``,
 ``bvss_spmm_t`` and ``bvss_spmm_minplus``, and the paper's Table-2
 comparison (the BRS, dense-pull and CSR push/pull/dirop baselines,

@@ -13,7 +13,7 @@ Both phases run batched over S stacked sources:
 
 * The FORWARD phase is the fixed-cohort multi-source BFS with the σ
   channel (``make_ms_engine(track_sigma=True)``): each level runs the
-  Boolean pull (CUDA ``bvss_spmm``, discovery) plus its weighted twin
+  Boolean pull (CUDA ``bvss_spmm_mark``, discovery) plus its weighted twin
   (CUDA ``bvss_spmm_w``) over the same queued tiles, and records the
   per-level VSS queue into a :class:`~repro_torch.core.bfs.QueueHistory`
   (``run_levels_recorded``).

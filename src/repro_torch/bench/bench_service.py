@@ -13,8 +13,8 @@ Per graph of the suite:
   ``reference_bfs`` and to the sequential answers before timing is
   reported.
 * ``multi_source`` — the fixed-cohort multi-source engine on the BVSS
-  bit-SpMM path (``core/multi_source.py``, the ``bvss_spmm`` kernel) on the
-  session's own prepared problem against the dense baseline below
+  bit-SpMM path (``core/multi_source.py``, the ``bvss_spmm_mark`` kernel)
+  on the session's own prepared problem against the dense baseline below
   (``to_dense_bits`` adjacency + the ``bit_spmm`` kernel), both answers
   equal, with the adjacency footprint of each (the dense bitmap is
   n * ceil(n/32) words; the BVSS scales with slices).

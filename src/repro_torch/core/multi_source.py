@@ -3,7 +3,8 @@ the port of ``repro/core/multi_source.py``.
 
 Stacking S frontiers column-wise turns the SpMSpV pull into an SpMM: the
 slices of every queued VSS are contracted against the S stacked σ-bit
-frontier bytes of its slice set (CUDA ``bvss_spmm``).  One compacted
+frontier bytes of its slice set (CUDA ``bvss_spmm_mark``, the bit-SpMM with
+the marks below stored from inside the kernel).  One compacted
 *union* queue of VSSs serves all columns (a slice set is live if ANY
 column's frontier touches it); the per-column frontier is kept as packed
 words ``(n_fwords, S)``.
@@ -32,10 +33,13 @@ state must not be used again after it was passed to ``insert``,
 ``insert_batch``, ``step`` or ``level_step``.  The reference's eager
 scatter-min (``levels.at[rows].min(col_lvl + 1)``) becomes the lazy
 scheme of Alg. 3, per column: the step stores 1 into a uint8 mark of
-every hit ``(row, column)`` cell with one indexed store (every writer of
-a cell stores the same value, so no atomics; misses go to the dummy row
-``n``), and ``finalize`` gives level ``col_lvl + 1`` to the marked cells
-still at INF.  A visited row already holds a level no larger than its
+every hit ``(row, column)`` cell and nothing on a miss, from inside the
+bit-SpMM kernel (every writer of a cell stores the same value, so no
+atomics; padding slices store into the sink row ``n``), and ``finalize``
+gives level ``col_lvl + 1`` to the marked cells still at INF.  With an
+``spmm_impl`` seam the step keeps the unfused form: the seam's counts,
+then one indexed store of every ``(slice, column)`` cell, misses to the
+sink row.  A visited row already holds a level no larger than its
 column's depth, so this equals the min.  The eager form's check of each
 hit row's level needs a gather of ``w·τ`` rows of ``levels``, which cost
 more than the rest of a grid level together on the H100 (PERF.md).
@@ -90,8 +94,9 @@ from repro_torch.distributed.collectives import (all_gather_tiled,
                                                  butterfly_or_allreduce)
 from repro_torch.errors import ConfigError
 from repro_torch.graphs import Graph
-from repro_torch.kernels import bvss_spmm, bvss_spmm_w, bvss_spmm_w_local
-from repro_torch.kernels.ref import bvss_spmm_ref, bvss_spmm_w_ref, pack_words
+from repro_torch.kernels import bvss_spmm_mark, bvss_spmm_w, bvss_spmm_w_local
+from repro_torch.kernels.ref import (bvss_spmm_mark_ref, bvss_spmm_w_ref,
+                                     pack_words)
 from repro_torch.tracing import span
 
 
@@ -230,9 +235,12 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
     each vertex into the ≤ R VSSs of its own slice set, and pushes
     per-column one-hot frontier bytes through the SAME bit-SpMM kernel the
     pull uses, so both directions share one kernel and one seam
-    (``spmm_impl``).  ``widths`` overrides the bucketed pull ladder.  The
-    2-D partition is pull-only: ``"auto"`` resolves to pull there and a
-    forced ``"push"`` is a :class:`~repro_torch.errors.ConfigError`.
+    (``spmm_impl``, a tile product with the signature of
+    :func:`~repro_torch.kernels.bvss_spmm`: given one, the engine marks
+    from its counts instead of through the fused ``bvss_spmm_mark``).
+    ``widths`` overrides the bucketed pull ladder.  The 2-D partition is
+    pull-only: ``"auto"`` resolves to pull there and a forced ``"push"``
+    is a :class:`~repro_torch.errors.ConfigError`.
 
     ``track_sigma`` widens the state with the Brandes σ path-count
     channel and pins ``direction="pull"`` (the weighted twin has no push
@@ -262,8 +270,7 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         direction = "pull"
     if p.is_2d:
         direction = "pull"
-    spmm = spmm_impl if spmm_impl is not None else \
-        (bvss_spmm if use_kernel else bvss_spmm_ref)
+    spmm_mark = bvss_spmm_mark if use_kernel else bvss_spmm_mark_ref
     spmm_w = spmm_w_impl if spmm_w_impl is not None else \
         (bvss_spmm_w if use_kernel else bvss_spmm_w_ref)
     dev = p.dev
@@ -296,11 +303,17 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
              "pull_width": 0, "pull_live": 0}
 
     def mark(state: MSState, ids: torch.Tensor,
-             counts: torch.Tensor) -> MSState:
-        """marks[rows[e], s] = 1 wherever ``counts[e, s] > 0``, misses to
-        the dummy row, as one indexed store (module docstring); the row
-        indices stay int32."""
-        rows = dev.row_ids[ids].reshape(-1)                     # (E,) int32
+             fb: torch.Tensor) -> MSState:
+        """marks[row, s] = 1 for every hit of the queued VSSs ``ids``
+        against their frontier bytes ``fb`` (module docstring): the fused
+        kernel, or with a seam its counts and one indexed store, misses to
+        the sink row (the row indices stay int32)."""
+        masks, rows = dev.masks[ids], dev.row_ids[ids]
+        if spmm_impl is None:
+            spmm_mark(masks, fb, rows, state.marks, sigma=sigma)
+            return state
+        counts = spmm_impl(masks, fb, sigma=sigma)     # (w, spw, 32, S)
+        rows = rows.reshape(-1)                                 # (E,) int32
         hit = counts.view(rows.shape[0], S) > 0
         tgt = torch.where(hit, rows[:, None], L)               # (E, S) int32
         state.marks.index_put_((tgt, cols), one)
@@ -340,11 +353,10 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
                     xg: torch.Tensor | None) -> torch.Tensor | None:
         ids = state.Q[:width]
         fb = _frontier_bytes(state.F, dev.virtual_to_real[ids], sigma)
-        counts = spmm(dev.masks[ids], fb, sigma=sigma)  # (w, spw, 32, S)
+        mark(state, ids, fb)
         stats["pull_levels"] += 1
         stats["pull_width"] += width         # the rest of it is dummy VSSs
         stats["pull_live"] += state.count
-        mark(state, ids, counts)
         return sigma_sums(ids, xg) if track_sigma else None
 
     def pull_step(state: MSState) -> MSState:
@@ -383,7 +395,7 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
         def push_update(state: MSState) -> MSState:
             """Batched push level (DESIGN §2.8): union-frontier vertex
             queue → per-vertex VSS expansion → per-column one-hot bytes
-            through the same bit-SpMM kernel → the same marks.  On a 1-D
+            through the same bit-SpMM and marks as the pull.  On a 1-D
             mesh every rank walks the same global frontier replica through
             its own vertex → local-VSS map, so the push needs no
             collective and a rank's direction may differ from another's."""
@@ -391,9 +403,8 @@ def make_ms_engine(problem: BlestProblem, n_slots: int, *,
             ids = expand_push_queue(dev, VQ, R, p.num_vss)
             vrep = VQ[:, None].expand(pqcap, R).reshape(-1)
             fb = _push_fbytes(state.F, vrep, sigma)
-            counts = spmm(dev.masks[ids], fb, sigma=sigma)
             stats["push_levels"] += 1
-            return mark(state, ids, counts)
+            return mark(state, ids, fb)
 
         if direction == "push":
             step = push_update

@@ -15,8 +15,12 @@ The TPU kernel unpacks both to int8 tiles for its matrix unit; on Hopper
 each count is one AND and one ``__popc`` on the packed words, and the
 ``(B, 32/σ, 32, S)`` int32 output is the cost: a warp per VSS writes its
 contiguous output in 512-byte runs of whole sectors (the source note has
-the design and why tensor cores do not help).  The reference's
-``tile_b``/``tile_s`` knobs exist for the TPU's VMEM and are not ported.
+the design and why tensor cores do not help).  ``bvss_spmm_mark`` is the
+same kernel with a second epilogue, the wave engine's main path: no count
+is written, and each hit stores 1 into the uint8 mark of its row and
+column, where the engine used to scatter the counts' hits itself.  The
+reference's ``tile_b``/``tile_s`` knobs exist for the TPU's VMEM and are
+not ported.
 
 The three float tiles of the analytics semiring (DESIGN §2.6, §2.9) port
 ``bvss_spmm_w`` (σ path counts, PageRank), ``bvss_spmm_t`` (the Brandes
@@ -38,15 +42,17 @@ import torch
 
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (bit_spmm_ref, bvss_spmm_minplus_ref,
-                                     bvss_spmm_ref, bvss_spmm_t_ref,
-                                     bvss_spmm_w_ref)
+from repro_torch.kernels.ref import (bit_spmm_ref, bvss_spmm_mark_ref,
+                                     bvss_spmm_minplus_ref, bvss_spmm_ref,
+                                     bvss_spmm_t_ref, bvss_spmm_w_ref)
 
 _P = ctypes.c_void_p
 _T_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                _P]
 _MP_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, _P]
+_MARK_ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_int, _P]
 _BIT_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
 _MAX_BLOCKS = 2 ** 31 - 1      # gridDim.x
@@ -121,6 +127,44 @@ def bvss_spmm(masks: torch.Tensor, fbytes: torch.Tensor, *, sigma: int = 8
 
 
 bvss_spmm.launches = 0
+
+
+def bvss_spmm_mark(masks: torch.Tensor, fbytes: torch.Tensor,
+                   row_ids: torch.Tensor, marks: torch.Tensor, *,
+                   sigma: int = 8) -> torch.Tensor:
+    """The wave engine's pull with its marks fused in: masks (B, 32) and
+    fbytes (B, S) int32 as in :func:`bvss_spmm`, row_ids (B, 32/σ, 32)
+    int32 the rows of each slice (``row_ids[ids]``, values in [0, L]),
+    marks (L+1, S) uint8, updated in place and returned:
+    ``marks[row_ids[b, j, l], s] = 1`` wherever slice ``k = j*32 + l`` of
+    VSS b meets column s's frontier byte (``bvss_spmm(...)[b, j, l, s] >
+    0``); nothing is stored on a miss, and no count is written.  Any B and
+    S, the same two paths as :func:`bvss_spmm`; a VSS with an all-zero
+    mask (the queue's dummy padding) costs one 128-byte load.  CUDA
+    tensors launch the kernel; CPU tensors run
+    :func:`~repro_torch.kernels.ref.bvss_spmm_mark_ref`."""
+    from repro_torch.kernels.ops import check_operand, check_sigma, use_kernel
+    if not use_kernel(masks, fbytes, row_ids, marks):
+        return bvss_spmm_mark_ref(masks, fbytes, row_ids, marks, sigma)
+    check_sigma(sigma)
+    B = masks.shape[0]
+    S = fbytes.shape[1] if fbytes.dim() == 2 else -1
+    check_operand(masks, "masks", torch.int32, (B, 32))
+    check_operand(fbytes, "fbytes", torch.int32, (B, S))
+    check_operand(row_ids, "row_ids", torch.int32, (B, 32 // sigma, 32))
+    check_operand(marks, "marks", torch.uint8, (marks.shape[0], S))
+    if B and S:
+        fn = _build.bind("bvss_spmm", "bvss_spmm_mark_launch",
+                         _MARK_ARGTYPES)
+        stream = torch.cuda.current_stream(masks.device).cuda_stream
+        err = fn(masks.data_ptr(), fbytes.data_ptr(), row_ids.data_ptr(),
+                 marks.data_ptr(), B, S, sigma, stream)
+        _build.check("bvss_spmm", err, "bvss_spmm_mark")
+        _build.count(bvss_spmm_mark)
+    return marks
+
+
+bvss_spmm_mark.launches = 0
 
 
 def _check_block_columns(name: str, B: int, S: int, sigma: int) -> None:

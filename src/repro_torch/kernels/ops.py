@@ -55,16 +55,17 @@ from .bvss_pull import bvss_pull                                  # noqa: E402
 from .bvss_push import bvss_push, bvss_push_level                 # noqa: E402
 from .frontier_finalize import (finalize_pack_sweep,               # noqa: E402
                                 finalize_sweep)
-from .mxu_pull import (bit_spmm, bvss_spmm, bvss_spmm_minplus,    # noqa: E402
-                       bvss_spmm_minplus_local, bvss_spmm_t,
-                       bvss_spmm_t_local, bvss_spmm_w, bvss_spmm_w_local)
+from .mxu_pull import (bit_spmm, bvss_spmm, bvss_spmm_mark,       # noqa: E402
+                       bvss_spmm_minplus, bvss_spmm_minplus_local,
+                       bvss_spmm_t, bvss_spmm_t_local, bvss_spmm_w,
+                       bvss_spmm_w_local)
 from . import ref                                                 # noqa: E402
 
 #: every hand-written kernel's entry point; each carries a ``launches``
 #: count that grows by one per kernel launch (twin calls do not count)
 KERNELS = (bvss_pull, bvss_push, bvss_push_level, finalize_pack_sweep,
-           bvss_spmm, bvss_spmm_w, bvss_spmm_t, bvss_spmm_minplus,
-           finalize_sweep, bit_spmm)
+           bvss_spmm, bvss_spmm_mark, bvss_spmm_w, bvss_spmm_t,
+           bvss_spmm_minplus, finalize_sweep, bit_spmm)
 
 
 def launch_counts() -> dict[str, int]:
@@ -91,8 +92,8 @@ def push_vss_kernel(masks: torch.Tensor, bits: torch.Tensor,
 __all__ = ["use_kernel", "check_operand", "check_sigma", "bvss_pull",
            "bvss_push", "bvss_push_level", "finalize_pack_sweep",
            "finalize_sweep", "bit_spmm",
-           "bvss_spmm", "bvss_spmm_w", "bvss_spmm_t", "bvss_spmm_minplus",
-           "bvss_spmm_w_local", "bvss_spmm_t_local",
+           "bvss_spmm", "bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t",
+           "bvss_spmm_minplus", "bvss_spmm_w_local", "bvss_spmm_t_local",
            "bvss_spmm_minplus_local", "KERNELS", "launch_counts",
            "reset_launch_counts", "pull_vss_kernel", "push_vss_kernel",
            "ref"]

@@ -134,6 +134,19 @@ def bvss_spmm_ref(masks: torch.Tensor, fbytes: torch.Tensor, sigma: int = 8
     return popcount(slices[..., None] & fb[:, None, None, :]).to(torch.int32)
 
 
+def bvss_spmm_mark_ref(masks: torch.Tensor, fbytes: torch.Tensor,
+                       row_ids: torch.Tensor, marks: torch.Tensor,
+                       sigma: int = 8) -> torch.Tensor:
+    """Twin of kernels.bvss_spmm_mark: stores 1 into ``marks`` (L+1, S)
+    uint8 at ``(row_ids[b, j, l], s)`` for every hit ``bvss_spmm_ref(masks,
+    fbytes, sigma)[b, j, l, s] > 0``, in place, and nothing on a miss;
+    returns ``marks``."""
+    b, j, l, s = (bvss_spmm_ref(masks, fbytes, sigma) > 0).nonzero(
+        as_tuple=True)
+    marks[row_ids[b, j, l].to(torch.int64), s] = 1
+    return marks
+
+
 def _slice_bits(masks: torch.Tensor, sigma: int) -> torch.Tensor:
     """(B, 32) int32 mask words -> (B, 32/σ, 32) int64 slices: entry
     ``[b, j, l]`` holds bits σj .. σj+σ-1 of word l, shifted down."""

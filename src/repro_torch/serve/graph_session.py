@@ -8,7 +8,8 @@ multi-source wave machinery — via the single static pipeline in
 
 Concurrent single-source level queries are served in *waves*: a fixed
 pool of ``max_batch`` source columns advances in lock-step levels through
-one batched BVSS bit-SpMM per level (CUDA ``bvss_spmm``); a column whose
+one batched BVSS bit-SpMM per level (CUDA ``bvss_spmm_mark``, which
+stores the level's hit marks itself); a column whose
 frontier empties is harvested and its slot refilled from the request
 queue mid-flight, so queries that arrive together share every adjacency
 read regardless of how their depths differ.  Singleton traffic takes the
@@ -23,7 +24,7 @@ Beyond level queries, a session serves every verb of
 clients ``components()``, ``eccentricity_batch()`` / ``extremes()`` and
 ``closeness_batch()`` (DESIGN §2.6; the undirected ones on a lazily built
 symmetrised twin of the prepared problem), and the float-channel verbs
-``betweenness_batch()`` (CUDA ``bvss_spmm``, ``bvss_spmm_w`` and
+``betweenness_batch()`` (CUDA ``bvss_spmm_mark``, ``bvss_spmm_w`` and
 ``bvss_spmm_t``), ``sssp()`` / ``sssp_batch()`` (``bvss_spmm_minplus``
 against the edge-weight plane) and ``pagerank()`` (``bvss_spmm_w``).
 ``weights=`` (one strictly positive float per CSR edge) arms SSSP; an

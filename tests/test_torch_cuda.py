@@ -97,6 +97,48 @@ def test_cuda_spmm_equals_twin(cuda_device, sigma):
             spmm_case(rng, cuda_device, B, S, sigma)
 
 
+def spmm_mark_case(rng, device, B, S, sigma, offset=0, L=300):
+    """One ``bvss_spmm_mark`` call against its twin: one launch, the whole
+    (L+1, S) marks tensor equal (the sink row L too), starting from marks
+    already set.  Every eleventh VSS has an all-zero mask (the queue's
+    dummy padding), row ids run over [0, L] (L the sink of padding
+    slices), and ``offset`` > 0 puts ``fbytes`` off 16-byte alignment."""
+    masks = t32(u32(rng, (B, 32)))
+    masks[::11] = 0
+    masks = masks.to(device)
+    flat = t32(u32(rng, (B * S + offset,))).to(device)
+    fb = flat[offset:].view(B, S)
+    row_ids = torch.from_numpy(rng.integers(
+        0, L + 1, (B, 32 // sigma, 32)).astype(np.int32)).to(device)
+    start = torch.from_numpy(
+        (rng.random((L + 1, S)) < 0.05).astype(np.uint8)).to(device)
+    want = tref.bvss_spmm_mark_ref(masks, fb, row_ids, start.clone(), sigma)
+    got = start.clone()
+    before = tk.launch_counts()
+    assert tk.bvss_spmm_mark(masks, fb, row_ids, got, sigma=sigma) is got
+    torch.cuda.synchronize()
+    after = tk.launch_counts()
+    assert after["bvss_spmm_mark"] == before["bvss_spmm_mark"] + 1
+    assert after["bvss_spmm"] == before["bvss_spmm"]
+    assert torch.equal(got, want), (B, S, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", SIGMAS)
+def test_cuda_spmm_mark_equals_twin(cuda_device, sigma):
+    """The fused marks through both paths (S in {4, 8, ..., 128} the quad
+    path, any other S the scalar path), 16-byte and 4-byte frontier loads,
+    ragged B, dummy VSSs, and a 65,537-VSS queue on both paths; equal to
+    the twin on the whole marks tensor, one launch a call."""
+    rng = np.random.default_rng(sigma + 270)
+    for B in (1, 127, 1003):
+        for S in SPMM_S:
+            spmm_mark_case(rng, cuda_device, B, S, sigma)
+            spmm_mark_case(rng, cuda_device, B, S, sigma, offset=1)
+    for S in (8, 9):
+        spmm_mark_case(rng, cuda_device, 65_537, S, sigma, L=100_000)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sigma", SIGMAS)
 def test_cuda_spmm_long_queue_equals_twin(cuda_device, sigma):
@@ -256,7 +298,8 @@ def test_cuda_push_level_equals_twin(cuda_device, name, sigma, lazy):
 def test_cuda_levels_batch_equals_oracle(cuda_device, direction):
     """Wave serving on the card: more queries than slots, a duplicate,
     every direction; each answer equal to the host oracle, every level
-    through the bvss_spmm kernel.  On this graph auto takes both branches."""
+    through the fused bvss_spmm_mark kernel and none through the count
+    kernel.  On this graph auto takes both branches."""
     g = repro_torch.generators.clustered(40, 60, p_in=0.4, seed=1)
     sess = repro_torch.GraphSession(g, max_batch=4, direction=direction,
                                     order=False)
@@ -266,7 +309,9 @@ def test_cuda_levels_batch_equals_oracle(cuda_device, direction):
         np.testing.assert_array_equal(lv, repro_torch.reference_bfs(g, q))
     stats = sess.counters()["wave"]
     levels_run = stats["pull_levels"] + stats["push_levels"]
-    assert tk.launch_counts()["bvss_spmm"] == levels_run > 0
+    counts = tk.launch_counts()
+    assert counts["bvss_spmm_mark"] == levels_run > 0, counts
+    assert counts["bvss_spmm"] == 0, counts
     if direction == "auto":
         assert stats["pull_levels"] > 0 and stats["push_levels"] > 0
 
@@ -414,7 +459,7 @@ def test_cuda_float_verbs_equal_oracles(cuda_device):
                                tref.betweenness_ref(g, srcs), rtol=1e-4,
                                atol=1e-4)
     counts = tk.launch_counts()
-    for name in ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"):
+    for name in ("bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t"):
         assert counts[name] > 0, counts
     tk.reset_launch_counts()
     want = tref.sssp_ref(g, srcs, w)
@@ -516,7 +561,7 @@ def test_cuda_analytics_cli_verifies_every_verb(cuda_device, capsys):
     checked = [ln for ln in lines[1:] if "extremes" not in ln]
     assert len(checked) == len(analytics.WHAT) - 1
     assert all("; VERIFIED vs " in ln for ln in checked), lines
-    for kernel in ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t",
+    for kernel in ("bvss_spmm_mark", "bvss_spmm_w", "bvss_spmm_t",
                    "bvss_spmm_minplus"):
         assert counts[kernel] > 0, (kernel, counts)
 
@@ -621,7 +666,9 @@ def test_cuda_queue_pump_equals_oracle(cuda_device):
         q.stop()
     after = sess.counters()["wave"]
     levels = sum(after[k] - before[k] for k in ("pull_levels", "push_levels"))
-    assert tk.launch_counts()["bvss_spmm"] == levels > 0
+    counts = tk.launch_counts()
+    assert counts["bvss_spmm_mark"] == levels > 0, counts
+    assert counts["bvss_spmm"] == 0, counts
     assert mgr.stats()["quarantines"] == 0
     assert mgr.stats()["verified"] == 24
 
@@ -755,7 +802,7 @@ def test_cuda_mesh_session_world_one_equals_oracle(cuda_device):
     """A mesh session on the card at world size 1 (one NCCL rank): the
     wave's levels, a betweenness cohort and an SSSP cohort equal the
     oracles, and each verb goes through its hand kernels on the shard
-    (``bvss_spmm``; ``bvss_spmm_w`` and ``bvss_spmm_t``;
+    (``bvss_spmm_mark``; ``bvss_spmm_w`` and ``bvss_spmm_t``;
     ``bvss_spmm_minplus``).  Multi-card NCCL is not exercised here."""
     import socket
 
@@ -779,9 +826,10 @@ def test_cuda_mesh_session_world_one_equals_oracle(cuda_device):
         queries = [0, 17, 300, 511, 1000, 17]
         srcs = queries[:4]
         for verb, kernels, run in (
-                ("levels_batch", ("bvss_spmm",),
+                ("levels_batch", ("bvss_spmm_mark",),
                  lambda: sess.levels_batch(queries)),
-                ("betweenness", ("bvss_spmm", "bvss_spmm_w", "bvss_spmm_t"),
+                ("betweenness", ("bvss_spmm_mark", "bvss_spmm_w",
+                                 "bvss_spmm_t"),
                  lambda: sess.betweenness_batch(srcs)),
                 ("sssp", ("bvss_spmm_minplus",),
                  lambda: sess.sssp_batch(srcs))):

@@ -333,3 +333,15 @@ def test_bench_dist_on_two_ranks_verified(ranks):
     for gname, row in got["graphs"].items():
         for part in ("engine_dist", "serve_dist", "betweenness_dist"):
             assert row[part]["verified"], (gname, part)
+
+
+@pytest.mark.parametrize("direction", ["auto", "pull", "push"])
+@pytest.mark.parametrize("P", tm.FUSED_RANKS)
+def test_fused_wave_marks_equal_seam_on_a_mesh(ranks, P, direction):
+    """The 1-D wave engine with its marks fused into the bit-SpMM equals
+    the same engine through the ``spmm_impl`` seam (local rows, sink row
+    ``rows_per_shard``), through a fixed cohort and through ``drive_wave``,
+    and the host BFS."""
+    got = tm.each_rank(ranks, ("fused", P), P)[direction]
+    tm.check_fused_and_seam(got, tm.fused_graph(), tm.VERB_QUERIES,
+                            direction)

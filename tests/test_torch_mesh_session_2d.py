@@ -125,3 +125,15 @@ def test_stalled_butterfly_stage_caught_and_underdiscovers(ranks):
     assert got["stats"]["quarantines"] == 1
     assert sum(not np.array_equal(lv, jbfs(jg, s))
                for s, lv in zip(tm.FAULT_QUERIES, got["unverified"])) > 0
+
+
+@pytest.mark.parametrize("direction", ["auto", "pull"])
+@pytest.mark.parametrize("shape", tm.FUSED_SHAPES_2D,
+                         ids=[f"{r}x{c}" for r, c in tm.FUSED_SHAPES_2D])
+def test_fused_wave_marks_equal_seam_on_a_2d_mesh(ranks, shape, direction):
+    """The 2-D wave engine with its marks fused into the bit-SpMM (partial
+    hits OR-ed over the column axis) equals the same engine through the
+    ``spmm_impl`` seam and the host BFS."""
+    got = tm.each_rank(ranks, ("fused", shape), shape[0] * shape[1])
+    tm.check_fused_and_seam(got[direction], tm.clustered_graph(),
+                            tm.SESSION_QUERIES_2D, direction)

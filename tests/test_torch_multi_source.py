@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import repro.core.multi_source as jms
+import torch_mesh as tm
 from repro.core.bfs import BlestProblem as JProblem
 from repro.core.bfs import _frontier_bytes as j_frontier_bytes
 from repro.core.bvss import build_bvss as j_build_bvss
@@ -26,8 +27,10 @@ from repro_torch.core.bvss import build_bvss
 from repro_torch.errors import ConfigError
 from repro_torch.graphs import from_edges as t_from_edges
 from repro_torch.graphs import generators as tgen
-from repro_torch.kernels import bvss_spmm
-from repro_torch.kernels.ref import bvss_pull_ref, bvss_spmm_ref
+import repro_torch as rt
+from repro_torch.kernels import bvss_spmm, bvss_spmm_mark
+from repro_torch.kernels.ref import (bvss_pull_ref, bvss_spmm_mark_ref,
+                                     bvss_spmm_ref)
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 INF = np.iinfo(np.int32).max
@@ -131,6 +134,114 @@ def test_wave_helpers_match_reference(sigma, S):
         packed.numpy().view(np.uint32),
         np.asarray(jms._pack_cols(jnp.asarray(bits), n_fwords)))
     np.testing.assert_array_equal(tms._unpack_cols(packed).numpy(), bits)
+
+
+# ---------------------------------------------------------------------------
+# the fused marks' twin against the unfused counts and indexed store
+# ---------------------------------------------------------------------------
+def unfused_mark(masks, fb, row_ids, marks, sigma):
+    """The wave engine's mark before the fusion: ``bvss_spmm_ref``'s
+    counts, then one ``index_put_`` of every (slice, column) cell, misses
+    to the sink row L = ``marks.shape[0] - 1``."""
+    L, S = marks.shape[0] - 1, marks.shape[1]
+    rows = row_ids.reshape(-1)
+    hit = bvss_spmm_ref(masks, fb, sigma).view(rows.shape[0], S) > 0
+    tgt = torch.where(hit, rows[:, None], L)
+    marks.index_put_((tgt, torch.arange(S)), torch.ones((), dtype=torch.uint8))
+    return marks
+
+
+@pytest.mark.parametrize("sigma", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("S", [1, 3, 4, 8, 64])
+def test_bvss_spmm_mark_twin_equals_unfused_mark(sigma, S):
+    """Ragged B, all-zero dummy VSSs, padding slices mapped to the sink,
+    rows hit from two VSSs, bits above σ in the frontier bytes, and marks
+    already set before the call: the fused twin stores 1 at exactly the
+    hit cells (nothing on a miss) and equals the unfused mark on every
+    row but the sink; the entry on CPU tensors is the twin."""
+    rng = np.random.default_rng(sigma * 100 + S)
+    B, L, spw = 37, 50, 32 // sigma
+    masks = t32(u32(rng, (B, 32)))
+    masks[[3, 17, 36]] = 0                        # dummy VSSs
+    fb = t32(u32(rng, (B, S)))
+    row_ids = torch.from_numpy(
+        rng.integers(0, L, (B, spw, 32)).astype(np.int32))
+    row_ids[5, :, 20:] = L                        # padding slices: the sink
+    row_ids[9] = row_ids[8]                       # every row of 8 again
+    masks[9] = masks[8]
+    fb[8:10] = -1                                 # every bit: hits in 8, 9
+    start = torch.from_numpy((rng.random((L + 1, S)) < 0.1).astype(np.uint8))
+    got = bvss_spmm_mark_ref(masks, fb, row_ids, start.clone(), sigma)
+    want = unfused_mark(masks, fb, row_ids, start.clone(), sigma)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (L + 1, S)
+    assert torch.equal(got[:L], want[:L])
+    # the hit cells alone, from the counts
+    hit = bvss_spmm_ref(masks, fb, sigma) > 0
+    b, j, l, s = hit.nonzero(as_tuple=True)
+    only = torch.zeros_like(start)
+    only[row_ids[b, j, l].long(), s] = 1
+    assert torch.equal(got, start | only)
+    assert hit[8].any() and torch.equal(hit[8], hit[9])
+    marks = start.clone()
+    assert bvss_spmm_mark(masks, fb, row_ids, marks, sigma=sigma) is marks
+    assert torch.equal(marks, got)
+
+
+def test_engine_takes_the_fused_marks_without_a_seam(monkeypatch):
+    """Without ``spmm_impl`` every level, pull and push, marks through
+    ``bvss_spmm_mark``; with a seam every level goes through the seam and
+    the fused entry is never called."""
+    calls = {"mark": 0, "seam": 0}
+
+    def spy_mark(*args, **kw):
+        calls["mark"] += 1
+        return bvss_spmm_mark_ref(*args, **kw)
+
+    def seam(*args, **kw):
+        calls["seam"] += 1
+        return bvss_spmm_ref(*args, **kw)
+
+    monkeypatch.setattr(tms, "bvss_spmm_mark_ref", spy_mark)
+    _, tp = problems("flip")
+    srcs = np.array([0, 5, 1500])
+    for impl in (None, seam):
+        eng = tms.make_ms_engine(tp, 3, use_kernel=False, spmm_impl=impl)
+        st = eng.init(srcs)
+        while st.cont:
+            st, _ = eng.level_step(st)
+        levels = eng.stats["pull_levels"] + eng.stats["push_levels"]
+        assert eng.stats["pull_levels"] > 0 and eng.stats["push_levels"] > 0
+        assert calls == ({"mark": levels, "seam": 0} if impl is None
+                         else {"mark": levels, "seam": levels})
+        for i, s in enumerate(srcs):
+            np.testing.assert_array_equal(eng.levels_of(st, i).numpy(),
+                                          reference_bfs(T_FAM["flip"], s))
+
+
+@pytest.mark.parametrize("direction", ["auto", "pull", "push"])
+@pytest.mark.parametrize("name", ["rmat", "flip"])
+def test_fused_marks_equal_seam(name, direction):
+    """The engine with its marks fused and the same engine built with
+    ``spmm_impl=bvss_spmm_ref`` give equal levels, through
+    ``make_multi_source_bfs`` and through ``drive_wave``."""
+    _, tp = problems(name)
+    queries = [0, 5, 19, 64, 100, 5, 127]
+    tm.check_fused_and_seam(tm.fused_and_seam(tp, direction, queries),
+                            T_FAM[name], queries, direction)
+
+
+@pytest.mark.parametrize("direction", ["auto", "pull", "push"])
+def test_levels_batch_on_fused_marks_equals_reference_bfs(direction):
+    """``GraphSession.levels_batch`` on the fused path: refills and a
+    duplicate, each answer equal to the host BFS."""
+    g = T_FAM["flip"]
+    sess = rt.GraphSession(g, max_batch=4, options=rt.PrepareOptions(
+        device="cpu", direction=direction))
+    queries = [0, 1111, g.n - 1, 7, 1200, 0]
+    for q, lv in zip(queries, sess.levels_batch(queries)):
+        np.testing.assert_array_equal(lv, reference_bfs(g, q))
+    wave = sess.counters()["wave"]
+    assert wave["pull_levels"] + wave["push_levels"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -460,6 +460,72 @@ def program_2d(rank: int, world: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the wave marks: fused into the bit-SpMM, or through the spmm_impl seam
+# ---------------------------------------------------------------------------
+FUSED_RANKS = (2, 8)
+FUSED_SHAPES_2D = ((2, 2), (4, 2))
+
+
+def fused_and_seam(problem, direction: str, queries) -> dict:
+    """The wave engine on ``problem`` with its marks stored by the fused
+    ``bvss_spmm_mark`` and, beside it, with the ``spmm_impl`` seam (the
+    unfused ``bvss_spmm_ref`` counts and one indexed store): the first
+    three ``queries`` as one fixed cohort (``make_multi_source_bfs`` for
+    the fused path, the seam engine's own level loop), then every query
+    through ``drive_wave`` with refills.  Levels are in the problem's row
+    ids, keyed by source."""
+    from repro_torch.core.multi_source import (drive_wave, make_ms_engine,
+                                               make_multi_source_bfs)
+    from repro_torch.kernels.ref import bvss_spmm_ref
+    cohort = np.asarray(queries[:3])
+    out = {}
+    for name, seam in (("fused", None), ("seam", bvss_spmm_ref)):
+        eng = make_ms_engine(problem, 3, direction=direction, spmm_impl=seam)
+        if seam is None:
+            fixed = make_multi_source_bfs(None, 3, problem=problem,
+                                          direction=direction)(cohort)
+        else:
+            st = eng.init(cohort)
+            while st.cont:
+                st, _ = eng.level_step(st)
+            fixed = eng.levels_of(st, None)
+        pending, owner, answers = list(queries), {}, {}
+
+        def next_source(slot):
+            if not pending:
+                return None
+            owner[slot] = pending.pop()
+            return owner[slot]
+
+        steps = drive_wave(eng, next_source,
+                           lambda slot, lv: answers.__setitem__(owner[slot],
+                                                                lv))
+        out[name] = {"cohort": fixed.numpy(), "wave": answers,
+                     "levels": steps}
+    return out
+
+
+def check_fused_and_seam(got: dict, g, queries, direction: str) -> None:
+    """The fused and the seam paths of :func:`fused_and_seam` give the
+    same levels and level counts, each answer equal to the host BFS of
+    ``g``."""
+    from repro_torch.core.bfs import reference_bfs
+    assert_same(got["fused"], got["seam"])
+    assert got["fused"]["levels"] > 0, direction
+    for i, s in enumerate(queries[:3]):
+        np.testing.assert_array_equal(got["fused"]["cohort"][:, i],
+                                      reference_bfs(g, int(s)))
+    assert sorted(got["fused"]["wave"]) == sorted(set(queries))
+    for s, lv in got["fused"]["wave"].items():
+        np.testing.assert_array_equal(lv, reference_bfs(g, int(s)))
+
+
+def fused_graph():
+    from repro_torch.graphs import generators as gen
+    return gen.rmat(7, 8, seed=2)
+
+
+# ---------------------------------------------------------------------------
 # mesh sessions, 1-D (tests/test_torch_mesh_session.py)
 # ---------------------------------------------------------------------------
 SESSION_RANKS = (1, 2, 8)
@@ -612,6 +678,13 @@ def program_session_1d(rank: int, world: int) -> dict:
                     x.numpy() for x in f(bc_sources(gb))]
         if P == 1:
             continue
+        # the wave marks, fused and through the seam, in every direction
+        if P in FUSED_RANKS:
+            sess = rt.GraphSession(fused_graph(), max_batch=3,
+                                   options=opts(P, order=False))
+            out[("fused", P)] = {
+                d: fused_and_seam(sess._problem, d, VERB_QUERIES)
+                for d in ("auto", "pull", "push")}
         # the caller-id contract: refills, a duplicate, mixed depths
         g = gen.rmat(8, 8, seed=1)
         sess = rt.GraphSession(g, max_batch=3, options=opts(P, w=256))
@@ -767,6 +840,12 @@ def program_session_2d(rank: int, world: int) -> dict:
             "pagerank": _raises(sess.pagerank),
             "push": _raises(make_ms_engine, sess._problem, 2,
                             direction="push")}
+        if shape in FUSED_SHAPES_2D:
+            # the wave marks, fused and through the seam (pull-only)
+            fs = rt.GraphSession(g, max_batch=3,
+                                 options=opts(shape, w=256, order=False))
+            out[("fused", shape)] = {
+                d: fused_and_seam(fs._problem, d, q) for d in ("auto", "pull")}
         # an edge update on the 2-D session: always a rebuild
         report = sess.update_edges(inserts=UPDATE_2D)
         out[("update", shape)] = {
