@@ -12,6 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 
+#: the size that the harness's CPU tests give every configuration of this
+#: family, merged over its parameters (``tiny.make_root``)
+TINY = {"scale": 7}
+
 
 def edge_tuples(params: dict, rng: np.random.Generator
                 ) -> tuple[int, np.ndarray, np.ndarray]:

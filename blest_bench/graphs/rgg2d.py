@@ -9,6 +9,10 @@ from __future__ import annotations
 
 import numpy as np
 
+#: the size that the harness's CPU tests give every configuration of this
+#: family, merged over its parameters (``tiny.make_root``)
+TINY = {"scale": 6}
+
 # the cell itself, then the four neighbours that make every adjacent pair
 # of cells appear exactly once
 _OFFSETS = ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1))

@@ -10,8 +10,10 @@ then measures for ``--seconds``: the window opens with the first call sent
 and closes when the last call sent before ``--seconds`` had passed returns.
 Afterwards it checks a sample of the window's answers, drawn from the seed,
 against the plain NumPy reference, and prints one JSON line.  With
-``--trace 1`` it profiles the window's first whole calls (at least
-``TRACE_SLICE_S`` of them) and reports the per-layer metrics instead of the
+``--trace 1`` it turns the port's spans on before ``GraphSession(...)``,
+profiles the window's first whole calls (at least ``TRACE_SLICE_S`` of
+them), keeps the spans of set-up, of that traced slice and of the rest of
+the window apart, and reports the per-layer metrics instead of the
 end-to-end ones.
 
 Everything a cell names is found by name: ``BENCHMARK.json`` gives the cell's
@@ -30,6 +32,7 @@ import gc                     # noqa: E402
 import json                   # noqa: E402
 import os                     # noqa: E402
 import sys                    # noqa: E402
+import threading              # noqa: E402
 import traceback              # noqa: E402
 from pathlib import Path      # noqa: E402
 
@@ -42,6 +45,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 #: the traced slice: the window's first whole calls until this much has passed
 TRACE_SLICE_S = 3.0
 SPAN = "blest_bench.traced_slice"
+#: the wave engine's counters (``GraphSession.counters()["wave"]``)
+COUNTERS = ("pull_levels", "push_levels", "host_syncs", "pull_width",
+            "pull_live")
 
 
 def forbidden_modules(names=None) -> list[str]:
@@ -128,10 +134,9 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
     config = json.loads((root / cfg_entry["file"]).read_text())
     mix = json.loads((root / BENCH / "mixes" / f"{cell['traffic']}.json").read_text())
 
-    from blest_bench import components, inputs, reference
+    from blest_bench import components, inputs, reference, trace
     from repro_torch.core.policy import PrepareOptions
     from repro_torch.graphs.csr import from_edges
-    from repro_torch.kernels import launch_counts
     from repro_torch.serve.graph_session import GraphSession
 
     bench_dir = root / BENCH
@@ -142,12 +147,17 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
     t_gen = time.perf_counter()
     edges = inputs.make_graph(config, bench_dir)
     g = from_edges(edges.n, *edges.directed(), dedup=False)
+    tracing = None
+    if args.trace:                     # the port's spans, set-up's kept apart
+        from repro_torch import tracing
+        tracing.enable()
     t_prep = time.perf_counter()
     session = GraphSession(
         g, max_batch=kind.slots(mix),
         options=PrepareOptions(device=None if device == "cuda" else "cpu"))
     sync()
     prepare_s = time.perf_counter() - t_prep
+    setup_spans = tracing.drain() if tracing else []
     print(f"[{args.workload}] n={edges.n} undirected_m={edges.m} "
           f"ordering={session.ordering} engine={session.engine_name} "
           f"slots={session.max_batch} imports_s={t_gen - t_start:.3f} "
@@ -161,29 +171,43 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
     sync()
     print(f"[{args.workload}] warm_s={time.perf_counter() - t_warm:.3f}",
           file=err)
+    if tracing:
+        setup_spans += tracing.drain()
     gc.collect()
-    stats = session._ms.stats
+
+    def snapshot():
+        c = session.counters()
+        return c["wave"], c["launches"]
+
     roots = inputs.Roots(edges, seed, stream=0)
-    c0, l0 = dict(stats), launch_counts()
+    c0, l0 = snapshot()
 
     # with --trace 1 the profiler covers the window's first whole calls,
-    # until TRACE_SLICE_S has passed; the counters cover the whole window
+    # until TRACE_SLICE_S has passed; the counters cover the whole window,
+    # and the spans and counters of the rest are also kept apart, free of
+    # the profiler's cost
     prof = span = None
+    slice_spans = []
+    slice_ns = []                  # the slice's start and end, span clock
     if args.trace:
         from torch.profiler import ProfilerActivity, profile, record_function
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device == "cuda" else []))
         span = record_function(SPAN)
         prof.start()
+        slice_ns.append(time.perf_counter_ns())
         span.__enter__()
     sliced = None
 
     def end_slice():
         nonlocal span, sliced
         sync()
+        slice_ns.append(time.perf_counter_ns())
         span.__exit__(None, None, None)
         prof.stop()
-        span, sliced = None, (dict(stats), launch_counts())
+        span, sliced = None, snapshot()
+        if tracing:
+            slice_spans.extend(tracing.drain())
 
     batches, answered = [], []
     setup_s = None
@@ -198,22 +222,32 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
             end_slice()
     if span is not None:
         end_slice()
-    c1, l1 = dict(stats), launch_counts()
+    c1, l1 = snapshot()
+    spans = None
+    if tracing:
+        rest_spans = tracing.drain()
+        tracing.disable()
+        spans = {"setup": setup_spans, "slice": slice_spans, "rest": rest_spans}
     window = {"wall_s": batches[-1][1] - batches[0][0], "batches": batches,
               "attempted": sum(b[2] for b in batches),
               "failed": sum(b[3] for b in batches)}
-    counters = {k: c1[k] - c0[k] for k in ("pull_levels", "push_levels",
-                                           "host_syncs")}
+    counters = {k: c1[k] - c0[k] for k in COUNTERS}
     launches = {k: l1[k] - l0[k] for k in l1}
 
-    trace_rec = None
+    trace_rec = parts = None
     if prof is not None:
-        from blest_bench import trace
         c2, l2 = sliced
+        parts = {"slice": {k: c2[k] - c0[k] for k in COUNTERS},
+                 "rest": {k: c1[k] - c2[k] for k in COUNTERS}}
         trace_rec = trace.summarize(prof, SPAN)
         trace_rec["levels"] = (c2["pull_levels"] + c2["push_levels"]
                                - c0["pull_levels"] - c0["push_levels"])
         trace_rec["hand_launches"] = sum(l2[k] - l0[k] for k in l2)
+        gaps = trace.on_span_clock(trace_rec.pop("gaps_us"),
+                                   trace_rec["slice_us"], tuple(slice_ns))
+        here = threading.get_ident()
+        trace_rec["idle_under"] = trace.idle_under(
+            gaps, [s for s in spans["slice"] if s.thread == here])
         del prof
 
     if device == "cuda":
@@ -232,6 +266,18 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
           f"failed={window['failed']} levels={levels} "
           f"host_syncs={counters['host_syncs']} launches={launches}",
           file=err)
+    span_s = None
+    if spans is not None:
+        span_s = {k: trace.span_totals(v) for k, v in spans.items()}
+        for k, tot in span_s.items():
+            print(f"[{args.workload}] {k} spans: " + " ".join(
+                f"{name}={v['n']}/{v['s']:.6f}s" for name, v in sorted(tot.items())),
+                file=err)
+    if trace_rec is not None:
+        print(f"[{args.workload}] slice idle by span: " + " ".join(
+            f"{p or '-'}={s:.6f}s" for p, s in sorted(
+                trace_rec["idle_under"].items(), key=lambda kv: -kv[1])),
+            file=err)
     del session, g
     gc.collect()
     if device == "cuda":
@@ -249,7 +295,8 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
           file=err)
     rec = {"setup_s": setup_s, "prepare_s": prepare_s, "window": window,
            "traversed_edges": int(comp[np.asarray(answered, dtype=np.int64)].sum()),
-           "counters": counters, "trace": trace_rec}
+           "counters": counters, "trace": trace_rec, "spans": span_s,
+           "rest_counters": parts and parts["rest"]}
 
     metrics = {}
     group = bench["per_layer"] if args.trace else bench["end_to_end"]
@@ -276,6 +323,8 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
               "failed": window["failed"], "metrics": metrics, "device": dev}
     if trace_rec is not None:
         result["breakdown"] = trace_rec["breakdown"]
+        result["spans"] = span_s        # the counts and seconds behind them
+        result["counters"] = parts
     result["checks"] = checks
     for name, c in checks.items():
         bound = f"limit {c['limit']}" if "limit" in c else f"at least {c['at_least']}"

@@ -126,6 +126,26 @@ def test_edges_of_component():
         [3, 3, 3, 2, 2, 2, 0]
 
 
+def test_graph500_cells_that_the_benchmark_names_are_not_added_twice(tmp_path):
+    src = tmp_path / "src"
+    (src / "blest_bench").mkdir(parents=True)
+    (src / "blest_bench" / "configs").mkdir()
+    (src / "blest_bench" / "graphs").mkdir()
+    for f in ("configs/graph500_s17.json", "graphs/kronecker.py"):
+        (src / "blest_bench" / f).write_bytes((BENCH_DIR / f).read_bytes())
+    (src / "BENCHMARK.json").write_text(json.dumps({
+        "configs": [dict(tiny.GRAPH500, source="Graph 500")],
+        "workloads": [dict(tiny.EXTRA_CELLS[0], why="named")]}))
+    bench = json.loads(
+        (tiny.make_root(tmp_path / "dst", src=src) / "BENCHMARK.json").read_text())
+    assert [c["name"] for c in bench["configs"]] == ["graph500_s17"]
+    assert bench["configs"][0]["source"] == "Graph 500"
+    assert [(w["name"], w["why"]) for w in bench["workloads"]] == \
+        [("graph500_s17.wave64", "named"), ("graph500_s17.single", "a test")]
+    cfg = json.loads((tmp_path / "dst" / bench["configs"][0]["file"]).read_text())
+    assert cfg["generator"]["params"]["scale"] == 7
+
+
 @pytest.mark.parametrize("workload", ["graph500_s17.wave64", "rgg_n_2_20.wave64"])
 def test_control_is_called_wrong(tmp_path, workload):
     row = control.readings(tiny.make_root(tmp_path), workload, 2**31 + 7)
@@ -138,23 +158,66 @@ def _reader(name: str):
                               inputs.module_name("metric", name))
 
 
+def _spans(seconds: dict) -> dict:
+    return {k: {"n": 1, "s": v} for k, v in seconds.items()}
+
+
 def test_metric_readers_on_a_known_record():
     rec = {"setup_s": 80.0, "prepare_s": 30.0, "traversed_edges": 4 * 10**9,
            "window": {"wall_s": 2.0, "attempted": 128, "failed": 0,
                       "batches": [(0.0, 0.1, 64, 0)] * 19 + [(0.0, 1.1, 64, 0)]},
-           "counters": {"pull_levels": 90, "push_levels": 10, "host_syncs": 120},
+           "counters": {"pull_levels": 90, "push_levels": 10, "host_syncs": 120,
+                        "pull_width": 4000, "pull_live": 1200},
            "trace": {"window_s": 4.0, "busy_s": 3.0, "hand_busy_s": 0.6,
-                     "hand_events": 50, "hand_launches": 50, "levels": 20}}
+                     "hand_events": 50, "hand_launches": 50, "levels": 20,
+                     "idle_under": {
+                         "": 0.05, "wave.batch": 0.01,
+                         "wave.batch/wave.refill": 0.1,
+                         "wave.batch/wave.level/wave.step": 0.3,
+                         "wave.batch/wave.level/wave.finalize/wave.copy_wait": 0.2,
+                         "wave.batch/wave.harvest/wave.copy_wait": 0.04,
+                         "wave.batch/wave.deliver": 0.16}},
+           "spans": {"setup": _spans({
+                         "prepare.order": 20.0, "prepare.permute": 1.5,
+                         "prepare.bvss": 2.5, "prepare.device": 3.0,
+                         "session.bind": 1.0, "kernels.load": 0.25,
+                         "wave.batch": 4.0}),
+                     "rest": _spans({"wave.batch": 1.9,
+                                     "wave.copy_wait": 0.4})},
+           "rest_counters": {"pull_levels": 45, "push_levels": 5,
+                             "host_syncs": 60, "pull_width": 2000,
+                             "pull_live": 600}}
     want = {"gteps": 2.0, "setup_s": 80.0, "prepare_s": 30.0,
             "wave_level_ms": 20.0, "syncs_per_level": 1.2,
             "hand_kernel_ms.wave": 30.0, "glue_share.wave": 0.8,
-            "idle_share.wave": 0.25, "batch_p95_ms": 150.0}
+            "idle_share.wave": 0.25, "batch_p95_ms": 150.0,
+            "prepare_order_s": 20.0, "prepare_bvss_s": 4.0,
+            "prepare_device_s": 4.0, "kernel_load_s": 0.25,
+            "wave_host_ms": 30.0, "copy_wait_ms": 8.0, "queue_fill.wave": 0.3,
+            "level_idle_share.wave": 0.15, "harvest_idle_share.wave": 0.05}
     for name, value in want.items():
         assert _reader(name).read(rec) == pytest.approx(value), name
-    # nothing to read: no trace, or launches the profiler did not see
+    # a build where nvcc ran counts with the loads
+    rec["spans"]["setup"].update(_spans({"kernels.build": 16.0}))
+    assert _reader("kernel_load_s").read(rec) == pytest.approx(16.25)
+    # nothing to read: no spans, no trace, or launches the profiler did not see
+    rec["spans"] = None
+    assert all(_reader(m).read(rec) is None for m in
+               ("prepare_order_s", "prepare_bvss_s", "prepare_device_s",
+                "kernel_load_s", "wave_host_ms", "copy_wait_ms"))
+    rec["spans"] = {"setup": _spans({"prepare.order": 20.0}), "rest": {}}
+    assert _reader("kernel_load_s").read(rec) is None
+    # a window that the traced slice took whole leaves no rest to read
+    rec["spans"]["rest"] = _spans({"wave.batch": 1.9, "wave.copy_wait": 0.4})
+    rec["rest_counters"] = None
+    assert _reader("wave_host_ms").read(rec) is None
+    assert _reader("copy_wait_ms").read(rec) is None
     rec["trace"] = None
     assert all(_reader(m).read(rec) is None for m in
-               ("hand_kernel_ms.wave", "glue_share.wave", "idle_share.wave"))
+               ("hand_kernel_ms.wave", "glue_share.wave", "idle_share.wave",
+                "level_idle_share.wave", "harvest_idle_share.wave"))
+    rec["counters"]["pull_width"] = 0
+    assert _reader("queue_fill.wave").read(rec) is None
     rec["trace"] = {"window_s": 4.0, "busy_s": 3.0, "hand_busy_s": 0.6,
                     "hand_events": 49, "hand_launches": 50, "levels": 20}
     assert _reader("hand_kernel_ms.wave").read(rec) is None
@@ -188,3 +251,33 @@ def test_trace_arithmetic():
     cpu = [(0, 10, "outer"), (2, 4, "inner"), (6, 8, "other")]
     assert trace._host_labels(cpu, np.array([1, 3, 5, 7, 11])) == \
         ["outer", "inner", "outer", "other", "python"]
+
+
+def test_idle_gaps_on_the_span_clock_by_the_spans_open():
+    # the profiler's slice 100-200 µs is 5,000-105,000 ns on the span clock
+    gaps = trace.on_span_clock([(100.0, 110.0), (150.0, 160.0)],
+                               (100.0, 200.0), (5_000, 105_000))
+    assert gaps == [(5_000.0, 15_000.0), (55_000.0, 65_000.0)]
+    from repro_torch import tracing
+
+    def S(name, sid, parent, start, end):
+        return tracing.Span(name, sid, parent, None, 7, start, end)
+
+    spans = [S("wave.batch", 1, None, 0, 100_000),
+             S("wave.level", 2, 1, 1_000, 40_000),
+             S("wave.step", 3, 2, 2_000, 30_000),
+             S("wave.harvest", 4, 1, 40_000, 70_000),
+             S("wave.copy_wait", 5, 4, 50_000, 69_000)]
+    got = trace.idle_under(
+        [(0, 500), (10_000, 20_000), (31_000, 33_000), (60_000, 61_000),
+         (100_000, 104_000)], spans)
+    assert got == pytest.approx({
+        "wave.batch": 500e-9, "wave.batch/wave.level/wave.step": 10_000e-9,
+        "wave.batch/wave.level": 2_000e-9,
+        "wave.batch/wave.harvest/wave.copy_wait": 1_000e-9, "": 4_000e-9})
+    # the harness's sweep names what the port's own does
+    mids = [250, 15_000, 32_000, 60_500, 102_000]
+    ours = trace._host_labels([(s.start_ns, s.end_ns, s.name) for s in spans],
+                              mids, none=None)
+    assert ours == [None if s is None else s.name
+                    for s in tracing.innermost(spans, mids)]

@@ -1,8 +1,9 @@
 """CPU tests of whole runs of the harness on the port's CPU twins
 (``device="cpu"``), at tiny sizes: the shape of the last line for each
 traffic kind, a configuration, mix and metric added as files and found by
-name, and ``correct`` coming out false when the timed path is broken
-underneath.  The runs happen in one fresh process (``tiny.main``), so the
+name, configurations that the tests have never seen (one of each generator
+family) taken at their family's CPU size, and ``correct`` coming out false
+when the timed path is broken underneath.  The runs happen in one fresh process (``tiny.main``), so the
 import guard sees only what a run loads; whether a card is present is
 decided inside a test."""
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -58,14 +60,47 @@ def _add_throwaway(root: Path) -> None:
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
 
 
+#: configurations no test names elsewhere, one of each generator family,
+#: each from a committed one at another scale: ``(from, name, scale)``
+UNSEEN = [("graph500_s17", "graph500_s20", 20), ("rgg_n_2_20", "rgg_n_2_19", 19)]
+
+
+def unseen_source(tmp: Path) -> Path:
+    """A source root: the committed benchmark, and the :data:`UNSEEN`
+    configurations given only as new files under ``configs/`` and new
+    entries (a configuration and a ``wave64`` cell) in ``BENCHMARK.json``."""
+    shutil.copytree(tiny.BENCH_DIR, tmp / "blest_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    configs = tmp / "blest_bench" / "configs"
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    for base, name, scale in UNSEEN:
+        cfg = json.loads((configs / f"{base}.json").read_text())
+        cfg["name"] = name
+        cfg["generator"]["params"]["scale"] = scale
+        (configs / f"{name}.json").write_text(json.dumps(cfg))
+        bench["configs"].append({"name": name, "source": "a test",
+                                 "file": f"blest_bench/configs/{name}.json",
+                                 "reduced": [], "why": "a test"})
+        bench["workloads"].append({"name": f"{name}.wave64", "config": name,
+                                   "traffic": "wave64", "chips": 1,
+                                   "why": "a test"})
+    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    return tmp
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tiny.make_root(tmp_path_factory.mktemp("bench"))
     copied = _digests(root / "blest_bench")
     _add_throwaway(root)
+    unseen = tiny.make_root(tmp_path_factory.mktemp("unseen"),
+                            src=unseen_source(tmp_path_factory.mktemp("src")))
     base = {"root": str(root), "seed": SEED, "seconds": 0.2}
-    jobs = [dict(base, workload="graph500_s17.wave64"),
-            dict(base, workload="rgg_n_2_20.wave64", trace=1),
+    jobs = [dict(base, workload=f"{name}.wave64", root=str(unseen))
+            for _, name, _ in UNSEEN]
+    jobs += [dict(base, workload="graph500_s17.wave64"),
+            # whole calls after the traced one, for the rest's readers
+            dict(base, workload="rgg_n_2_20.wave64", trace=1, seconds=3.0),
             dict(base, workload="rgg_n_2_20.wave64"),
             dict(base, workload="graph500_s17.single"),
             dict(base, workload="rgg_small.wave4")]
@@ -79,7 +114,7 @@ def runs(tmp_path_factory):
         timeout=300, cwd=str(root))
     assert proc.returncode == 0, proc.stderr[-3000:]
     rows = [json.loads(line) for line in proc.stdout.splitlines()]
-    return {"root": root, "copied": copied,
+    return {"root": root, "copied": copied, "unseen": unseen,
             "rows": {(r["job"]["workload"], r["job"].get("trace", 0),
                       r["job"].get("fault")): r for r in rows}}
 
@@ -111,10 +146,23 @@ def test_traced_run_reports_per_layer_metrics(runs):
     res = _result(runs, "rgg_n_2_20.wave64", trace=1)
     _line_shape(res)
     assert res["correct"]
-    # the CPU twins leave no device trace: only host and counter metrics
-    assert set(res["metrics"]) == {"prepare_s", "wave_level_ms", "syncs_per_level"}
+    # the CPU twins leave no device trace and load no kernel library: only
+    # host, span and counter metrics
+    assert set(res["metrics"]) == {
+        "prepare_s", "wave_level_ms", "syncs_per_level", "prepare_order_s",
+        "prepare_bvss_s", "prepare_device_s", "wave_host_ms", "copy_wait_ms",
+        "queue_fill.wave"}
+    m = {k: v["value"] for k, v in res["metrics"].items()}
+    assert m["prepare_order_s"] + m["prepare_bvss_s"] + m["prepare_device_s"] \
+        <= m["prepare_s"]
+    assert 0 < m["queue_fill.wave"] <= 1
     assert res["device"]["window_s"] > 0
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+    # one wave.copy_wait span for each host copy the engine counted, in the
+    # traced slice and in the rest of the window
+    for part in ("slice", "rest"):
+        assert res["spans"][part]["wave.copy_wait"]["n"] == \
+            res["counters"][part]["host_syncs"] > 0, part
 
 
 def test_single_kind_serves_one_root_a_call(runs):
@@ -135,6 +183,20 @@ def test_new_config_mix_and_metric_are_found_by_name(runs):
     assert _digests(tiny.BENCH_DIR) == {
         k: v for k, v in runs["copied"].items()
         if not k.startswith("configs/tiny_")}
+
+
+@pytest.mark.parametrize("base,name,scale", UNSEEN)
+def test_unseen_configuration_runs_at_its_family_size(runs, base, name, scale):
+    """A configuration given only as a file and entries is cut to its
+    family's CPU size, as the committed one of that family is, and runs."""
+    b = runs["unseen"] / "blest_bench" / "configs"
+    new = json.loads((b / f"tiny_{name}.json").read_text())
+    old = json.loads((b / f"tiny_{base}.json").read_text())
+    assert new["generator"] == old["generator"]
+    res = _result(runs, f"{name}.wave64")
+    _line_shape(res)
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
+    assert set(res["metrics"]) == {"gteps", "setup_s"}
 
 
 @pytest.mark.parametrize("fault", sorted(tiny.FAULTS))

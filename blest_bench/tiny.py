@@ -25,11 +25,11 @@ from unittest import mock
 
 REPO = Path(__file__).resolve().parents[1]
 BENCH_DIR = REPO / "blest_bench"
-SCALES = {"graph500_s17": 7, "rgg_n_2_20": 6}
 
 
 #: cells the tests add to the copy, by data alone: the Graph 500
 #: configuration that waits for a later benchmark PR, under both kinds
+#: (each only where ``BENCHMARK.json`` does not name it already)
 GRAPH500 = {"name": "graph500_s17", "source": "Graph 500 Benchmark 1",
             "file": "blest_bench/configs/graph500_s17.json",
             "reduced": ["scale"], "why": "the social regime"}
@@ -38,17 +38,25 @@ EXTRA_CELLS = [{"name": f"graph500_s17.{t}", "config": "graph500_s17",
                for t in ("wave64", "single")]
 
 
-def make_root(tmp: Path) -> Path:
-    """A root with the benchmark's files copied verbatim, the configurations
-    at CPU sizes as new files, and the Graph 500 cells besides its own."""
-    shutil.copytree(BENCH_DIR, tmp / "blest_bench",
+def make_root(tmp: Path, src: Path = REPO) -> Path:
+    """A root with the benchmark's files of ``src`` copied verbatim, every
+    configuration at its family's CPU size (the ``TINY`` parameters of
+    ``graphs/<family>.py``) as a new file, and the Graph 500 cells that
+    ``BENCHMARK.json`` lacks."""
+    from blest_bench import inputs
+    shutil.copytree(src / "blest_bench", tmp / "blest_bench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((REPO / "BENCHMARK.json").read_text())
-    bench["configs"].append(dict(GRAPH500))
-    bench["workloads"] += EXTRA_CELLS
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    if all(c["name"] != GRAPH500["name"] for c in bench["configs"]):
+        bench["configs"].append(dict(GRAPH500))
+    cells = {w["name"] for w in bench["workloads"]}
+    bench["workloads"] += [dict(w) for w in EXTRA_CELLS if w["name"] not in cells]
     for c in bench["configs"]:
         cfg = json.loads((tmp / c["file"]).read_text())
-        cfg["generator"]["params"]["scale"] = SCALES[c["name"]]
+        family = cfg["generator"]["family"]
+        cfg["generator"]["params"].update(inputs.load_module(
+            tmp / "blest_bench" / "graphs" / f"{family}.py",
+            inputs.module_name("graph", family)).TINY)
         c["file"] = f"blest_bench/configs/tiny_{c['name']}.json"
         (tmp / c["file"]).write_text(json.dumps(cfg))
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench))

@@ -6,10 +6,15 @@ the rest of the slice, each named by what the host thread that opened the
 slice was doing at the gap's middle (its innermost profiled call, or
 ``python`` where no call was open).  The port's hand-written kernels are
 told apart by name.
+
+The gaps are also handed back, so that a run with the port's spans on can
+put each on the span clock (:func:`on_span_clock`) and name it by the
+program spans open at its middle (:func:`idle_under`).
 """
 from __future__ import annotations
 
 import re
+from typing import Sequence
 
 import numpy as np
 
@@ -23,6 +28,27 @@ HAND_KERNEL = re.compile(
     r"finalize_sweep_kernel)\b(<[^>]*>)?")
 
 TOP = 10
+
+
+def span_totals(spans: Sequence) -> dict[str, dict]:
+    """For each name of the port's spans (``repro_torch.tracing.Span``), how
+    many there are (``n``) and their seconds (``s``)."""
+    out: dict[str, dict] = {}
+    for s in spans:
+        tot = out.setdefault(s.name, {"n": 0, "s": 0.0})
+        tot["n"] += 1
+        tot["s"] += (s.end_ns - s.start_ns) / 1e9
+    return out
+
+
+def on_span_clock(gaps_us: Sequence[tuple[float, float]],
+                  slice_us: tuple[float, float], slice_ns: tuple[int, int]
+                  ) -> list[tuple[float, float]]:
+    """Profiler times (µs) on the span clock (ns), by the slice's start and
+    end as each clock read them."""
+    (u0, u1), (p0, p1) = slice_us, slice_ns
+    rate = (p1 - p0) / (u1 - u0) if u1 > u0 else 1e3
+    return [(p0 + (a - u0) * rate, p0 + (b - u0) * rate) for a, b in gaps_us]
 
 
 def union_s(spans: list[tuple[float, float]]) -> float:
@@ -49,10 +75,11 @@ def _merged(spans: list[tuple[float, float]]) -> list[list[float]]:
     return out
 
 
-def _host_labels(cpu: list[tuple[float, float, str]], points: np.ndarray
-                 ) -> list[str]:
-    """The innermost call open at each of the sorted ``points``; the calls of
-    one thread nest, so one sweep with a stack finds them all."""
+def _host_labels(cpu: list[tuple[float, float, object]], points,
+                 none: object = "python") -> list:
+    """The label of the innermost call open at each of the sorted ``points``
+    (``none`` where no call is); the calls of one thread nest, so one sweep
+    with a stack finds them all."""
     cpu = sorted(cpu, key=lambda e: (e[0], -e[1]))
     labels, stack, i = [], [], 0
     for p in points:
@@ -63,8 +90,28 @@ def _host_labels(cpu: list[tuple[float, float, str]], points: np.ndarray
             i += 1
         while stack and stack[-1][1] < p:
             stack.pop()
-        labels.append(stack[-1][2] if stack else "python")
+        labels.append(stack[-1][2] if stack else none)
     return labels
+
+
+def idle_under(gaps_ns: Sequence[tuple[float, float]], spans: Sequence
+               ) -> dict[str, float]:
+    """Seconds of the sorted idle gaps (span clock) by the port's spans open
+    at each gap's middle: the path of their names, outermost first, joined
+    by ``/`` (``""`` where none is open).  ``spans`` are one thread's."""
+    by_id = {s.id: s for s in spans}
+    mids = [(a + b) / 2 for a, b in gaps_ns]
+    ids = _host_labels([(s.start_ns, s.end_ns, s.id) for s in spans], mids,
+                       none=None)
+    out: dict[str, float] = {}
+    for (a, b), sid in zip(gaps_ns, ids):
+        names = []
+        while sid is not None and sid in by_id:
+            names.append(by_id[sid].name)
+            sid = by_id[sid].parent
+        path = "/".join(reversed(names))
+        out[path] = out.get(path, 0.0) + (b - a) / 1e9
+    return out
 
 
 def summarize(prof, span_name: str) -> dict:
@@ -103,6 +150,8 @@ def summarize(prof, span_name: str) -> dict:
            and e.self_device_time_total > 0}
     ops.update({k: v / 1e6 for k, v in hand_time.items()})
     return {
+        "slice_us": (t0, t1),
+        "gaps_us": gaps,
         "window_s": (t1 - t0) / 1e6,
         "busy_s": union_s(spans) / 1e6,
         "hand_busy_s": union_s(hand_spans) / 1e6,
